@@ -1,9 +1,12 @@
 // Conformer convolution module: the two fused stages around the depthwise
-// conv, forward (eval, no dropout).
+// conv, forward.
 //
 //   glu_in: out = mask * GLU(LN(x) . W + b)       W (D, 2D), LN eps 1e-6
-//   bn_out: out = x + mask * (SiLU((c - mu) * rsqrt(var + 1e-5) * s + t)
-//                             . W + b)            W (D, D), running stats
+//   bn_out: out = x + mask * drop(SiLU((c - mu) * rsqrt(var + 1e-5) * s + t)
+//                                 . W + b)        W (D, D)
+// mu and var are the running statistics in eval and the masked batch
+// statistics in training; the dropout (stream 0, by (row, column), see
+// common.cuh) is the identity at rate 0.
 //
 // Rows are (R, D) bf16, mask (R,) f32, vectors f32, weights bf16
 // row-major. One block of 8 warps owns BM = 32 rows: the normalised rows
@@ -87,7 +90,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
                   const float* __restrict__ scale,
                   const float* __restrict__ bias, const bf16* __restrict__ w,
                   const float* __restrict__ bw, bf16* __restrict__ out,
-                  int R) {
+                  int R, Drop dr) {
   using S = Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ys = reinterpret_cast<bf16*>(smem);
@@ -113,12 +116,17 @@ __global__ void __launch_bounds__(NWARPS * 32)
     wmma::store_matrix_sync(hs + rg * 16 * LDC + cg * 16, h, LDC,
                             wmma::mem_row_major);
     __syncthreads();
-    for (int i = threadIdx.x; i < BM * NC; i += NWARPS * 32) {
-      const int r = i / NC, c = i % NC, row = r0 + r;
+    for (int g = threadIdx.x; g < BM * NC / 4; g += NWARPS * 32) {
+      const int r = g / (NC / 4), c = (g % (NC / 4)) * 4, row = r0 + r;
       if (row < R) {
-        const size_t o = (size_t)row * D + c0 + c;
-        const float hv = hs[r * LDC + c] + bw[c0 + c];
-        out[o] = __float2bfloat16(__bfloat162float(x[o]) + mask[row] * hv);
+        const unsigned kb = keep4(dr, 0, 0, row, (c0 + c) >> 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const size_t o = (size_t)row * D + c0 + c + e;
+          const float hv = (hs[r * LDC + c + e] + bw[c0 + c + e]) *
+                           keep_scale(dr, kb, e);
+          out[o] = __float2bfloat16(__bfloat162float(x[o]) + mask[row] * hv);
+        }
       }
     }
     __syncthreads();
@@ -145,7 +153,7 @@ template <int D>
 cudaError_t launch_bn(const void* conv, const void* x, const void* mask,
                       const void* mu, const void* var, const void* scale,
                       const void* bias, const void* w, const void* bw,
-                      void* out, int R, cudaStream_t stream) {
+                      void* out, int R, Drop dr, cudaStream_t stream) {
   constexpr int bytes = Smem<D>::BYTES_BN;
   cudaError_t err = cudaFuncSetAttribute(
       bn_out_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -155,7 +163,7 @@ cudaError_t launch_bn(const void* conv, const void* x, const void* mask,
       static_cast<const float*>(mask), static_cast<const float*>(mu),
       static_cast<const float*>(var), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<const bf16*>(w),
-      static_cast<const float*>(bw), static_cast<bf16*>(out), R);
+      static_cast<const float*>(bw), static_cast<bf16*>(out), R, dr);
   return cudaGetLastError();
 }
 
@@ -177,21 +185,25 @@ extern "C" int glu_in_fwd(const void* x, const void* mask, const void* gamma,
   }
 }
 
+// bn_out: seed0, seed1, thr are the dropout seed words and keep threshold
+// as uint32 bit patterns, inv = 1 / (1 - rate).
 extern "C" int bn_out_fwd(const void* conv, const void* x, const void* mask,
                           const void* mu, const void* var, const void* scale,
                           const void* bias, const void* w, const void* bw,
-                          void* out, int R, int D, void* stream) {
+                          void* out, int R, int D, int seed0, int seed1,
+                          int thr, float inv, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const Drop dr{(uint32_t)seed0, (uint32_t)seed1, (uint32_t)thr, inv};
   if (R <= 0) return cudaSuccess;
   switch (D) {
     case 128:
-      return launch_bn<128>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, s);
+      return launch_bn<128>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, dr, s);
     case 256:
-      return launch_bn<256>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, s);
+      return launch_bn<256>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, dr, s);
     case 384:
-      return launch_bn<384>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, s);
+      return launch_bn<384>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, dr, s);
     case 512:
-      return launch_bn<512>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, s);
+      return launch_bn<512>(conv, x, mask, mu, var, scale, bias, w, bw, out, R, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }

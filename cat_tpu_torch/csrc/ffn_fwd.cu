@@ -1,7 +1,9 @@
-// Fused conformer feed-forward module, forward (eval, no dropout):
-//   out = x + alpha * (SiLU(LN(x) . W1 + b1) . W2 + b2)
+// Fused conformer feed-forward module, forward:
+//   out = x + alpha * drop1(drop0(SiLU(LN(x) . W1 + b1)) . W2 + b2)
 // x, out (R, D) bf16; W1 (D, F), W2 (F, D) bf16 row-major; gamma, beta,
-// b1, b2 f32. LN eps 1e-6, statistics and sums in f32.
+// b1, b2 f32. LN eps 1e-6, statistics and sums in f32. Dropout stream 0
+// masks the (R, F) hidden activation, stream 1 the (R, D) output, both by
+// (row, column) as common.cuh defines (rate 0: no Philox at all).
 //
 // One block of 8 warps owns BM = 32 rows. LN(x) goes to shared memory as
 // bf16. The hidden layer is walked in chunks of FC = 64 columns: the
@@ -35,7 +37,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
                    const float* __restrict__ beta, const bf16* __restrict__ w1,
                    const float* __restrict__ b1, const bf16* __restrict__ w2,
                    const float* __restrict__ b2, bf16* __restrict__ out, int R,
-                   int F, float alpha) {
+                   int F, float alpha, Drop dr) {
   using S = FfnSmem<D>;
   constexpr int NJ = D / (16 * NWARPS);  // 16-wide column tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
@@ -68,10 +70,15 @@ __global__ void __launch_bounds__(NWARPS * 32)
     wmma::store_matrix_sync(hs + rg * 16 * S::LDH + cg * 16, h, S::LDH,
                             wmma::mem_row_major);
     __syncthreads();
-    for (int i = threadIdx.x; i < BM * FC; i += NWARPS * 32) {
-      const int r = i / FC, c = i % FC;
-      const float v = hs[r * S::LDH + c] + b1[f0 + c];
-      hb[r * S::LDHB + c] = __float2bfloat16(v * sigmoid(v));
+    for (int g = threadIdx.x; g < BM * FC / 4; g += NWARPS * 32) {
+      const int r = g / (FC / 4), c = (g % (FC / 4)) * 4;
+      const unsigned kb = keep4(dr, 0, 0, r0 + r, (f0 + c) >> 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = hs[r * S::LDH + c + e] + b1[f0 + c + e];
+        hb[r * S::LDHB + c + e] =
+            __float2bfloat16(v * sigmoid(v) * keep_scale(dr, kb, e));
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -98,13 +105,20 @@ __global__ void __launch_bounds__(NWARPS * 32)
     for (int j = 0; j < NJ; ++j) {
       wmma::store_matrix_sync(scr, acc[g][j], 16, wmma::mem_row_major);
       __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = r0 + g * 16 + e / 16;
-        const int col = col0 + j * 16 + e % 16;
+      for (int q = lane; q < 64; q += 32) {
+        const int er = q / 4, ec = (q % 4) * 4;
+        const int row = r0 + g * 16 + er;
+        const int col = col0 + j * 16 + ec;
         if (row < R) {
-          const size_t o = (size_t)row * D + col;
-          out[o] = __float2bfloat16(__bfloat162float(x[o]) +
-                                    alpha * (scr[e] + b2[col]));
+          const unsigned kb = keep4(dr, 1, 0, row, col >> 2);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const size_t o = (size_t)row * D + col + e;
+            out[o] = __float2bfloat16(
+                __bfloat162float(x[o]) +
+                alpha * (scr[er * 16 + ec + e] + b2[col + e]) *
+                    keep_scale(dr, kb, e));
+          }
         }
       }
       __syncwarp();
@@ -115,7 +129,7 @@ template <int D>
 cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
                    const bf16* w1, const float* b1, const bf16* w2,
                    const float* b2, bf16* out, int R, int F, float alpha,
-                   cudaStream_t stream) {
+                   Drop dr, cudaStream_t stream) {
   using S = FfnSmem<D>;
   static_assert(BM * S::LDH * 4 >= NWARPS * 256 * 4,
                 "the epilogue reuses the hidden-chunk buffer as scratch");
@@ -125,7 +139,7 @@ cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
   if (err != cudaSuccess) return err;
   const int blocks = (R + BM - 1) / BM;
   ffn_fwd_kernel<D><<<blocks, NWARPS * 32, S::BYTES, stream>>>(
-      x, gamma, beta, w1, b1, w2, b2, out, R, F, alpha);
+      x, gamma, beta, w1, b1, w2, b2, out, R, F, alpha, dr);
   return cudaGetLastError();
 }
 
@@ -133,10 +147,14 @@ cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
 
 // Returns the CUDA error of the launch (0 on success). D must be 128, 256,
 // 384 or 512 and F a multiple of 64; the Python wrapper checks both.
+// seed0, seed1, thr: the dropout seed words and keep threshold as uint32
+// bit patterns; inv = 1 / (1 - rate).
 extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
                        const void* w1, const void* b1, const void* w2,
                        const void* b2, void* out, int R, int D, int F,
-                       float alpha, void* stream) {
+                       int seed0, int seed1, int thr, float alpha, float inv,
+                       void* stream) {
+  const Drop dr{(uint32_t)seed0, (uint32_t)seed1, (uint32_t)thr, inv};
   auto s = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const bf16*>(x);
   auto w1b = static_cast<const bf16*>(w1);
@@ -149,10 +167,10 @@ extern "C" int ffn_fwd(const void* x, const void* gamma, const void* beta,
   if (R <= 0) return cudaSuccess;
   if (F % FC != 0) return cudaErrorInvalidValue;
   switch (D) {
-    case 128: return launch<128>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, s);
-    case 256: return launch<256>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, s);
-    case 384: return launch<384>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, s);
-    case 512: return launch<512>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, s);
+    case 128: return launch<128>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, dr, s);
+    case 256: return launch<256>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, dr, s);
+    case 384: return launch<384>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, dr, s);
+    case 512: return launch<512>(xb, g, be, w1b, b1f, w2b, b2f, o, R, F, alpha, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,14 @@
-// Relative-position (Transformer-XL) multi-head attention, forward (eval):
+// Relative-position (Transformer-XL) multi-head attention, forward:
 //
-//   out[n,t,h] = sum_s softmax_s(((q_t + u) . k_s + (q_t + v) . p[T-1-t+s])
-//                                * scale + keymask) v_s
+//   out[n,t,h] = sum_s drop(softmax_s(((q_t + u) . k_s + (q_t + v) . p[T-1-t+s])
+//                                     * scale + keymask)) v_s
+//
+// Dropout (stream 0, plane n*H + h, row t, column s; see common.cuh)
+// scales the unnormalised probabilities before the value product, while
+// the normaliser sums them undropped, as the TPU kernel does. The kernel
+// also writes the per-row log-sum-exp lse (N, H, T) f32 that the backward
+// kernel (relpos_attention_bwd.cu) rebuilds the probabilities from; rows
+// past the length get 0.
 //
 // q, k, v, out (N, T, H*Dh) bf16, the projections' packed layout; p
 // (2T-1, H*Dh) bf16, the projected sinusoid table; u, v biases (H*Dh) bf16;
@@ -77,8 +84,9 @@ __global__ void __launch_bounds__(NW * 32)
                            const bf16* __restrict__ ub,
                            const bf16* __restrict__ vb,
                            const int* __restrict__ lengths,
-                           bf16* __restrict__ out, int T, int H,
-                           float scale) {
+                           bf16* __restrict__ out,
+                           float* __restrict__ lse, int T, int H,
+                           float scale, Drop dr) {
   using S = AttnSmem<DH>;
   constexpr int LDT = S::LDT, LDO = S::LDO;
   const int D = H * DH;
@@ -91,6 +99,8 @@ __global__ void __launch_bounds__(NW * 32)
   if (t0 >= len) {  // every query row of the tile is padding
     constexpr int C8 = DH / 8;
     const int rows = min(BQ, T - t0);
+    for (int i = threadIdx.x; i < rows; i += NW * 32)
+      lse[((size_t)n * H + h) * T + t0 + i] = 0.f;
     for (int i = threadIdx.x; i < rows * C8; i += NW * 32) {
       const int r = i / C8, c = (i % C8) * 8;
       *reinterpret_cast<uint4*>(out + base + (size_t)(t0 + r) * D + hoff +
@@ -141,6 +151,8 @@ __global__ void __launch_bounds__(NW * 32)
   const bf16* q_u = qu + warp * 16 * LDT;
   const bf16* q_v = qv + warp * 16 * LDT;
   const int win0 = (BQ - 16) - 16 * warp;  // first window row of this warp
+  const int t_row = t0 + 16 * warp + r;     // this lane pair's query
+  const uint32_t plane = (uint32_t)(n * H + h);
 
   for (int s0 = 0; s0 < len; s0 += BK) {
     __syncthreads();  // the previous key tile is no longer read
@@ -197,10 +209,15 @@ __global__ void __launch_bounds__(NW * 32)
     const float corr = __expf(m_run - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float e = __expf(sv[i] - m_new);
-      psum += e;
-      pb[r * LDP + half + i] = __float2bfloat16(e);
+    for (int i4 = 0; i4 < 32; i4 += 4) {
+      const unsigned kb = keep4(dr, 0, plane, t_row, (s0 + half + i4) >> 2);
+#pragma unroll
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int i = i4 + e4;
+        const float e = __expf(sv[i] - m_new);
+        psum += e;
+        pb[r * LDP + half + i] = __float2bfloat16(e * keep_scale(dr, kb, e4));
+      }
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l_run = l_run * corr + psum;
@@ -227,9 +244,12 @@ __global__ void __launch_bounds__(NW * 32)
     __syncwarp();
   }
 
-  const int t = t0 + 16 * warp + r;
+  const int t = t_row;
   if (t < T) {
     const float inv = (t < len) ? 1.f / l_run : 0.f;
+    if ((lane & 1) == 0)
+      lse[((size_t)n * H + h) * T + t] =
+          (t < len) ? m_run + logf(l_run) : 0.f;
     bf16* dst = out + base + (size_t)t * D + hoff;
     for (int d = (lane & 1) * (DH / 2); d < (lane & 1) * (DH / 2) + DH / 2;
          ++d)
@@ -240,8 +260,8 @@ __global__ void __launch_bounds__(NW * 32)
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* p,
                    const void* ub, const void* vb, const void* lengths,
-                   void* out, int N, int T, int H, float scale,
-                   cudaStream_t stream) {
+                   void* out, void* lse, int N, int T, int H, float scale,
+                   Drop dr, cudaStream_t stream) {
   constexpr int bytes = AttnSmem<DH>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       relpos_attn_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,7 +272,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* p,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(p),
       static_cast<const bf16*>(ub), static_cast<const bf16*>(vb),
-      static_cast<const int*>(lengths), static_cast<bf16*>(out), T, H, scale);
+      static_cast<const int*>(lengths), static_cast<bf16*>(out),
+      static_cast<float*>(lse), T, H, scale, dr);
   return cudaGetLastError();
 }
 
@@ -260,19 +281,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* p,
 
 // Returns the CUDA error of the launch (0 on success). Dh must be 16, 32, 64
 // or 128; the Python wrapper checks it and clamps lengths to [0, T].
+// seed0, seed1, thr: dropout seed words and keep threshold as uint32 bit
+// patterns; inv = 1 / (1 - rate).
 extern "C" int relpos_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* p,
                                     const void* ub, const void* vb,
-                                    const void* lengths, void* out, int N,
-                                    int T, int H, int Dh, float scale,
-                                    void* stream) {
+                                    const void* lengths, void* out, void* lse,
+                                    int N, int T, int H, int Dh, int seed0,
+                                    int seed1, int thr, float scale,
+                                    float inv, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const Drop dr{(uint32_t)seed0, (uint32_t)seed1, (uint32_t)thr, inv};
   if (N <= 0 || T <= 0) return cudaSuccess;
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, p, ub, vb, lengths, out, N, T, H, scale, s);
-    case 32: return launch<32>(q, k, v, p, ub, vb, lengths, out, N, T, H, scale, s);
-    case 64: return launch<64>(q, k, v, p, ub, vb, lengths, out, N, T, H, scale, s);
-    case 128: return launch<128>(q, k, v, p, ub, vb, lengths, out, N, T, H, scale, s);
+    case 16: return launch<16>(q, k, v, p, ub, vb, lengths, out, lse, N, T, H, scale, dr, s);
+    case 32: return launch<32>(q, k, v, p, ub, vb, lengths, out, lse, N, T, H, scale, dr, s);
+    case 64: return launch<64>(q, k, v, p, ub, vb, lengths, out, lse, N, T, H, scale, dr, s);
+    case 128: return launch<128>(q, k, v, p, ub, vb, lengths, out, lse, N, T, H, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
 """Encoders in PyTorch: the conformer (counterpart of `ConformerNet` in
-`cat_tpu/models/encoders.py`), eval mode, conv2d subsampling.
+`cat_tpu/models/encoders.py`), conv2d subsampling, eval and training
+mode (`.train()`: dropout and batch statistics, see `models/layers.py`).
 
 The JAX module's `remat`, `scan_layers`, `subsampling_remat` and
 `remat_policy` are accepted and ignored: they change how training keeps
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from cat_tpu_torch.models.layers import ConformerCell, Conv2dSubsampling, Dense
+from cat_tpu_torch.models.layers import (ConformerCell, Conv2dSubsampling,
+                                         Dense, Dropout)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -47,19 +49,21 @@ class ConformerNet(nn.Module):
         self.dtype = _DTYPES[dtype]
         self.idim = idim
         self.subsampling = Conv2dSubsampling(idim, hdim, subsampling_chunk)
+        self.dropout = Dropout(dropout_rate)
         self.cells = nn.ModuleList(
-            ConformerCell(hdim, num_heads, kernel_size)
+            ConformerCell(hdim, num_heads, kernel_size,
+                          dropout_rate=dropout_rate)
             for _ in range(num_cells))
         self.classifier = (Dense(hdim, num_classes)
                            if with_head and num_classes > 0 else None)
         init_weights(self, generator)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, gen=None):
         """x (N, T, idim) float, lengths (N,) -> (logits (N, T', V) f32 or
-        features (N, T', hdim) in the compute dtype, lengths (N,))."""
-        if self.training:
-            raise NotImplementedError("training is not ported yet (dropout, "
-                                      "batch statistics); call .eval()")
+        features (N, T', hdim) in the compute dtype, lengths (N,)).
+
+        In training mode with dropout, `gen` (a CPU torch.Generator) gives
+        every dropout site its seed words, in a fixed order."""
         if x.is_cuda and self.dtype != torch.bfloat16:
             raise NotImplementedError(
                 'the CUDA kernels take bfloat16 activations: set the '
@@ -69,8 +73,9 @@ class ConformerNet(nn.Module):
             raise ValueError(f"ConformerNet expects {self.idim} features, got "
                              f"{x.shape[-1]}")
         h, lengths = self.subsampling(x, lengths, self.dtype)
+        h = self.dropout(h, gen)
         for cell in self.cells:
-            h = cell(h, lengths)
+            h = cell(h, lengths, gen)
         if self.classifier is not None:
             h = self.classifier(h.float(), torch.float32)
         return h, lengths

@@ -1,29 +1,41 @@
-"""Relative-position (Transformer-XL) attention, forward only (eval).
+"""Relative-position (Transformer-XL) attention, forward and backward.
 
-    out = softmax(((q + u) . kᵀ + relshift((q + v) . pᵀ)) * scale + keymask) . v
+    out = drop(softmax(((q + u) . kᵀ + relshift((q + v) . pᵀ)) * scale
+                       + keymask)) . v
 
-Replaces the TPU's rel-pos flash attention forward kernels of
-`cat_tpu/ops/attention_pallas.py`: `_fwd_kernel_packed` (reached through
-`flash_relpos_attention_packed`, the TPU default up to 512 frames) and
-`_fwd_kernel` (through `flash_relpos_attention`, above 512), as well as
-the single-tile, decomp and band variants that compute the same function.
-One CUDA kernel, `cat_tpu_torch/csrc/relpos_attention_fwd.cu`, serves
-every length; `relpos_attention_reference` is its plain version. The
-projected sinusoid table p = pe(2T-1, D) . W_pos is computed outside the
-kernel, as the TPU's tiled path also does.
+Replaces the TPU's rel-pos flash attention kernels of
+`cat_tpu/ops/attention_pallas.py`: the forward kernels `_fwd_kernel_packed`
+(reached through `flash_relpos_attention_packed`, the TPU default up to
+512 frames) and `_fwd_kernel` (through `flash_relpos_attention`, above
+512), the single-tile, decomp and band variants that compute the same
+function, and their five backward kernels. `relpos_attention` is one
+`torch.autograd.Function`: its forward calls `relpos_attention_forward`
+(CUDA kernel `cat_tpu_torch/csrc/relpos_attention_fwd.cu`, which also
+writes the per-row log-sum-exp) and its backward
+`relpos_attention_backward` (`relpos_attention_bwd.cu`), which return
+dq, dk, dv, dp (2T-1, H, Dh), du and dv_bias; on a CPU tensor each takes
+its plain version (`relpos_attention_reference_lse`,
+`relpos_attention_backward_reference`), and each counts its kernel
+launches. The dropout on the probabilities is the Philox mask of
+`ops/dropout.py` (stream 0, plane n*H + h, row t, column s); the
+normaliser sums the undropped probabilities, as on the TPU. The projected
+sinusoid table p = pe(2T-1, D) . W_pos is computed outside the kernels,
+and so is the gradient of W_pos (a plain product of dp with the table),
+as the TPU's tiled path also does.
 
-What bounds it on the H100: per utterance of length L and head the work
-is three L x L x Dh products (content scores, position scores, values),
-6·L²·Dh FLOP. At the main path's batch (8 utterances of 97..599 frames,
-H = 8, Dh = 64) that is about 2.3 GFLOP, 2.3 us at the 989 TFLOP/s bf16
-peak, against about 9 MB of q, k, v, p and output, 2.7 us at 3.35 TB/s.
-The design keeps every score in shared memory: one block per (64-query
-tile, head, utterance) walks the key tiles up to the utterance's length
-with an online softmax, so padded key tiles and padded query tiles cost
-nothing. The position scores for a tile pair come from the 127 rows of p
-that its relative positions cover, loaded to shared memory once per pair;
+What bounds the forward on the H100: per utterance of length L and head
+the work is three L x L x Dh products, 6·L²·Dh FLOP. At the serving batch
+(8 utterances of 97..599 frames, H = 8, Dh = 64) that is about 2.3 GFLOP,
+2.3 us at the 989 TFLOP/s bf16 peak, against about 9 MB of q, k, v, p and
+output, 2.7 us at 3.35 TB/s. The design keeps every score in shared
+memory: one block per (64-query tile, head, utterance) walks the key
+tiles up to the utterance's length with an online softmax, so padded key
+tiles and padded query tiles cost nothing. The position scores for a
+tile pair come from the 127 rows of p that its relative positions cover;
 the diagonal band is then read by index, which leaves behind the TPU's
-lane shears and trig-table decomposition.
+lane shears and trig-table decomposition. The backward (see
+relpos_attention_bwd.cu) walks query tiles per key tile and adds dq and
+dp with atomics.
 """
 from __future__ import annotations
 
@@ -32,10 +44,12 @@ import math
 import torch
 
 from cat_tpu_torch import _build
+from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 
 NEG = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
-_ENTRIES = {"relpos_attention_fwd": (8, 4, 1)}
+_FWD = {"relpos_attention_fwd": (9, 7, 2)}
+_BWD = {"relpos_attention_bwd": (16, 7, 2)}
 
 
 def rel_shift(bd):
@@ -45,43 +59,94 @@ def rel_shift(bd):
     return x[:, :, 1:].reshape(N, H, T, M)[..., :T]
 
 
+def _band_index(T, device):
+    """(T, T) index m = T-1-t+s of the table row each (t, s) reads."""
+    t = torch.arange(T, device=device)
+    return T - 1 - t[:, None] + t[None, :]
+
+
+def _scores(q, k, p, u_bias, v_bias, lengths, scale):
+    """Masked f32 scores (N, H, T, T), the key mask and qu, qv (in q's
+    dtype)."""
+    T = q.shape[1]
+    dt = q.dtype
+    kmask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
+    qu, qv = q + u_bias.to(dt), q + v_bias.to(dt)
+    ac = torch.einsum("nthd,nshd->nhts", qu.float(), k.float())
+    bd = torch.einsum("nthd,mhd->nhtm", qv.float(), p.float())
+    s = (ac + rel_shift(bd)) * scale
+    return s.masked_fill(~kmask[:, None, None, :], NEG), kmask, qu, qv
+
+
+def _drop(seed, rate, N, H, T, device):
+    if rate <= 0.0:
+        return 1.0
+    return dropout_scale(seed, 0, N * H, T, T, rate, device).view(N, H, T, T)
+
+
+def relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias, lengths,
+                                   scale=None, rate=0.0, seed=None):
+    """Plain PyTorch version of the forward, in the arithmetic of the JAX
+    package's `relpos_attention_reference` (scores and softmax in f32,
+    probabilities rounded to v.dtype before the value product), with the
+    dropout. Returns (out (N, T, H, Dh), lse (N, H, T) f32); query rows
+    past the length are zeros in out and in lse."""
+    N, T, H, Dh = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    s, kmask, _, _ = _scores(q, k, p, u_bias, v_bias, lengths, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    attn = torch.exp(s - lse[..., None]) * _drop(seed, rate, N, H, T,
+                                                 q.device)
+    out = torch.einsum("nhts,nshd->nthd", attn.to(v.dtype).float(),
+                       v.float())
+    qmask = kmask[:, :, None, None]
+    out = torch.where(qmask, out, 0.0).to(q.dtype)
+    return out, torch.where(kmask[:, None, :], lse, 0.0)
+
+
 def relpos_attention_reference(q, k, v, p, u_bias, v_bias, lengths,
-                               scale=None):
-    """Plain PyTorch version of `relpos_attention`, in the arithmetic of
-    the JAX package's `relpos_attention_reference`: scores and softmax in
-    f32, probabilities rounded to v.dtype before the value product."""
+                               scale=None, rate=0.0, seed=None):
+    """The output of `relpos_attention_reference_lse`."""
+    return relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias,
+                                          lengths, scale, rate, seed)[0]
+
+
+def relpos_attention_backward_reference(q, k, v, p, u_bias, v_bias, lengths,
+                                        out, lse, dout, scale=None, rate=0.0,
+                                        seed=None):
+    """Plain PyTorch version of the backward, following the TPU kernels'
+    recompute-from-lse math with f32 sums and the same rounding points.
+    Returns (dq, dk, dv in q's dtype; dp (2T-1, H, Dh), du, dv_bias (H, Dh)
+    in f32)."""
     N, T, H, Dh = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     dt = q.dtype
-    kmask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
-    ac = torch.einsum("nthd,nshd->nhts", (q + u_bias.to(dt)).float(),
-                      k.float())
-    bd = torch.einsum("nthd,mhd->nhtm", (q + v_bias.to(dt)).float(),
-                      p.float())
-    s = (ac + rel_shift(bd)) * scale
-    s = s.masked_fill(~kmask[:, None, None, :], NEG)
-    attn = torch.softmax(s, dim=-1)
-    out = torch.einsum("nhts,nshd->nthd", attn.to(v.dtype).float(),
-                       v.float())
-    return out.to(dt)
+    s, kmask, qu, qv = _scores(q, k, p, u_bias, v_bias, lengths, scale)
+    qmask = kmask[:, None, :, None]
+    P = torch.where(qmask, torch.exp(s - lse[..., None]), 0.0)
+    P = torch.where(kmask[:, None, None, :], P, 0.0)
+    drop = _drop(seed, rate, N, H, T, q.device)
+    do = dout.float()
+    dpm = torch.einsum("nthd,nshd->nhts", do, v.float()) * drop
+    dv = torch.einsum("nhts,nthd->nshd", (P * drop).to(dt).float(), do)
+    delta = (do * out.float()).sum(-1).permute(0, 2, 1)       # (N, H, T)
+    ds = (P * (dpm - delta[..., None]) * scale).to(dt).float()
+    dqu = torch.einsum("nhts,nshd->nthd", ds, k.float())
+    dk = torch.einsum("nhts,nthd->nshd", ds, qu.float())
+    # the rel-shift band read back: dbd[t, T-1-t+s] = ds[t, s]
+    idx = _band_index(T, q.device).expand(N, H, T, T)
+    dbd = torch.zeros(N, H, T, 2 * T - 1, device=q.device).scatter_(
+        -1, idx, ds).to(dt).float()
+    dqv = torch.einsum("nhtm,mhd->nthd", dbd, p.float())
+    dp = torch.einsum("nhtm,nthd->mhd", dbd, qv.float())
+    return ((dqu + dqv).to(dt), dk.to(dt), dv.to(dt), dp,
+            dqu.sum((0, 1)), dqv.sum((0, 1)))
 
 
-def relpos_attention(q, k, v, p, u_bias, v_bias, lengths, scale=None):
-    """q, k, v (N, T, H, Dh); p (2T-1, H, Dh); u_bias, v_bias (H, Dh);
-    lengths (N,): keys at or past an utterance's length are masked.
-    Returns (N, T, H, Dh). Query rows past the length are not defined
-    here (the kernel writes zeros); the caller zeroes them.
-
-    A CPU tensor takes `relpos_attention_reference`. A CUDA tensor
-    launches the kernel, which takes bf16 with Dh in (16, 32, 64, 128);
-    anything else raises."""
-    if q.device.type == "cpu":
-        return relpos_attention_reference(q, k, v, p, u_bias, v_bias,
-                                          lengths, scale)
+def _operands(q, k, v, p, u_bias, v_bias, lengths):
     N, T, H, Dh = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(Dh)
     if q.device.type != "cuda" or any(t.dtype != torch.bfloat16
                                       for t in (q, k, v, p)):
         raise ValueError(f"relpos_attention: the kernel takes bfloat16 CUDA "
@@ -103,13 +168,96 @@ def relpos_attention(q, k, v, p, u_bias, v_bias, lengths, scale=None):
         if t.device != q.device or t.data_ptr() % 16:
             raise ValueError("relpos_attention: operands must lie on q's "
                              "device, 16-byte aligned")
+    return args
+
+
+def relpos_attention_forward(q, k, v, p, u_bias, v_bias, lengths, scale=None,
+                             rate=0.0, seed=None):
+    """(out, lse) of `relpos_attention`. A CPU tensor takes
+    `relpos_attention_reference_lse`. A CUDA tensor launches the kernel,
+    which takes bf16 with Dh in (16, 32, 64, 128); anything else
+    raises."""
+    if q.device.type == "cpu":
+        return relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias,
+                                              lengths, scale, rate, seed)
+    N, T, H, Dh = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    args = _operands(q, k, v, p, u_bias, v_bias, lengths)
+    drop, inv = kernel_args(rate, seed)
     out = torch.empty_like(args[0])
-    err = _build.load("relpos_attention_fwd", _ENTRIES).relpos_attention_fwd(
-        *(t.data_ptr() for t in args), out.data_ptr(), N, T, H, Dh,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    lse = torch.empty(N, H, T, dtype=torch.float32, device=q.device)
+    err = _build.load("relpos_attention_fwd", _FWD).relpos_attention_fwd(
+        *(t.data_ptr() for t in args), out.data_ptr(), lse.data_ptr(), N, T,
+        H, Dh, *drop, float(scale), inv,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "relpos_attention_fwd")
-    relpos_attention.launches += 1
-    return out
+    relpos_attention_forward.launches += 1
+    return out, lse
 
 
-relpos_attention.launches = 0
+def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
+                              dout, scale=None, rate=0.0, seed=None):
+    """(dq, dk, dv, dp, du, dv_bias) of `relpos_attention`. A CPU tensor
+    takes `relpos_attention_backward_reference`; a CUDA tensor launches
+    `relpos_attention_bwd.cu` (the shapes of the forward) or raises."""
+    if q.device.type == "cpu":
+        return relpos_attention_backward_reference(
+            q, k, v, p, u_bias, v_bias, lengths, out, lse, dout, scale,
+            rate, seed)
+    N, T, H, Dh = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    args = _operands(q, k, v, p, u_bias, v_bias, lengths)
+    drop, inv = kernel_args(rate, seed)
+    do = dout.to(torch.bfloat16).contiguous()
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros(N, T, H, Dh, **f32)
+    dk, dv = torch.empty_like(args[0]), torch.empty_like(args[0])
+    dp = torch.zeros(2 * T - 1, H, Dh, **f32)
+    du, dvb = torch.zeros(H, Dh, **f32), torch.zeros(H, Dh, **f32)
+    err = _build.load("relpos_attention_bwd", _BWD).relpos_attention_bwd(
+        *(t.data_ptr() for t in args), lse.contiguous().data_ptr(),
+        delta.data_ptr(), do.data_ptr(),
+        *(t.data_ptr() for t in (dq, dk, dv, dp, du, dvb)), N, T, H, Dh,
+        *drop, float(scale), inv,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "relpos_attention_bwd")
+    relpos_attention_backward.launches += 1
+    return dq.to(q.dtype), dk, dv, dp, du, dvb
+
+
+relpos_attention_forward.launches = 0
+relpos_attention_backward.launches = 0
+
+
+class _RelPosAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, p, u_bias, v_bias, lengths, scale, rate, seed):
+        out, lse = relpos_attention_forward(q, k, v, p, u_bias, v_bias,
+                                            lengths, scale, rate, seed)
+        ctx.save_for_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse)
+        ctx.cfg = (scale, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, p, u_bias, v_bias, lengths, out, lse = ctx.saved_tensors
+        dq, dk, dv, dp, du, dvb = relpos_attention_backward(
+            q, k, v, p, u_bias, v_bias, lengths, out, lse, dout, *ctx.cfg)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), dp.to(p.dtype),
+                du.to(u_bias.dtype).view(u_bias.shape),
+                dvb.to(v_bias.dtype).view(v_bias.shape), None, None, None,
+                None)
+
+
+def relpos_attention(q, k, v, p, u_bias, v_bias, lengths, scale=None,
+                     rate=0.0, seed=None):
+    """q, k, v (N, T, H, Dh); p (2T-1, H, Dh); u_bias, v_bias (H, Dh);
+    lengths (N,): keys at or past an utterance's length are masked.
+    Returns (N, T, H, Dh) with query rows past the length zero (the
+    caller zeroes them anyway). seed: two 32-bit words, needed when
+    rate > 0. Differentiable in q, k, v, p, u_bias and v_bias."""
+    return _RelPosAttention.apply(q, k, v, p, u_bias, v_bias, lengths,
+                                  scale, rate, seed)

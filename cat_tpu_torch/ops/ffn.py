@@ -1,22 +1,30 @@
-"""Fused conformer feed-forward module, forward only (eval).
+"""Fused conformer feed-forward module, forward and backward.
 
-    out = x + alpha * (SiLU(LN(x) . W1 + b1) . W2 + b2)
+    out = x + alpha * drop1(drop0(SiLU(LN(x) . W1 + b1)) . W2 + b2)
 
-with LN eps 1e-6, bf16 operands and f32 sums.
+with LN eps 1e-6, bf16 operands and f32 sums; the dropouts are the
+Philox masks of `ops/dropout.py` (stream 0 on the (R, F) hidden, stream 1
+on the (R, D) output), identities at rate 0.
 
-Replaces the TPU kernel `_ff_fwd_kernel` of `cat_tpu/ops/ffn_pallas.py`
-(`pallas_call` in `_fwd`, reached through `fused_ff_residual`) at rate 0.
-The CUDA kernel is `cat_tpu_torch/csrc/ffn_fwd.cu`; `ff_reference` is its
-plain PyTorch version.
+Replaces the TPU kernels `_ff_fwd_kernel` and `_ff_bwd_kernel` of
+`cat_tpu/ops/ffn_pallas.py` (`pallas_call` in `_fwd` and `_bwd`, under
+the custom VJP `_ff_core`). `fused_ff_residual` is one
+`torch.autograd.Function`: its forward calls `ff_forward` and its
+backward `ff_backward`, which launch the CUDA kernels
+`cat_tpu_torch/csrc/ffn_fwd.cu` and `ffn_bwd.cu` on a CUDA tensor and take
+the plain versions `ff_reference` and `ff_backward_reference` on a CPU
+tensor. Each of the two counts its kernel launches.
 
-What bounds it on the H100: at the main path's shape (R = 8 x 599 rows,
-D = 512, F = 2048) the two products are 4·R·D·F = 20.1 GFLOP, 20 us at
-the 989 TFLOP/s bf16 peak, while the bytes it must move (x and out, W1
-and W2 in bf16) are 14 MB, 4.2 us at 3.35 TB/s: operations bound it. The
-design keeps the (R, F) hidden activation out of device memory: each
-block of 32 rows walks F in chunks of 64 through shared memory and sums
-into an f32 accumulator held in registers, so the only traffic besides x
-and out is the weights, read from L2.
+What bounds them on the H100: the forward at the serving batch (R = 8 x
+599 rows, D = 512, F = 2048) is 4·R·D·F = 20.1 GFLOP, 20 us at the
+989 TFLOP/s bf16 peak, against 14 MB of x, out and weights, 4.2 us at
+3.35 TB/s: operations bound it. The forward keeps the (R, F) hidden
+activation out of device memory: each block of 32 rows walks F in chunks
+of 64 through shared memory and sums into an f32 accumulator held in
+registers. The backward (see ffn_bwd.cu) is about 10·R·D·F FLOP, also
+bound by operations; it recomputes the forward from x, as the TPU kernel
+does, and writes bf16 scratch only for the two weight gradients, which
+are sums over every row.
 """
 from __future__ import annotations
 
@@ -24,32 +32,75 @@ import torch
 import torch.nn.functional as F
 
 from cat_tpu_torch import _build
+from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 
 LN_EPS = 1e-6
 _DIMS = (128, 256, 384, 512)
 
 
-def ff_reference(x, gamma, beta, w1, b1, w2, b2, alpha=0.5):
-    """Plain PyTorch version: the same arithmetic, products of operands
-    rounded to x.dtype and summed in f32."""
+def _masks(seed, rate, R, D, Fh, device):
+    """f32 dropout factors (R, F) for the hidden, (R, D) for the output."""
+    if rate <= 0.0:
+        return 1.0, 1.0
+    return (dropout_scale(seed, 0, 1, R, Fh, rate, device)[0],
+            dropout_scale(seed, 1, 1, R, D, rate, device)[0])
+
+
+def ff_reference(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
+                 seed=None):
+    """Plain PyTorch version of the forward: the same arithmetic, products
+    of operands rounded to x.dtype and summed in f32."""
     dt = x.dtype
-    xf = x.float()
-    h = F.layer_norm(xf, (x.shape[-1],), gamma.float(), beta.float(), LN_EPS)
+    D = x.shape[-1]
+    Fh = w1.shape[-1]
+    xf = x.reshape(-1, D).float()
+    k1, k2 = _masks(seed, rate, xf.shape[0], D, Fh, x.device)
+    h = F.layer_norm(xf, (D,), gamma.float(), beta.float(), LN_EPS)
     h1 = h.to(dt).float() @ w1.to(dt).float() + b1.float()
-    h2 = F.silu(h1).to(dt).float() @ w2.to(dt).float() + b2.float()
-    return (xf + alpha * h2).to(dt)
+    a1 = F.silu(h1) * k1
+    h2 = (a1.to(dt).float() @ w2.to(dt).float() + b2.float()) * k2
+    return (xf + alpha * h2).to(dt).view(x.shape)
 
 
-def fused_ff_residual(x, gamma, beta, w1, b1, w2, b2, alpha=0.5):
-    """x (..., D); gamma, beta, b2 (D,); w1 (D, F); b1 (F,); w2 (F, D).
+def ff_backward_reference(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5,
+                          rate=0.0, seed=None):
+    """Plain PyTorch version of the backward: recomputes the forward from
+    x and follows `_ff_bwd_kernel` (rounding to x.dtype where it does, f32
+    sums). Returns (dx in x.dtype, dgamma, dbeta, dw1, db1, dw2, db2 in
+    f32)."""
+    dt = x.dtype
+    D = x.shape[-1]
+    Fh = w1.shape[-1]
+    xr = x.reshape(-1, D).float()
+    do = dout.reshape(-1, D).float()
+    k1, k2 = _masks(seed, rate, xr.shape[0], D, Fh, x.device)
+    g = gamma.float()
+    mean = xr.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xr - mean) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    xhat = (xr - mean) * rstd
+    h = (xhat * g + beta.float()).to(dt).float()
+    w1d, w2d = w1.to(dt).float(), w2.to(dt).float()
+    h1 = h @ w1d + b1.float()
+    sig = torch.sigmoid(h1)
+    a1 = (h1 * sig * k1).to(dt).float()
+    dh2 = alpha * do * k2
+    db2 = dh2.sum(0)
+    dh2 = dh2.to(dt).float()
+    dw2 = a1.t() @ dh2
+    dh1 = (dh2 @ w2d.t()) * k1 * sig * (1.0 + h1 * (1.0 - sig))
+    db1 = dh1.sum(0)
+    dh1 = dh1.to(dt).float()
+    dw1 = h.t() @ dh1
+    dh = dh1 @ w1d.t()
+    dgamma = (dh * xhat).sum(0)
+    dbeta = dh.sum(0)
+    dxh = dh * g
+    dx = do + rstd * (dxh - dxh.mean(-1, keepdim=True)
+                      - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    return dx.to(dt).view(x.shape), dgamma, dbeta, dw1, db1, dw2, db2
 
-    A CPU tensor takes `ff_reference`. A CUDA tensor launches the kernel,
-    which takes bf16 x with D in (128, 256, 384, 512) and F a multiple of 64;
-    weights are cast to bf16 and vectors to f32 as the kernel reads them.
-    Anything else raises.
-    """
-    if x.device.type == "cpu":
-        return ff_reference(x, gamma, beta, w1, b1, w2, b2, alpha)
+
+def _check(x, gamma, beta, w1, b1, w2, b2):
     D = x.shape[-1]
     Fh = w1.shape[-1]
     if x.device.type != "cuda" or x.dtype != torch.bfloat16:
@@ -61,22 +112,103 @@ def fused_ff_residual(x, gamma, beta, w1, b1, w2, b2, alpha=0.5):
         raise ValueError(f"fused_ff_residual: unsupported shapes x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}")
-    xr = x.reshape(-1, D).contiguous()
+
+
+def _operands(x, gamma, beta, w1, b1, w2, b2):
+    """The kernels' operands: rows bf16, weights bf16, vectors f32."""
+    D = x.shape[-1]
     bf, f32 = torch.bfloat16, torch.float32
-    args = [xr, gamma.to(f32).contiguous(), beta.to(f32).contiguous(),
-            w1.to(bf).contiguous(), b1.to(f32).contiguous(),
-            w2.to(bf).contiguous(), b2.to(f32).contiguous()]
+    args = [x.reshape(-1, D).contiguous(), gamma.to(f32).contiguous(),
+            beta.to(f32).contiguous(), w1.to(bf).contiguous(),
+            b1.to(f32).contiguous(), w2.to(bf).contiguous()]
+    args.append(b2.to(f32).contiguous())
     for t in args:
         if t.device != x.device or t.data_ptr() % 32:
             raise ValueError("fused_ff_residual: operands must lie on x's "
                              "device, 32-byte aligned")
+    return args
+
+
+def ff_forward(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
+               seed=None):
+    """The forward of `fused_ff_residual`, outside autograd. A CPU tensor
+    takes `ff_reference`. A CUDA tensor launches the kernel, which takes
+    bf16 x with D in (128, 256, 384, 512) and F a multiple of 64; weights
+    are cast to bf16 and vectors to f32 as the kernel reads them. Anything
+    else raises."""
+    if x.device.type == "cpu":
+        return ff_reference(x, gamma, beta, w1, b1, w2, b2, alpha, rate,
+                            seed)
+    _check(x, gamma, beta, w1, b1, w2, b2)
+    args = _operands(x, gamma, beta, w1, b1, w2, b2)
+    drop, inv = kernel_args(rate, seed)
+    xr = args[0]
     out = torch.empty_like(xr)
-    err = _build.load("ffn_fwd", {"ffn_fwd": (8, 3, 1)}).ffn_fwd(
-        *(t.data_ptr() for t in args), out.data_ptr(), xr.shape[0], D, Fh,
-        float(alpha), torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.load("ffn_fwd", {"ffn_fwd": (8, 6, 2)}).ffn_fwd(
+        *(t.data_ptr() for t in args), out.data_ptr(), xr.shape[0],
+        x.shape[-1], w1.shape[-1], *drop, float(alpha), inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ffn_fwd")
-    fused_ff_residual.launches += 1
+    ff_forward.launches += 1
     return out.view(x.shape)
 
 
-fused_ff_residual.launches = 0
+def ff_backward(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5, rate=0.0,
+                seed=None):
+    """The backward of `fused_ff_residual`: (dx, dgamma, dbeta, dw1, db1,
+    dw2, db2). A CPU tensor takes `ff_backward_reference`; a CUDA tensor
+    launches `ffn_bwd.cu` (the shapes of `ff_forward`) or raises."""
+    if x.device.type == "cpu":
+        return ff_backward_reference(x, gamma, beta, w1, b1, w2, b2, dout,
+                                     alpha, rate, seed)
+    _check(x, gamma, beta, w1, b1, w2, b2)
+    args = _operands(x, gamma, beta, w1, b1, w2, b2)[:-1]  # b2 unused
+    drop, inv = kernel_args(rate, seed)
+    xr = args[0]
+    R, D = xr.shape
+    Fh = w1.shape[-1]
+    do = dout.reshape(R, D).to(torch.bfloat16).contiguous()
+    bf, f32 = torch.bfloat16, torch.float32
+    new = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device=x.device)
+    zeros = lambda *s: torch.zeros(*s, dtype=f32, device=x.device)
+    dx, h, dh2 = new(R, D), new(R, D), new(R, D)
+    a1, dh1 = new(R, Fh), new(R, Fh)
+    dg, db, dw1, db1, dw2, db2 = (zeros(D), zeros(D), zeros(D, Fh),
+                                  zeros(Fh), zeros(Fh, D), zeros(D))
+    outs = [dx, h, dh2, a1, dh1, dg, db, dw1, db1, dw2, db2]
+    err = _build.load("ffn_bwd", {"ffn_bwd": (18, 6, 2)}).ffn_bwd(
+        *(t.data_ptr() for t in args), do.data_ptr(),
+        *(t.data_ptr() for t in outs), R, D, Fh, *drop, float(alpha), inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ffn_bwd")
+    ff_backward.launches += 1
+    return dx.view(x.shape), dg, db, dw1, db1, dw2, db2
+
+
+ff_forward.launches = 0
+ff_backward.launches = 0
+
+
+class _FusedFF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, alpha, rate, seed):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        ctx.cfg = (alpha, rate, seed)
+        return ff_forward(x, gamma, beta, w1, b1, w2, b2, alpha, rate, seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gamma, beta, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dg, db, dw1, db1, dw2, db2 = ff_backward(
+            x, gamma, beta, w1, b1, w2, b2, dout, *ctx.cfg)
+        return (dx, dg.to(gamma.dtype), db.to(beta.dtype),
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(b2.dtype), None, None, None)
+
+
+def fused_ff_residual(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
+                      seed=None):
+    """x (..., D); gamma, beta, b2 (D,); w1 (D, F); b1 (F,); w2 (F, D);
+    seed: two 32-bit words (`ops.dropout.draw_seed`), needed when
+    rate > 0. Differentiable in every tensor argument."""
+    return _FusedFF.apply(x, gamma, beta, w1, b1, w2, b2, alpha, rate, seed)

@@ -51,18 +51,25 @@ def _cell(sd, pre, p, stats):
         _dense(sd, f"{pre}mhsa.{name}.", a[name], din=D)
     sd[pre + "mhsa.u_bias"] = _t(a["u_bias"])
     sd[pre + "mhsa.v_bias"] = _t(a["v_bias"])
-    c = p["ConvModule_0"]
-    _ln(sd, pre + "conv.norm.", c["LayerNorm_0"])
-    _dense(sd, pre + "conv.pw_in.", c["Dense_0"])
-    _dense(sd, pre + "conv.pw_out.", c["Dense_1"])
+    sd.update(conv_module_state_dict(p["ConvModule_0"],
+                                     stats["ConvModule_0"], pre + "conv."))
+
+
+def conv_module_state_dict(c, s, pre=""):
+    """The port's `ConvModule` state_dict (keys prefixed with `pre`) from
+    a JAX ConvModule's params `c` and batch_stats `s`."""
+    sd = {}
+    _ln(sd, pre + "norm.", c["LayerNorm_0"])
+    _dense(sd, pre + "pw_in.", c["Dense_0"])
+    _dense(sd, pre + "pw_out.", c["Dense_1"])
     dw = np.asarray(c["Conv_0"]["kernel"])             # (k, 1, D)
-    sd[pre + "conv.depthwise.weight"] = _t(np.transpose(dw, (2, 1, 0)))
-    sd[pre + "conv.depthwise.bias"] = _t(c["Conv_0"]["bias"])
-    sd[pre + "conv.bn_scale"] = _t(c["bn_scale"])
-    sd[pre + "conv.bn_bias"] = _t(c["bn_bias"])
-    s = stats["ConvModule_0"]
-    sd[pre + "conv.running_mean"] = _t(s["mean"])
-    sd[pre + "conv.running_var"] = _t(s["var"])
+    sd[pre + "depthwise.weight"] = _t(np.transpose(dw, (2, 1, 0)))
+    sd[pre + "depthwise.bias"] = _t(c["Conv_0"]["bias"])
+    sd[pre + "bn_scale"] = _t(c["bn_scale"])
+    sd[pre + "bn_bias"] = _t(c["bn_bias"])
+    sd[pre + "running_mean"] = _t(s["mean"])
+    sd[pre + "running_var"] = _t(s["var"])
+    return sd
 
 
 def _index(tree, i):

@@ -122,6 +122,12 @@ import importlib, pkgutil, sys
 import cat_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(cat_tpu_torch.__path__, "cat_tpu_torch."):
     importlib.import_module(m.name)
+for m in ("ops.dropout", "ops.semiring", "ops.ctc", "ops.crf_dense",
+          "ops.specaug", "fst.ngram", "utils.scheduler", "utils.manager",
+          "utils.tolerance", "ctc.train"):
+    assert "cat_tpu_torch." + m in sys.modules, m
+import runpy
+runpy.run_path("tools/torch_step_diag.py", run_name="imported")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "cat_tpu"))
 assert not bad, bad
@@ -131,4 +137,4 @@ print(len([m for m in sys.modules if m.startswith("cat_tpu_torch")]))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15
+    assert int(res.stdout.split()[-1]) >= 26

@@ -50,9 +50,10 @@ def test_ff_matches_jax(N, T, D, F, alpha):
 
 def test_ff_cpu_path_does_not_launch():
     x, params = _inputs(1, 8, 128, 256, seed=1)
-    before = ffn.fused_ff_residual.launches
-    ffn.fused_ff_residual(torch.from_numpy(x), *map(torch.from_numpy, params))
-    assert ffn.fused_ff_residual.launches == before
+    before = ffn.ff_forward.launches, ffn.ff_backward.launches
+    xt = torch.from_numpy(x).requires_grad_()
+    ffn.fused_ff_residual(xt, *map(torch.from_numpy, params)).sum().backward()
+    assert (ffn.ff_forward.launches, ffn.ff_backward.launches) == before
 
 
 def test_ff_never_falls_back_off_the_cpu():
