@@ -8,8 +8,11 @@ non-finite loss or gradient norm, the parameters, the optimizer state and
 the running statistics stay as they were and `skipped` is 1. Every random
 draw of a step (SpecAugment masks, dropout seeds) comes from the
 `torch.Generator` the caller passes. On the card every fused op of the
-encoder runs its CUDA kernels forward and backward; the losses are plain
-PyTorch recursions (`ops/ctc.py`, `ops/crf_dense.py`).
+encoder, the standalone dropout and the loss recursions (CTC alpha and
+beta, the dense denominator forward and backward) run their CUDA kernels.
+With `grad_accum_fold` N > 1 a step is one micro-step of a weighted
+fold-N accumulation (`utils/grad_accum.py`): the optimizer steps on every
+N-th call.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from cat_tpu_torch import models
 from cat_tpu_torch.ops.crf_dense import DenseDen, ctc_crf_loss_dense
 from cat_tpu_torch.ops.ctc import ctc_loss
 from cat_tpu_torch.ops.specaug import specaug
+from cat_tpu_torch.utils.grad_accum import WeightedMultiSteps
 from cat_tpu_torch.utils.manager import TrainState
 from cat_tpu_torch.utils.scheduler import set_lr
 
@@ -93,13 +97,14 @@ def global_grad_norm(params):
 def make_train_step(model, optimizer, loss_type="ctc", den=None, lamb=0.1,
                     specaug_cfg=None, grad_clip=5.0, grad_accum_fold=1):
     """Returns train_step(state, batch, lr, gen) -> (state, metrics):
-    metrics "loss", "grad_norm" (tensors) and "skipped" (0 or 1). The
-    step updates `state.model` and `state.optimizer` in place."""
-    if grad_accum_fold > 1:
-        raise NotImplementedError("grad_accum_fold > 1 is not ported yet; "
-                                  "see ROADMAP.md")
+    metrics "loss", "grad_norm" (tensors) and "skipped" (0 or 1), and with
+    grad_accum_fold > 1 "applied" (0 or 1). The step updates
+    `state.model` and `state.optimizer` in place."""
     loss_fn = make_loss_fn(model, loss_type, den, lamb, specaug_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
+    if grad_accum_fold > 1:
+        return _make_accum_train_step(model, loss_fn, WeightedMultiSteps(
+            optimizer, params, grad_accum_fold, grad_clip))
 
     def train_step(state: TrainState, batch, lr, gen):
         stats = [b.detach().clone() for b in model.buffers()]
@@ -119,13 +124,53 @@ def make_train_step(model, optimizer, loss_type="ctc", den=None, lamb=0.1,
             optimizer.step()
         else:
             # the guard: a poisoned batch leaves every state untouched
-            with torch.no_grad():
-                for b, old in zip(model.buffers(), stats):
-                    b.copy_(old)
+            _restore(model, stats)
             optimizer.zero_grad(set_to_none=True)
         state.step += 1
         state.skipped += int(not finite)
         return state, {"loss": loss.detach(), "grad_norm": gnorm,
+                       "skipped": int(not finite)}
+
+    return train_step
+
+
+def _restore(model, stats):
+    with torch.no_grad():
+        for b, old in zip(model.buffers(), stats):
+            b.copy_(old)
+
+
+def _make_accum_train_step(model, loss_fn, fold: WeightedMultiSteps):
+    """One micro-step of the weighted fold (`_make_accum_train_step` of the
+    JAX package): the gradient of the weighted SUM of per-sequence losses
+    and the micro-batch's weight go to `fold`, which steps the optimizer
+    at the fold's end. The NaN/Inf guard works per micro-batch: a poisoned
+    one adds nothing (weight 0) and keeps the old running statistics, and
+    still counts as a micro-step of the fold. Metrics: "loss" (the
+    weighted sum over the micro-batch's weight), "grad_norm" (of the
+    fold's mean gradient so far), "applied", "skipped"."""
+
+    def train_step(state: TrainState, batch, lr, gen):
+        stats = [b.detach().clone() for b in model.buffers()]
+        model.train()
+        fold.optimizer.zero_grad(set_to_none=True)
+        _, per_seq = loss_fn(batch, gen, True)
+        w = batch["weight"].float()
+        loss_sum = (per_seq * w).sum()
+        loss_sum.backward()
+        micro = global_grad_norm(fold.params)
+        finite = bool(torch.isfinite(loss_sum) & torch.isfinite(micro))
+        w_sum = w.sum()
+        if not finite:
+            _restore(model, stats)
+            fold.optimizer.zero_grad(set_to_none=True)
+            w_sum = torch.zeros_like(w_sum)
+            loss_sum = torch.zeros_like(loss_sum)
+        gnorm, applied = fold.update(w_sum, lr)
+        state.step += 1
+        state.skipped += int(not finite)
+        return state, {"loss": loss_sum.detach() / torch.clamp_min(w_sum, 1.0),
+                       "grad_norm": gnorm, "applied": int(applied),
                        "skipped": int(not finite)}
 
     return train_step

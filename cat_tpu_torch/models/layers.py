@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cat_tpu_torch.ops import attention, conv_module, ffn
-from cat_tpu_torch.ops.dropout import draw_seed, dropout_reference
+from cat_tpu_torch.ops import dropout as dropout_op
+from cat_tpu_torch.ops.dropout import draw_seed
 
 LN_EPS = 1e-6  # flax LayerNorm's default (torch's is 1e-5)
 BN_MOMENTUM = 0.9
@@ -83,16 +84,17 @@ def _layer_norm(d):
 
 
 class Dropout(nn.Module):
-    """Dropout with the plain Philox mask (`ops/dropout.py`, stream 0 over
-    the rows of the flattened leading dims); the JAX `Dropout` module's
-    flax `nn.Dropout` branch (its `fused_dropout` flag off)."""
+    """Dropout with the Philox mask (`ops/dropout.py`, stream 0 over the
+    rows of the flattened leading dims): the JAX `Dropout` module's fused
+    branch (`fused_dropout`, the TPU default). The identity, launching
+    nothing, at rate 0 and in eval mode."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = rate
 
     def forward(self, x, gen=None):
-        return dropout_reference(x, *drop_args(self, self.rate, gen))
+        return dropout_op.dropout(x, *drop_args(self, self.rate, gen))
 
 
 class Conv2dSubsampling(nn.Module):

@@ -1,5 +1,5 @@
 """Dense CTC-CRF denominator for n-gram LMs of order <= 3 (counterpart of
-`cat_tpu/ops/crf_dense.py`, its XLA scan path).
+`cat_tpu/ops/crf_dense.py`, its fused-forward route).
 
 The backoff n-gram denominator LM is expanded on the host into a dense
 context-transition tensor W[a, b, u] = log P(u | a, b) (V, V, V), index 0
@@ -11,15 +11,18 @@ log-probs, blank = 0):
   emit u: (a_bl[a,c] + a_in[a,c]|u!=c) + W[a,c,u] + y[u] -> a_in[c,u]
 (+ is log-add). logZ = LSE over both tensors of alpha + F, F[a,b] =
 log P(EOS | a, b). The emission contraction over `a` runs in the exp
-domain as a batched matrix product with a per-(n, b) max shift.
+domain with a per-(n, b) max shift; alphas stay in the log domain.
 
-`dense_den_log_partition` is a `torch.autograd.Function`: the forward
-keeps alpha snapshots every K = 24 frames, the backward recomputes each
-segment's alphas from its snapshot and runs the beta recursion over it,
-emitting the exact posterior gradient row by row. The recursions are
-plain PyTorch loops over frames, host-launch-bound on the card; the
-TPU's fused forward kernel (`cat_tpu/ops/crf_dense_pallas.py`) and this
-backward as a kernel are queued in ROADMAP.md.
+`dense_den_log_partition` is a `torch.autograd.Function` over two
+passes. `den_forward` keeps alpha snapshots every K = 24 frames, the
+layout of `dense_den_forward_pallas`, whose TPU kernel `_den_fwd_kernel`
+it replaces; `den_backward` recomputes each segment's alphas from its
+snapshot and runs the beta recursion over it, emitting the exact
+posterior gradient row by row (the XLA `_den_bwd` of the JAX package). On
+a CUDA tensor each launches its kernel in `cat_tpu_torch/csrc/crf_dense.cu`
+(one launch for all frames) and counts it; on a CPU tensor each takes its
+plain version (`den_forward_reference`, `den_backward_reference`: loops
+over frames).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from cat_tpu_torch import _build
 from cat_tpu_torch.ops.ctc import ctc_loss
 from cat_tpu_torch.ops.semiring import LOG_EPS
 
@@ -120,6 +124,15 @@ class DenseDen:
                                  torch.from_numpy(self.final).to(device))
         return self._tables[key]
 
+    def transposed_expw(self, device):
+        """exp(W) as (u, a, b), contiguous, for the backward kernel's
+        beta contraction; made once per device."""
+        key = "t " + str(torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = self.device_tables(device)[0] \
+                .permute(2, 0, 1).contiguous()
+        return self._tables[key]
+
     def save(self, path):
         np.savez(path, logw=self.logw, final=self.final)
 
@@ -173,91 +186,190 @@ def _posterior(score):
     return torch.where(score <= LOG_EPS / 2, 0.0, torch.exp(score))
 
 
+def _lse_all(x):
+    """LSE over each utterance's (V, V) states."""
+    m = torch.clamp_min(x.amax(dim=(1, 2)), LOG_EPS)
+    s = torch.exp(x - m[:, None, None]).sum((1, 2))
+    out = m + torch.log(torch.clamp_min(s, 1e-37))
+    return out.masked_fill(s <= 0, LOG_EPS)
+
+
+def den_forward_reference(log_probs, input_lengths, den):
+    """Plain version of `den_forward`: a loop over frames."""
+    N, T, V = log_probs.shape
+    dev = log_probs.device
+    expw, final = den.device_tables(dev)
+    K = den.ckpt_every
+    y = log_probs.transpose(0, 1)                               # (T, N, V)
+    eye = torch.eye(V, dtype=torch.bool, device=dev)
+    a_in = torch.full((N, V, V), LOG_EPS, device=dev)
+    a_bl = a_in.clone()
+    a_bl[:, 0, 0] = 0.0
+    keep = torch.arange(T, device=dev)[:, None] < input_lengths[None, :]
+    S = -(-T // K)
+    snap_in = torch.empty(S, N, V, V, device=dev)
+    snap_bl = torch.empty(S, N, V, V, device=dev)
+    for t in range(T):
+        if t % K == 0:
+            snap_in[t // K], snap_bl[t // K] = a_in, a_bl
+        a_in, a_bl, _ = _alpha_step(expw, eye, keep[t], a_in, a_bl, y[t])
+    logz = _lse_pair(_lse_all(a_in + final), _lse_all(a_bl + final))
+    return (snap_in, snap_bl), logz
+
+
+def den_backward_reference(log_probs, input_lengths, snaps, logz, g, den):
+    """Plain version of `den_backward`: per segment, in reverse, the
+    recompute from its snapshot, then the beta recursion and the
+    gradient rows frame by frame."""
+    snap_in, snap_bl = snaps
+    N, T, V = log_probs.shape
+    dev = log_probs.device
+    expw, final = den.device_tables(dev)
+    K = den.ckpt_every
+    y = log_probs.transpose(0, 1)
+    eye = torch.eye(V, dtype=torch.bool, device=dev)
+    keep = torch.arange(T, device=dev)[:, None] < input_lengths[None, :]
+    lz = torch.where(logz <= LOG_EPS / 2, 0.0, logz)[:, None, None]
+    b_in = final[None].expand(N, V, V)
+    b_bl = b_in
+    grad = torch.empty(T, N, V, device=dev)
+    for seg in range(snap_in.shape[0] - 1, -1, -1):
+        t0, t1 = seg * K, min((seg + 1) * K, T)
+        a_in, a_bl = snap_in[seg], snap_bl[seg]
+        pre = []
+        for t in range(t0, t1):  # the segment's pre-update alphas
+            n_in, n_bl, emit0 = _alpha_step(expw, eye, keep[t], a_in,
+                                            a_bl, y[t])
+            pre.append((a_in, a_bl, emit0))
+            a_in, a_bl = n_in, n_bl
+        for t in range(t1 - 1, t0 - 1, -1):
+            a_in, a_bl, emit0 = pre[t - t0]
+            y_t = y[t]
+            active = keep[t][:, None, None]
+            # the gradient row for frame t, from the betas after it
+            yu = y_t[:, None, :]
+            g_stay = _posterior(a_in + yu + b_in - lz).sum(1)
+            g_emit = _posterior(emit0 + yu + b_in - lz).sum(1)
+            blank = y_t[:, 0, None, None]
+            g_blank = _posterior(_lse_pair(a_in, a_bl) + blank + b_bl
+                                 - lz).sum((1, 2))
+            row = g_stay + g_emit
+            row[:, 0] = g_blank
+            grad[t] = torch.where(active[:, :, 0], row, 0.0)
+            # betas before frame t
+            rhs = yu + b_in
+            both = _beta_contract(
+                torch.cat([rhs, rhs.masked_fill(eye, LOG_EPS)], dim=0), expw)
+            blank_term = blank + b_bl
+            new_in = torch.clamp_min(
+                _lse_pair(_lse_pair(rhs, both[N:]), blank_term), LOG_EPS)
+            new_bl = torch.clamp_min(_lse_pair(both[:N], blank_term), LOG_EPS)
+            b_in = torch.where(active, new_in, b_in)
+            b_bl = torch.where(active, new_bl, b_bl)
+    return grad.transpose(0, 1) * g.float()[:, None, None]
+
+
+MAX_V = 96  # the backward kernel keeps six (V, V) f32 tensors in 227 KB
+
+
+def _check(name, log_probs, input_lengths, den):
+    N, T, V = log_probs.shape if log_probs.dim() == 3 else (0, 0, 0)
+    if log_probs.dim() != 3 or log_probs.dtype != torch.float32 \
+            or not log_probs.is_contiguous() \
+            or input_lengths.dtype != torch.int64 \
+            or tuple(input_lengths.shape) != (N,) \
+            or input_lengths.device != log_probs.device:
+        raise ValueError(f"{name}: the kernel takes contiguous f32 log-probs "
+                         f"(N, T, V) and int64 lengths (N,) on one CUDA "
+                         f"device, got {log_probs.dtype} "
+                         f"{tuple(log_probs.shape)}, {input_lengths.dtype} "
+                         f"{tuple(input_lengths.shape)}")
+    if V != den.num_classes or V > MAX_V:
+        raise ValueError(f"{name}: V = {V} against the denominator's "
+                         f"{den.num_classes}; the kernels take V <= {MAX_V}")
+    return N, T, V
+
+
+def den_forward(log_probs, input_lengths, den):
+    """The dense-den forward: ((a_in_snaps, a_bl_snaps), logz). Snapshots
+    (S, N, V, V) f32, log domain, hold the alphas entering frames 0, K,
+    2K, ... (S = ceil(T / K), K = den.ckpt_every); logz (N,). log_probs
+    (N, T, V) f32, input_lengths (N,) int64. A CPU tensor takes
+    `den_forward_reference`; a CUDA tensor launches `den_fwd` of
+    `csrc/crf_dense.cu` or raises."""
+    if log_probs.device.type == "cpu":
+        return den_forward_reference(log_probs, input_lengths, den)
+    N, T, V = _check("den_forward", log_probs, input_lengths, den)
+    K = den.ckpt_every
+    expw, final = den.device_tables(log_probs.device)
+    S = -(-T // K)
+    snap_in, snap_bl = (log_probs.new_empty(S, N, V, V) for _ in range(2))
+    logz = log_probs.new_empty(N)
+    err = _build.load("crf_dense", _ENTRIES).den_fwd(
+        log_probs.data_ptr(), input_lengths.data_ptr(), expw.data_ptr(),
+        final.data_ptr(), snap_in.data_ptr(), snap_bl.data_ptr(),
+        logz.data_ptr(), N, T, V, K,
+        torch.cuda.current_stream(log_probs.device).cuda_stream)
+    _build.check(err, "den_fwd")
+    den_forward.launches += 1
+    return (snap_in, snap_bl), logz
+
+
+def den_backward(log_probs, input_lengths, snaps, logz, g, den):
+    """The dense-den backward: d(sum_n g[n] logz[n]) / d log_probs, (N, T,
+    V) f32, from `den_forward`'s snapshots and logz. A CPU tensor takes
+    `den_backward_reference`; a CUDA tensor launches `den_bwd` of
+    `csrc/crf_dense.cu` or raises."""
+    if log_probs.device.type == "cpu":
+        return den_backward_reference(log_probs, input_lengths, snaps, logz,
+                                      g, den)
+    N, T, V = _check("den_backward", log_probs, input_lengths, den)
+    K = den.ckpt_every
+    S = -(-T // K)
+    snap_in, snap_bl = snaps
+    g = g.float().contiguous()
+    for t, shape in ((snap_in, (S, N, V, V)), (snap_bl, (S, N, V, V)),
+                     (logz, (N,)), (g, (N,))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != log_probs.device:
+            raise ValueError(f"den_backward: expected contiguous f32 {shape} "
+                             f"on {log_probs.device}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    expw, final = den.device_tables(log_probs.device)
+    expw_t = den.transposed_expw(log_probs.device)
+    grad = log_probs.new_empty(N, T, V)
+    scratch = log_probs.new_empty(N, K, 3, V, V)
+    err = _build.load("crf_dense", _ENTRIES).den_bwd(
+        log_probs.data_ptr(), input_lengths.data_ptr(), expw.data_ptr(),
+        expw_t.data_ptr(), final.data_ptr(), snap_in.data_ptr(),
+        snap_bl.data_ptr(), logz.data_ptr(), g.data_ptr(), grad.data_ptr(),
+        scratch.data_ptr(), N, T, V, K,
+        torch.cuda.current_stream(log_probs.device).cuda_stream)
+    _build.check(err, "den_bwd")
+    den_backward.launches += 1
+    return grad
+
+
+_ENTRIES = {"den_fwd": (7, 4, 0), "den_bwd": (11, 4, 0)}
+den_forward.launches = 0
+den_backward.launches = 0
+
+
 class _DenLogPartition(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_probs, input_lengths, den):
-        lp = log_probs.float()
-        N, T, V = lp.shape
-        expw, final = den.device_tables(lp.device)
-        K = den.ckpt_every
-        y = lp.transpose(0, 1)                                  # (T, N, V)
-        eye = torch.eye(V, dtype=torch.bool, device=lp.device)
-        a_in = torch.full((N, V, V), LOG_EPS, device=lp.device)
-        a_bl = a_in.clone()
-        a_bl[:, 0, 0] = 0.0
-        t_idx = torch.arange(T, device=lp.device)
-        keep = t_idx[:, None] < input_lengths[None, :]          # (T, N)
-        snaps = []
-        for t in range(T):
-            if t % K == 0:
-                snaps.append((a_in, a_bl))
-            a_in, a_bl, _ = _alpha_step(expw, eye, keep[t], a_in, a_bl, y[t])
-
-        def lse_all(x):
-            m = torch.clamp_min(x.amax(dim=(1, 2)), LOG_EPS)
-            s = torch.exp(x - m[:, None, None]).sum((1, 2))
-            out = m + torch.log(torch.clamp_min(s, 1e-37))
-            return out.masked_fill(s <= 0, LOG_EPS)
-
-        logz = _lse_pair(lse_all(a_in + final), lse_all(a_bl + final))
-        ctx.save_for_backward(lp, input_lengths, logz,
-                              *[s for pair in snaps for s in pair])
+        lp = log_probs.float().contiguous()
+        snaps, logz = den_forward(lp, input_lengths, den)
+        ctx.save_for_backward(lp, input_lengths, logz, *snaps)
         ctx.den = den
         ctx.dtype = log_probs.dtype
         return logz
 
     @staticmethod
     def backward(ctx, g):
-        lp, input_lengths, logz, *flat = ctx.saved_tensors
-        snaps = list(zip(flat[0::2], flat[1::2]))
-        den = ctx.den
-        N, T, V = lp.shape
-        expw, final = den.device_tables(lp.device)
-        K = den.ckpt_every
-        y = lp.transpose(0, 1)
-        eye = torch.eye(V, dtype=torch.bool, device=lp.device)
-        keep = (torch.arange(T, device=lp.device)[:, None]
-                < input_lengths[None, :])
-        lz = torch.where(logz <= LOG_EPS / 2, 0.0, logz)[:, None, None]
-        b_in = final[None].expand(N, V, V)
-        b_bl = b_in
-        grad = torch.empty(T, N, V, device=lp.device)
-        for seg in range(len(snaps) - 1, -1, -1):
-            t0, t1 = seg * K, min((seg + 1) * K, T)
-            a_in, a_bl = snaps[seg]
-            pre = []
-            for t in range(t0, t1):  # the segment's pre-update alphas
-                n_in, n_bl, emit0 = _alpha_step(expw, eye, keep[t], a_in,
-                                                a_bl, y[t])
-                pre.append((a_in, a_bl, emit0))
-                a_in, a_bl = n_in, n_bl
-            for t in range(t1 - 1, t0 - 1, -1):
-                a_in, a_bl, emit0 = pre[t - t0]
-                y_t = y[t]
-                active = keep[t][:, None, None]
-                # the gradient row for frame t, from the betas after it
-                yu = y_t[:, None, :]
-                g_stay = _posterior(a_in + yu + b_in - lz).sum(1)
-                g_emit = _posterior(emit0 + yu + b_in - lz).sum(1)
-                blank = y_t[:, 0, None, None]
-                g_blank = _posterior(_lse_pair(a_in, a_bl) + blank + b_bl
-                                     - lz).sum((1, 2))
-                row = g_stay + g_emit
-                row[:, 0] = g_blank
-                grad[t] = torch.where(active[:, :, 0], row, 0.0)
-                # betas before frame t
-                rhs = yu + b_in
-                both = _beta_contract(
-                    torch.cat([rhs, rhs.masked_fill(eye, LOG_EPS)], dim=0),
-                    expw)
-                blank_term = blank + b_bl
-                new_in = torch.clamp_min(
-                    _lse_pair(_lse_pair(rhs, both[N:]), blank_term), LOG_EPS)
-                new_bl = torch.clamp_min(_lse_pair(both[:N], blank_term),
-                                         LOG_EPS)
-                b_in = torch.where(active, new_in, b_in)
-                b_bl = torch.where(active, new_bl, b_bl)
-        grad = grad.transpose(0, 1) * g.float()[:, None, None]
+        lp, input_lengths, logz, snap_in, snap_bl = ctx.saved_tensors
+        grad = den_backward(lp, input_lengths, (snap_in, snap_bl), logz, g,
+                            ctx.den)
         return grad.to(ctx.dtype), None, None
 
 

@@ -1,22 +1,27 @@
 """CTC loss as a log-semiring recursion over the blank-interleaved label
-lattice (counterpart of `cat_tpu/ops/ctc.py`, its `lax.scan` path).
+lattice (counterpart of `cat_tpu/ops/ctc.py`, its Pallas route).
 
 Variable lengths are handled by the JAX package's padding construction:
 padded frames emit blank with log-prob 0 and every other state LOG_EPS,
 which moves all path mass into the final blank state at no cost, so one
-loop over the batch's T is exact for every utterance. The gradient is the
-exact posterior from an alpha and a beta pass (d nll / d log_probs =
--gamma), in a `torch.autograd.Function`, not autograd through the loop.
+recursion over the batch's T is exact for every utterance. The gradient
+is the exact posterior from an alpha and a beta pass (d nll / d log_probs
+= -gamma), in a `torch.autograd.Function`, not autograd through the loop.
 
-The loop is plain PyTorch: a handful of (N, S) launches per frame, which
-is host-launch-bound on the card. The TPU's Pallas alpha/beta kernels
-(`cat_tpu/ops/ctc_pallas.py`) are queued in ROADMAP.md.
-Labels use blank = 0 by convention.
+The two recursions are `forward_alphas` and `backward_betas`, which
+replace the TPU kernels `_alpha_kernel` and `_beta_kernel` of
+`cat_tpu/ops/ctc_pallas.py`: on a CUDA tensor each launches its kernel in
+`cat_tpu_torch/csrc/ctc.cu` (one launch for all frames) and counts it, on
+a CPU tensor it takes its plain version (`forward_alphas_reference`,
+`backward_betas_reference`: a loop over frames). The lattice tables, the
+emission table and the gamma/scatter-add gradient are vectorised PyTorch,
+a few launches per step. Labels use blank = 0 by convention.
 """
 from __future__ import annotations
 
 import torch
 
+from cat_tpu_torch import _build
 from cat_tpu_torch.ops.semiring import LOG_EPS, logaddexp3, safe_logaddexp
 
 
@@ -65,27 +70,117 @@ def _final_ll(alpha_last, label_lengths):
     return safe_logaddexp(a1, a2)
 
 
+def _beta_tables(allow2, label_lengths):
+    """allow2_dst (N, S): the skip s -> s+2 is permitted; beta_last (N, S):
+    0 on the final states (the last blank and the last label), LOG_EPS
+    elsewhere."""
+    S = allow2.shape[1]
+    s_idx = torch.arange(S, device=allow2.device)
+    idx1 = 2 * label_lengths
+    idx2 = idx1 - 1
+    final = (s_idx[None, :] == idx1[:, None]) | (
+        (s_idx[None, :] == idx2[:, None]) & (idx2 >= 0)[:, None])
+    beta_last = torch.where(final, 0.0, LOG_EPS)
+    allow2_dst = _shift_left(torch.where(allow2, 0.0, LOG_EPS), 2) == 0.0
+    return allow2_dst, beta_last
+
+
+def forward_alphas_reference(em, allow2):
+    """Plain version of `forward_alphas`: a loop over frames."""
+    T, N, S = em.shape
+    alpha = torch.full((N, S), LOG_EPS, device=em.device)
+    alpha[:, 0] = 0.0
+    alphas = torch.empty(T, N, S, device=em.device)
+    for t in range(T):
+        a2 = torch.where(allow2, _shift_right(alpha, 2), LOG_EPS)
+        alpha = torch.clamp_min(
+            em[t] + logaddexp3(alpha, _shift_right(alpha, 1), a2), LOG_EPS)
+        alphas[t] = alpha
+    return alphas
+
+
+def backward_betas_reference(em, allow2_dst, beta_last):
+    """Plain version of `backward_betas`: a loop over frames."""
+    T = em.shape[0]
+    betas = torch.empty_like(em)
+    beta = beta_last
+    betas[T - 1] = beta
+    for t in range(T - 2, -1, -1):
+        b = torch.clamp_min(em[t + 1] + beta, LOG_EPS)
+        b2 = torch.where(allow2_dst, _shift_left(b, 2), LOG_EPS)
+        beta = torch.clamp_min(logaddexp3(b, _shift_left(b, 1), b2), LOG_EPS)
+        betas[t] = beta
+    return betas
+
+
+def _check(name, em, masks, rows):
+    """(T, N, S) of em; raises unless em is contiguous (T, N, S) f32 and
+    each mask (bool) and row (f32) is contiguous (N, S) on em's device."""
+    ok = em.dim() == 3 and em.dtype == torch.float32 and em.is_contiguous()
+    T, N, S = em.shape if ok else (0, 0, 0)
+    for t, dt in [(m, torch.bool) for m in masks] + [(r, torch.float32)
+                                                     for r in rows]:
+        ok = ok and t.dtype == dt and t.is_contiguous() \
+            and tuple(t.shape) == (N, S) and t.device == em.device
+    if not ok:
+        raise ValueError(f"{name}: the kernel takes contiguous f32 em (T, N, "
+                         f"S) and (N, S) bool masks / f32 rows on one CUDA "
+                         f"device, got em {em.dtype} {tuple(em.shape)}")
+    return T, N, S
+
+
+def forward_alphas(em, allow2):
+    """All alpha rows (T, N, S) f32 of the emission table em (T, N, S) f32
+    and the skip permissions allow2 (N, S) bool. A CPU tensor takes
+    `forward_alphas_reference`; a CUDA tensor launches `ctc_alpha` of
+    `csrc/ctc.cu` or raises."""
+    if em.device.type == "cpu":
+        return forward_alphas_reference(em, allow2)
+    T, N, S = _check("forward_alphas", em, (allow2,), ())
+    out = torch.empty_like(em)
+    err = _build.load("ctc", _ENTRIES).ctc_alpha(
+        em.data_ptr(), allow2.data_ptr(), out.data_ptr(), T, N, S,
+        torch.cuda.current_stream(em.device).cuda_stream)
+    _build.check(err, "ctc_alpha")
+    forward_alphas.launches += 1
+    return out
+
+
+def backward_betas(em, allow2_dst, beta_last):
+    """All beta rows (T, N, S) f32: beta[T-1] = beta_last (N, S) f32, and
+    beta[t] from beta[t+1] and em[t+1] with the skip permissions
+    allow2_dst (N, S) bool. A CPU tensor takes `backward_betas_reference`;
+    a CUDA tensor launches `ctc_beta` of `csrc/ctc.cu` or raises."""
+    if em.device.type == "cpu":
+        return backward_betas_reference(em, allow2_dst, beta_last)
+    T, N, S = _check("backward_betas", em, (allow2_dst,), (beta_last,))
+    out = torch.empty_like(em)
+    err = _build.load("ctc", _ENTRIES).ctc_beta(
+        em.data_ptr(), allow2_dst.data_ptr(), beta_last.data_ptr(),
+        out.data_ptr(), T, N, S,
+        torch.cuda.current_stream(em.device).cuda_stream)
+    _build.check(err, "ctc_beta")
+    backward_betas.launches += 1
+    return out
+
+
+_ENTRIES = {"ctc_alpha": (3, 3, 0), "ctc_beta": (4, 3, 0)}
+forward_alphas.launches = 0
+backward_betas.launches = 0
+
+
 class _CTCNll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_probs, labels, input_lengths, label_lengths, blank):
         lp = log_probs.float()
-        N, T, V = lp.shape
         S = 2 * labels.shape[1] + 1
         ext, svalid, allow2 = _lattice_tables(labels, label_lengths, blank, S)
         em = _emissions(lp, ext, svalid, input_lengths, blank)
-        alpha = torch.full((N, S), LOG_EPS, device=lp.device)
-        alpha[:, 0] = 0.0
-        alphas = torch.empty(T, N, S, device=lp.device)
-        for t in range(T):
-            a2 = torch.where(allow2, _shift_right(alpha, 2), LOG_EPS)
-            alpha = torch.clamp_min(
-                em[t] + logaddexp3(alpha, _shift_right(alpha, 1), a2),
-                LOG_EPS)
-            alphas[t] = alpha
-        ll = _final_ll(alpha, label_lengths)
+        alphas = forward_alphas(em, allow2)
+        ll = _final_ll(alphas[-1], label_lengths)
         ctx.save_for_backward(ext, allow2, em, alphas, ll, input_lengths,
                               label_lengths)
-        ctx.vocab = V
+        ctx.vocab = lp.shape[-1]
         ctx.dtype = log_probs.dtype
         return -ll
 
@@ -95,21 +190,7 @@ class _CTCNll(torch.autograd.Function):
             ctx.saved_tensors
         T, N, S = em.shape
         dev = em.device
-        s_idx = torch.arange(S, device=dev)
-        idx1 = 2 * label_lengths
-        idx2 = idx1 - 1
-        final = (s_idx[None, :] == idx1[:, None]) | (
-            (s_idx[None, :] == idx2[:, None]) & (idx2 >= 0)[:, None])
-        beta = torch.where(final, 0.0, LOG_EPS)
-        allow2_dst = _shift_left(torch.where(allow2, 0.0, LOG_EPS), 2) == 0.0
-        betas = torch.empty_like(alphas)
-        betas[T - 1] = beta
-        for t in range(T - 2, -1, -1):
-            b = torch.clamp_min(em[t + 1] + beta, LOG_EPS)
-            b2 = torch.where(allow2_dst, _shift_left(b, 2), LOG_EPS)
-            beta = torch.clamp_min(logaddexp3(b, _shift_left(b, 1), b2),
-                                   LOG_EPS)
-            betas[t] = beta
+        betas = backward_betas(em, *_beta_tables(allow2, label_lengths))
         ll_safe = torch.where(ll <= LOG_EPS / 2, 0.0, ll)
         score = alphas + betas - ll_safe[None, :, None]
         gamma = torch.where(score <= LOG_EPS / 2, 0.0, torch.exp(score))

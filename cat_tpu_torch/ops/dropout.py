@@ -1,5 +1,5 @@
-"""Dropout bits: the plain PyTorch twin of the Philox keep-mask in
-`cat_tpu_torch/csrc/common.cuh`.
+"""Dropout: the Philox keep-mask of `cat_tpu_torch/csrc/common.cuh`, its
+plain PyTorch twin, and the standalone dropout op.
 
 A keep decision is a pure function of (seed, stream, plane, row, column):
 Philox-4x32-10 with key = the two 32-bit seed words and counter =
@@ -15,10 +15,21 @@ with the 32 x 32-bit products split so that nothing overflows.
 Seeds are two 32-bit words per dropout call, drawn from an explicit
 `torch.Generator` (`draw_seed`). The TPU's hardware bits cannot be
 matched, so tests across the two packages run at rate 0.
+
+`dropout` is the standalone op (counterpart of `fused_dropout` in
+`cat_tpu/ops/dropout_pallas.py`, whose TPU kernels `_kernel`/`_kernel3`
+it replaces): a `torch.autograd.Function` whose forward and backward both
+call `dropout_apply` with the same seed, so the backward applies the
+forward's mask to the cotangent and no mask is stored. `dropout_apply`
+launches `cat_tpu_torch/csrc/dropout.cu` on a CUDA tensor and takes
+`dropout_reference` on a CPU tensor; kernel and plain version agree bit
+for bit.
 """
 from __future__ import annotations
 
 import torch
+
+from cat_tpu_torch import _build
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -106,3 +117,56 @@ def dropout_reference(x, rate: float, seed, stream: int = 0):
     R = x.numel() // max(C, 1)
     f = dropout_scale(seed, stream, 1, R, C, rate, x.device)
     return (x.float() * f.view(x.shape)).to(x.dtype)
+
+
+def dropout_apply(x, rate: float, seed, stream: int = 0):
+    """x times its keep factor (`dropout_reference`). Rate 0 returns x and
+    launches nothing. A CPU tensor takes `dropout_reference`; a CUDA
+    tensor launches the kernel, which takes contiguous bf16 or f32, or
+    raises."""
+    if rate <= 0.0:
+        return x
+    if x.device.type == "cpu":
+        return dropout_reference(x, rate, seed, stream)
+    if x.dtype not in (torch.bfloat16, torch.float32) \
+            or not x.is_contiguous() or x.dim() == 0:
+        raise ValueError(f"dropout: the kernel takes contiguous bfloat16 or "
+                         f"float32 CUDA tensors, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    C = x.shape[-1]
+    R = x.numel() // max(C, 1)
+    if C % 4 == 0 and x.data_ptr() % (4 * x.element_size()):
+        raise ValueError("dropout: with rows of a multiple of 4 values the "
+                         "kernel takes tensors aligned to 4 values")
+    drop, inv = kernel_args(rate, seed)
+    out = torch.empty_like(x)
+    err = _build.load("dropout", {"dropout_fwd": (2, 7, 1)}).dropout_fwd(
+        x.data_ptr(), out.data_ptr(), R, C, int(x.dtype == torch.float32),
+        int(stream), *drop, inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "dropout")
+    dropout_apply.launches += 1
+    return out
+
+
+dropout_apply.launches = 0
+
+
+class _Dropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rate, seed, stream):
+        ctx.cfg = (rate, seed, stream)
+        return dropout_apply(x, rate, seed, stream)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dropout_apply(g.contiguous(), *ctx.cfg), None, None, None
+
+
+def dropout(x, rate: float, seed, stream: int = 0):
+    """Dropout of x (..., C) with the Philox mask of (seed, stream) over the
+    rows of the flattened leading dims; the identity at rate 0.
+    Differentiable in x: the backward re-draws the same mask."""
+    if rate <= 0.0:
+        return x
+    return _Dropout.apply(x, float(rate), seed, int(stream))

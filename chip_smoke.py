@@ -14,7 +14,16 @@ Phases, any failure exits non-zero:
    utterance identical (as SpecAugment's time masks leave them after
    subsampling), constant or zero; the JSON records time the training
    batch at rate 0.1; no single PyTorch call computes any of these
-   functions, so `library_ms` is null;
+   functions, so `library_ms` is null; then the loss path's kernels at
+   the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
+   3-gram denominator of `make_den`): the standalone dropout bit for bit
+   (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
+   betas on live states within 1e-3 + 2e-6·|plain| and the rest floored
+   on both sides, the CTC log-likelihood and the den logZ to 1e-5
+   relative, the den snapshots to 1e-5 relative on live states, the CTC
+   and den gradient rows within 1e-3 + 1e-3·|plain| (CTC beside
+   `torch.nn.functional.ctc_loss`, forward and forward + backward; no
+   single call computes the dense denominator);
 3. serving: the libri crf-v1 conformer (egs/libri/exp/crf-v1/config.json:
    17 cells, d=512, 8 heads, bf16; 72 classes) with seeded random weights
    decodes a ragged batch of 8 synthetic utterances through
@@ -31,15 +40,21 @@ Phases, any failure exits non-zero:
    kernel and plain steps, and the kernel step may be no farther from the
    float32 step than the plain bf16 step is, in its gradient and in its
    logits, frame by frame, in the time-masked and in the other frames;
-5. training: `cat_tpu_torch.ctc.train.make_train_step` trains the full
+   the kernel step runs the encoder and the loss (dropout, CTC, dense
+   denominator) on kernels, the plain steps neither;
+5. fold: two micro-steps of `make_train_step(..., grad_accum_fold=2)` on
+   the serving batch: `applied` 0 then 1, the parameters unmoved by the
+   first, both finite, the kernels' launch counts per micro-step;
+6. training: `cat_tpu_torch.ctc.train.make_train_step` trains the full
    crf-v1 model (CTC-CRF, lambda 0.01, 3-gram dense denominator over
    V=72, SpecAugment, dropout 0.1, Noam + Adam, clipping at 5) on 32
    utterances of 1200 + 25k frames (k = 0..31): 2 warm-up and 5 timed
    steps; losses finite, nothing skipped, exactly 34 FF, 17 glu_in, 17
-   bn_out and 17 attention launches per step each way; step time, audio
-   seconds trained per second, peak memory and the split of one step
-   into encoder and loss;
-6. device: the card's name and power limit.
+   bn_out and 17 attention launches per step each way, 2 dropout (its
+   forward and backward), 1 CTC alpha, 1 CTC beta, 1 den forward and 1
+   den backward; step time, audio seconds trained per second, peak
+   memory and the split of one step into encoder and loss;
+7. device: the card's name and power limit.
 With --profile, one serving forward and one train step also run under
 torch.profiler; the device time by kernel is printed and written to
 chiprun_out/profile.txt and chiprun_out/profile_train.txt.
@@ -58,6 +73,7 @@ from contextlib import ExitStack
 from unittest import mock
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 FRAMES = [2400, 1600, 1400, 1200, 1000, 800, 600, 400]  # ragged batch
 TRAIN_FRAMES = [1200 + 25 * k for k in range(32)]       # training batch
@@ -76,11 +92,20 @@ STEP_CONTROL = 1.5
 SEED = (0x0BADF00D, 0x5EED1234)
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("ffn_fwd", "glu_in_fwd", "bn_out_fwd", "relpos_attention_fwd",
-           "ffn_bwd", "glu_in_bwd", "bn_out_bwd", "relpos_attention_bwd")
+           "ffn_bwd", "glu_in_bwd", "bn_out_bwd", "relpos_attention_bwd",
+           "dropout", "ctc_alpha", "ctc_beta", "den_fwd", "den_bwd")
 PER_STEP = {"ffn_fwd": 34, "glu_in_fwd": 17, "bn_out_fwd": 17,
             "relpos_attention_fwd": 17, "ffn_bwd": 34, "glu_in_bwd": 17,
-            "bn_out_bwd": 17, "relpos_attention_bwd": 17}
-SERVE = {k: (v if k.endswith("_fwd") else 0) for k, v in PER_STEP.items()}
+            "bn_out_bwd": 17, "relpos_attention_bwd": 17, "dropout": 2,
+            "ctc_alpha": 1, "ctc_beta": 1, "den_fwd": 1, "den_bwd": 1}
+SERVE = {k: (v if k in KERNELS[:4] else 0) for k, v in PER_STEP.items()}
+# the loss kernels against their plain versions (f32): lattice states
+# within 1e-3 + 2e-6·|plain| (the values reach about -2e3 at T' = 493,
+# where one f32 step is 2.4e-4), snapshots, log-likelihoods and logZ to
+# 1e-5 relative, gradient rows (posteriors exp(alpha + beta - logZ), in
+# which a one-step difference of a deep alpha shows as ~2.4e-4 relative)
+# within 1e-3 + 1e-3·|plain|; values at or below LOG_EPS / 2 are zeros
+STATE_ATOL, STATE_RTOL, LL_RTOL, GRAD_TOL = 1e-3, 2e-6, 1e-5, 1e-3
 # biases whose exact gradient is 0, so both steps hold rounding noise
 # there: the depthwise conv bias (re-centred by batch normalisation) and
 # the key bias (the softmax cancels a score shared by every key)
@@ -111,8 +136,8 @@ def timed(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes):
-    return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
 
 
 def compare(name, out, ref, rows=None):
@@ -170,14 +195,20 @@ def subsampled(frames):
 def wrappers():
     """Every kernel wrapper of the port by kernel name; each counts the
     launches of its kernel."""
-    from cat_tpu_torch.ops import attention, conv_module, ffn
+    from cat_tpu_torch.ops import (attention, conv_module, crf_dense, ctc,
+                                   dropout, ffn)
     return {"ffn_fwd": ffn.ff_forward, "ffn_bwd": ffn.ff_backward,
             "glu_in_fwd": conv_module.glu_in_forward,
             "glu_in_bwd": conv_module.glu_in_backward,
             "bn_out_fwd": conv_module.bn_out_forward,
             "bn_out_bwd": conv_module.bn_out_backward,
             "relpos_attention_fwd": attention.relpos_attention_forward,
-            "relpos_attention_bwd": attention.relpos_attention_backward}
+            "relpos_attention_bwd": attention.relpos_attention_backward,
+            "dropout": dropout.dropout_apply,
+            "ctc_alpha": ctc.forward_alphas,
+            "ctc_beta": ctc.backward_betas,
+            "den_fwd": crf_dense.den_forward,
+            "den_bwd": crf_dense.den_backward}
 
 
 def reset_counts():
@@ -190,9 +221,15 @@ def counts():
 
 
 def plain_patches():
-    """Every fused op, forward and backward, on its plain version."""
-    from cat_tpu_torch.ops import attention, conv_module, ffn
-    return {ffn: {"ff_forward": ffn.ff_reference,
+    """Every kernel wrapper, forward and backward, on its plain version."""
+    from cat_tpu_torch.ops import (attention, conv_module, crf_dense, ctc,
+                                   dropout, ffn)
+    return {dropout: {"dropout_apply": dropout.dropout_reference},
+            ctc: {"forward_alphas": ctc.forward_alphas_reference,
+                  "backward_betas": ctc.backward_betas_reference},
+            crf_dense: {"den_forward": crf_dense.den_forward_reference,
+                        "den_backward": crf_dense.den_backward_reference},
+            ffn: {"ff_forward": ffn.ff_reference,
                   "ff_backward": ffn.ff_backward_reference},
             conv_module: {
                 "glu_in_forward": conv_module.glu_in_reference,
@@ -211,17 +248,19 @@ class Records:
         self.by_name = {}
 
     def add(self, name, source, replaces, err, k_ms, p_ms, flops, nbytes,
-            what):
-        b = bound_ms(flops, nbytes)
-        by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES \
+            what, peak=PEAK_BF16_FLOPS, library_ms=None):
+        b = bound_ms(flops, nbytes, peak)
+        by = "operations" if flops / peak >= nbytes / PEAK_BYTES \
             else "bytes"
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"[kernel] {name} {what}: max err {err:.4g}, kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b:.4f} ms ({by})")
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound {b:.4f} ms "
+            f"({by})")
         self.by_name.setdefault(name, {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None})
+            "library_ms": library_ms})
 
 
 def _rnd(gen, *shape, s=1.0, dtype=None):
@@ -484,6 +523,180 @@ def phase_backward_kernels(gen, rec):
     torch.cuda.empty_cache()
 
 
+def close_states(name, got, want, atol, rtol):
+    """Max abs error of f32 log-domain states over the plain version's live
+    ones (above LOG_EPS / 2); fails unless those agree within atol +
+    rtol·|plain| and the others lie at or below LOG_EPS / 2 in both."""
+    from cat_tpu_torch.ops.semiring import LOG_EPS
+    if got.isnan().any():
+        fail(f"{name}: NaN in the kernel's output")
+    live = want > LOG_EPS / 2
+    if (got[~live] > LOG_EPS / 2).any():
+        fail(f"{name}: states floored in the plain version are live in the "
+             f"kernel's output")
+    err = (got - want)[live].abs()
+    bad = int((err > atol + rtol * want[live].abs()).sum())
+    if bad:
+        fail(f"{name}: {bad} live states beyond {atol} + {rtol}·|plain|, max "
+             f"abs err {err.max().item():.4g}")
+    return err.max().item() if err.numel() else 0.0
+
+
+def close_rows(name, got, want):
+    """Max abs error of f32 gradient rows; fails beyond GRAD_TOL +
+    GRAD_TOL·|plain| anywhere."""
+    if not got.isfinite().all():
+        fail(f"{name}: non-finite gradient")
+    err = (got - want).abs()
+    bad = int((err > GRAD_TOL + GRAD_TOL * want.abs()).sum())
+    if bad:
+        fail(f"{name}: {bad} elements beyond {GRAD_TOL} + {GRAD_TOL}·|plain|, "
+             f"max abs err {err.max().item():.4g}")
+    return err.max().item()
+
+
+def close_rel(name, got, want):
+    rel = ((got - want).abs() / want.abs()).max().item()
+    if not rel <= LL_RTOL:
+        fail(f"{name}: relative error {rel:.3g} > {LL_RTOL}")
+    return (got - want).abs().max().item()
+
+
+def phase_loss_kernels(gen, rec, den):
+    """The loss path's kernels against their plain versions at the
+    training batch; the JSON records of all five."""
+    import torch
+    import torch.nn.functional as F
+    from cat_tpu_torch.ops import crf_dense, ctc, dropout
+
+    tl = [subsampled(f) for f in TRAIN_FRAMES]
+    N, T, V, D = len(tl), max(tl), 72, 512
+    Rv = sum(tl)
+    lens = torch.tensor(tl, device="cuda")
+    batch = make_batch(TRAIN_FRAMES, seed=6)
+    labels, llens = batch["labels"], batch["label_lengths"]
+    lp = torch.log_softmax(_rnd(gen, N, T, V, s=2.0), -1)
+    what = f"N={N} T'={min(tl)}..{T} V={V}"
+
+    # the standalone dropout: its forward and, through the autograd
+    # Function, its backward, bit for bit, at the post-subsampling shape
+    x = _rnd(gen, N, T, D, dtype=torch.bfloat16)
+    for rate in (0.1, 0.5):
+        if not torch.equal(dropout.dropout_apply(x, rate, SEED),
+                           dropout.dropout_reference(x, rate, SEED)):
+            fail(f"dropout rate {rate}: the kernel's output is not the plain "
+                 f"version's, bit for bit")
+    xg = x.clone().requires_grad_()
+    gy = _rnd(gen, N, T, D, dtype=torch.bfloat16)
+    dropout.dropout(xg, 0.1, SEED).backward(gy)
+    if not torch.equal(xg.grad, dropout.dropout_reference(gy, 0.1, SEED)):
+        fail("dropout backward: not the plain version's mask, bit for bit")
+    rec.add("dropout", "cat_tpu_torch/csrc/dropout.cu",
+            "cat_tpu/ops/dropout_pallas.py:44", 0.0,
+            timed(lambda: dropout.dropout_apply(x, 0.1, SEED), 20, 3),
+            timed(lambda: dropout.dropout_reference(x, 0.1, SEED), 3, 1),
+            0, 2 * x.numel() * 2,
+            f"({N}, {T}, {D}) bf16, rate 0.1, bit-exact forward and backward",
+            library_ms=timed(lambda: F.dropout(x, 0.1, True), 20, 3))
+
+    # CTC: the lattice of the training batch's labels
+    S = 2 * labels.shape[1] + 1
+    ext, svalid, allow2 = ctc._lattice_tables(labels, llens, 0, S)
+    em = ctc._emissions(lp, ext, svalid, lens, 0)
+    allow2_dst, beta_last = ctc._beta_tables(allow2, llens)
+    alphas = ctc.forward_alphas(em, allow2)
+    plain_a = ctc.forward_alphas_reference(em, allow2)
+    e_a = close_states("ctc_alpha", alphas, plain_a, STATE_ATOL, STATE_RTOL)
+    close_rel("ctc log-likelihood", ctc._final_ll(alphas[-1], llens),
+              ctc._final_ll(plain_a[-1], llens))
+    e_b = close_states("ctc_beta",
+                       ctc.backward_betas(em, allow2_dst, beta_last),
+                       ctc.backward_betas_reference(em, allow2_dst,
+                                                    beta_last),
+                       STATE_ATOL, STATE_RTOL)
+
+    def ctc_grad():
+        xl = lp.clone().requires_grad_()
+        ctc.ctc_loss(xl, labels, lens, llens, reduction="sum").backward()
+        return xl.grad
+
+    e_g = close_rows("ctc gradient rows", ctc_grad(),
+                     patched(plain_patches(), ctc_grad))
+    lib_in = lp.transpose(0, 1).detach().requires_grad_()
+
+    def library(backward):
+        loss = F.ctc_loss(lib_in, labels, lens, llens, reduction="sum")
+        if backward:
+            loss.backward()
+
+    # bytes: em read and the states written; about 12 f32 operations a
+    # state and frame (three exp, a log, adds and maxima)
+    nbytes = 2 * em.numel() * 4 + allow2.numel()
+    sw = f"{what} S={S} U={llens.min().item()}..{llens.max().item()}"
+    rec.add("ctc_alpha", "cat_tpu_torch/csrc/ctc.cu",
+            "cat_tpu/ops/ctc_pallas.py:55", max(e_a, e_g),
+            timed(lambda: ctc.forward_alphas(em, allow2), 10, 2),
+            timed(lambda: ctc.forward_alphas_reference(em, allow2), 1, 1),
+            12 * em.numel(), nbytes, sw, PEAK_F32_FLOPS,
+            timed(lambda: library(False), 10, 2))
+    rec.add("ctc_beta", "cat_tpu_torch/csrc/ctc.cu",
+            "cat_tpu/ops/ctc_pallas.py:73", max(e_b, e_g),
+            timed(lambda: ctc.backward_betas(em, allow2_dst, beta_last), 10,
+                  2),
+            timed(lambda: ctc.backward_betas_reference(em, allow2_dst,
+                                                       beta_last), 1, 1),
+            12 * em.numel(), nbytes + beta_last.numel() * 4, sw,
+            PEAK_F32_FLOPS, timed(lambda: library(True), 10, 2))
+    log(f"[kernel] ctc alphas, betas and gradient rows agree with the plain "
+        f"versions (max abs err over live states: alpha {e_a:.4g}, beta "
+        f"{e_b:.4g}; gradient rows {e_g:.4g}); library_ms: "
+        f"F.ctc_loss forward (alpha) and forward + backward (beta)")
+    del em, alphas, plain_a, lib_in
+
+    # the dense denominator: snapshots, logZ, gradient rows
+    (s_in, s_bl), logz = crf_dense.den_forward(lp, lens, den)
+    (p_in, p_bl), plain_z = crf_dense.den_forward_reference(lp, lens, den)
+    e_z = close_rel("den logZ", logz, plain_z)
+    e_s = max(close_states(f"den snapshots {k}", a, b, 0.0, LL_RTOL)
+              for k, a, b in (("in", s_in, p_in), ("bl", s_bl, p_bl)))
+    g = 1 + 0.5 * _rnd(gen, N).abs()
+    snaps = (s_in, s_bl)
+    grad = crf_dense.den_backward(lp, lens, snaps, logz, g, den)
+    e_d = close_rows("den gradient rows", grad, crf_dense.den_backward_reference(
+        lp, lens, (p_in, p_bl), plain_z, g, den))
+    log(f"[kernel] den logZ (max abs err {e_z:.4g}), snapshots ({e_s:.4g}) "
+        f"and gradient rows ({e_d:.4g}) agree with the plain versions")
+    # two (V, V, V) contractions a valid frame forward, twice that
+    # backward (the recompute and the beta contraction)
+    flops = 2 * 2 * V ** 3 * Rv
+    tables = (V ** 3 + V * V) * 4 + N * 8
+    fwd_bytes = lp.numel() * 4 + 2 * s_in.numel() * 4 + tables + N * 4
+    dw = f"{what} K={den.ckpt_every} 3-gram; {Rv} valid frames"
+    rec.add("den_fwd", "cat_tpu_torch/csrc/crf_dense.cu",
+            "cat_tpu/ops/crf_dense_pallas.py:76", max(e_z, e_s),
+            timed(lambda: crf_dense.den_forward(lp, lens, den), 5, 1),
+            timed(lambda: crf_dense.den_forward_reference(lp, lens, den), 1,
+                  0), flops, fwd_bytes, dw, PEAK_F32_FLOPS)
+    rec.add("den_bwd", "cat_tpu_torch/csrc/crf_dense.cu",
+            "cat_tpu/ops/crf_dense.py:321", e_d,
+            timed(lambda: crf_dense.den_backward(lp, lens, snaps, logz, g,
+                                                 den), 5, 1),
+            timed(lambda: crf_dense.den_backward_reference(
+                lp, lens, snaps, logz, g, den), 1, 0),
+            2 * flops, fwd_bytes + N * 4 + lp.numel() * 4, dw,
+            PEAK_F32_FLOPS)
+    torch.cuda.empty_cache()
+
+
+def patched(patches, fn):
+    """fn() with the module attributes of `patches` replaced."""
+    with ExitStack() as stack:
+        for mod, fns in patches.items():
+            for name, f in fns.items():
+                stack.enter_context(mock.patch.object(mod, name, f))
+        return fn()
+
+
 def load_config():
     with open(os.path.join(REPO, "egs/libri/exp/crf-v1/config.json")) as f:
         return json.load(f)
@@ -705,9 +918,9 @@ def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
 
 def phase_train_vs_plain(cfg, den):
     """One train step with the kernels against the same step on every
-    fused op's plain version, in bf16 and in float32, from the same
-    weights and generator (the same SpecAugment masks and dropout
-    seeds)."""
+    kernel's plain version (the encoder's fused ops, the dropout and the
+    losses), in bf16 and in float32, from the same weights and generator
+    (the same SpecAugment masks and dropout seeds)."""
     import torch
     from cat_tpu_torch.ctc.train import build_model
     from cat_tpu_torch.models.layers import length_mask
@@ -725,8 +938,8 @@ def phase_train_vs_plain(cfg, den):
     r = train_step_once(model, start, cfg, den, batch, plain_patches(),
                         f32=True)
     if counts() != PER_STEP:
-        fail("a kernel launched while every fused op was patched to its "
-             "plain version")
+        fail("a kernel launched while every kernel wrapper was patched to "
+             "its plain version")
     if k["skipped"] or p["skipped"] or r["skipped"]:
         fail("a train step was skipped (non-finite loss or grad norm)")
 
@@ -783,6 +996,44 @@ def phase_train_vs_plain(cfg, den):
         fail("the kernel train step is farther from the float32 step than "
              f"{STEP_CONTROL}x the plain bf16 step")
     del model, k, p, r
+    torch.cuda.empty_cache()
+
+
+def phase_fold(cfg, den):
+    """Two micro-steps of a fold-2 crf-v1 train step on the serving batch:
+    the first applies nothing, the second the fold's update."""
+    import torch
+    from cat_tpu_torch.ctc.train import (build_model, init_state,
+                                         make_train_step)
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    model = build_model(cfg, num_classes=72, device="cuda", seed=0)
+    sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+    tr = cfg["trainer"]
+    step = make_train_step(model, opt, tr["loss"], den, tr["lamb"],
+                           cfg["specaug"], grad_clip=5.0, grad_accum_fold=2)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state, gen = init_state(model, opt), torch.Generator().manual_seed(10)
+    for i in range(2):
+        reset_counts()
+        state, m = step(state, make_batch(FRAMES, seed=8 + i), sched.lr, gen)
+        torch.cuda.synchronize()
+        if counts() != PER_STEP:
+            fail(f"fold micro-step {i + 1}: launch counts {counts()} != "
+                 f"{PER_STEP}")
+        moved = [n for n, p in model.named_parameters()
+                 if not torch.equal(p, start[n])]
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        log(f"[fold] grad_accum_fold=2, micro-step {i + 1}: loss {loss:.5g}, "
+            f"fold grad norm {gn:.5g}, applied {m['applied']}, skipped "
+            f"{m['skipped']}, {len(moved)} of {len(start)} parameters moved")
+        if m["applied"] != i or m["skipped"] or not (
+                torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+            fail(f"fold micro-step {i + 1}: applied {m['applied']}, skipped "
+                 f"{m['skipped']}, loss {loss}, grad norm {gn}")
+        if (i == 0 and moved) or (i == 1 and len(moved) < len(start) // 2):
+            fail(f"fold micro-step {i + 1}: {len(moved)} parameters moved")
+    del model, opt, state
     torch.cuda.empty_cache()
 
 
@@ -936,9 +1187,15 @@ def main():
     t_all = time.perf_counter()
 
     phase_build()
+    t = time.perf_counter()
+    den = make_den()
+    log(f"[train] dense 3-gram denominator over V=72 built in "
+        f"{time.perf_counter() - t:.1f} s")
     rec = Records()
     phase_kernels(torch.Generator(device="cuda").manual_seed(0))
     phase_backward_kernels(torch.Generator(device="cuda").manual_seed(1), rec)
+    phase_loss_kernels(torch.Generator(device="cuda").manual_seed(4), rec,
+                       den)
     cfg = load_config()
     forward = phase_serving(cfg)
     if profile:
@@ -946,11 +1203,8 @@ def main():
                       "chiprun_out/profile.txt")
     del forward
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    den = make_den()
-    log(f"[train] dense 3-gram denominator over V=72 built in "
-        f"{time.perf_counter() - t:.1f} s")
     phase_train_vs_plain(cfg, den)
+    phase_fold(cfg, den)
     launches = phase_training(cfg, den, profile)
     records = [rec.by_name[k] for k in KERNELS]
     for r in records:

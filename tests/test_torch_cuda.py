@@ -14,14 +14,21 @@ Tolerance (`cat_tpu_torch.utils.tolerance`): bf16 outputs |kernel - plain|
 <= 0.02 + 0.02·|plain|; f32 gradients that are sums over many rows
 (weight, bias, norm, position and statistics gradients) ||kernel - plain||
 / ||plain|| <= 1e-2, because their bf16 operands are summed in another
-order, partly by atomics.
+order, partly by atomics. The loss kernels (f32), as chip_smoke.py holds
+them: dropout bit for bit; CTC states live in the plain version (above
+LOG_EPS / 2) within 1e-3 + 2e-6·|plain|, den snapshots there within 1e-5
+relative, the other states at or below LOG_EPS / 2 in both; den logZ to
+1e-5 relative; gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|.
 """
+import numpy as np
 import pytest
 import torch
 
 from cat_tpu_torch.ctc.train import build_model
+from cat_tpu_torch.fst.ngram import train_ngram
 from cat_tpu_torch.models.layers import length_mask
-from cat_tpu_torch.ops import attention, conv_module, ffn
+from cat_tpu_torch.ops import attention, conv_module, crf_dense, ctc, dropout
+from cat_tpu_torch.ops import ffn
 from cat_tpu_torch.utils import tolerance
 
 pytestmark = pytest.mark.cuda
@@ -304,6 +311,114 @@ def test_fused_ops_keep_the_graph_on_the_card(gen):
         assert t.grad is not None and torch.isfinite(t.grad).all()
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("C", [512, 510])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_kernel_is_bit_exact(gen, rate, C, dtype):
+    x = _rnd(gen, 3, 37, C, dtype=dtype).requires_grad_()
+    before = dropout.dropout_apply.launches
+    y = dropout.dropout(x, rate, SEED)
+    assert torch.equal(y, dropout.dropout_reference(x.detach(), rate, SEED))
+    g = _rnd(gen, 3, 37, C, dtype=dtype)
+    y.backward(g)
+    assert torch.equal(x.grad, dropout.dropout_reference(g, rate, SEED))
+    assert dropout.dropout_apply.launches == before + (2 if rate else 0)
+
+
+def _lattice(gen, S, T, N):
+    """A CTC case of S = 2U + 1 lattice states over V = 72: labels with
+    repeats, U_n falling from U to 0 and, for N > 1, an utterance of one
+    frame; em, allow2, allow2_dst, beta_last as `_CTCNll` builds them."""
+    U = (S - 1) // 2
+    lp = torch.log_softmax(_rnd(gen, N, T, 72, s=2.0), -1)
+    labels = torch.randint(1, 72, (N, U), generator=gen, device="cuda")
+    labels[:, 1:U:5] = labels[:, 0:U - 1:5]
+    llens = torch.tensor([U - (U * i) // N for i in range(N)], device="cuda")
+    ilens = torch.tensor([max(1, T - 3 * i) for i in range(N)],
+                         device="cuda")
+    if N > 1:
+        llens[-1], ilens[1] = 0, 1
+    labels *= torch.arange(U, device="cuda")[None, :] < llens[:, None]
+    ext, svalid, allow2 = ctc._lattice_tables(labels, llens, 0, S)
+    em = ctc._emissions(lp, ext, svalid, ilens, 0)
+    return (em, allow2, *ctc._beta_tables(allow2, llens))
+
+
+def _states_close(got, want, atol=1e-3, rtol=2e-6):
+    live = want > ctc.LOG_EPS / 2
+    assert (got[~live] <= ctc.LOG_EPS / 2).all()
+    assert ((got - want).abs() <= atol + rtol * want.abs())[live].all(), \
+        (got - want).abs()[live].max().item()
+
+
+@pytest.mark.parametrize("S,T,N", [(3, 1, 1), (5, 23, 3), (247, 493, 32),
+                                   (1023, 40, 3), (1025, 40, 3),
+                                   (6001, 12, 2)])
+def test_ctc_kernels(gen, S, T, N):
+    em, allow2, allow2_dst, beta_last = _lattice(gen, S, T, N)
+    before = (ctc.forward_alphas.launches, ctc.backward_betas.launches)
+    _states_close(ctc.forward_alphas(em, allow2),
+                  ctc.forward_alphas_reference(em, allow2))
+    _states_close(ctc.backward_betas(em, allow2_dst, beta_last),
+                  ctc.backward_betas_reference(em, allow2_dst, beta_last))
+    assert (ctc.forward_alphas.launches, ctc.backward_betas.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _den(V, order):
+    rng = np.random.default_rng(order)
+    seqs = [list(map(int, rng.integers(1, V, size=int(rng.integers(3, 30)))))
+            for _ in range(200)]
+    return crf_dense.DenseDen.from_ngram(train_ngram(seqs, order=order), V)
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("V,T,N", [(9, 1, 1), (9, 23, 3), (9, 24, 2),
+                                   (9, 25, 3), (72, 25, 1), (72, 493, 32)])
+def test_den_kernels(gen, order, V, T, N):
+    den = _den(V, order)
+    lp = torch.log_softmax(_rnd(gen, N, T, V, s=2.0), -1).contiguous()
+    lens = torch.tensor([T] + [max(1, T - 7 * i) for i in range(1, N)],
+                        device="cuda")
+    if N > 2:
+        lens[-1] = 1
+    before = (crf_dense.den_forward.launches, crf_dense.den_backward.launches)
+    (s_in, s_bl), logz = crf_dense.den_forward(lp, lens, den)
+    (r_in, r_bl), r_logz = crf_dense.den_forward_reference(lp, lens, den)
+    torch.testing.assert_close(logz, r_logz, rtol=1e-5, atol=0)
+    for got, want in ((s_in, r_in), (s_bl, r_bl)):
+        _states_close(got, want, atol=0.0, rtol=1e-5)
+    g = _rnd(gen, N)
+    got = crf_dense.den_backward(lp, lens, (s_in, s_bl), logz, g, den)
+    want = crf_dense.den_backward_reference(lp, lens, (r_in, r_bl), r_logz,
+                                            g, den)
+    assert ((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all(), \
+        (got - want).abs().max().item()
+    assert (crf_dense.den_forward.launches,
+            crf_dense.den_backward.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_loss_functions_keep_the_graph_on_the_card(gen):
+    """ctc_crf_loss_dense on a CUDA tensor goes through all four loss
+    kernels, and its gradient matches the CPU's plain path."""
+    V, N, T = 9, 3, 30
+    den = _den(V, 3)
+    lp = torch.log_softmax(_rnd(gen, N, T, V, s=2.0), -1)
+    labels = torch.randint(1, V, (N, 5), generator=gen, device="cuda")
+    lens = torch.tensor([30, 21, 9], device="cuda")
+    llens = torch.tensor([5, 3, 2], device="cuda")
+    ks = (ctc.forward_alphas, ctc.backward_betas, crf_dense.den_forward,
+          crf_dense.den_backward)
+    before = [k.launches for k in ks]
+    x = lp.clone().requires_grad_()
+    crf_dense.ctc_crf_loss_dense(x, labels, lens, llens, den).backward()
+    assert [k.launches for k in ks] == [b + 1 for b in before]
+    xc = lp.cpu().requires_grad_()
+    crf_dense.ctc_crf_loss_dense(xc, labels.cpu(), lens.cpu(), llens.cpu(),
+                                 den).backward()
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, atol=1e-4, rtol=1e-4)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x32 = _rnd(gen, 2, 3, 256)
     p = (torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
@@ -319,6 +434,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                  torch.zeros(192, device="cuda"),
                                  _rnd(gen, 192, 384),
                                  torch.zeros(384, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        dropout.dropout_apply(_rnd(gen, 4, 6).t(), 0.1, SEED)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        dropout.dropout_apply(_rnd(gen, 4, 6, dtype=torch.float16), 0.1, SEED)
+    em = _rnd(gen, 5, 2, 7)
+    allow2 = torch.zeros(2, 7, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="f32"):
+        ctc.forward_alphas(em.double(), allow2)
+    with pytest.raises(ValueError, match="bool"):
+        ctc.forward_alphas(em, allow2.float())
+    with pytest.raises(ValueError, match="f32"):
+        ctc.backward_betas(em, allow2, _rnd(gen, 2, 6))
+    den = _den(9, 2)
+    lp = _rnd(gen, 2, 5, 9)
+    lens = torch.tensor([5, 3], device="cuda")
+    with pytest.raises(ValueError, match="int64"):
+        crf_dense.den_forward(lp, lens.int(), den)
+    with pytest.raises(ValueError, match="contiguous"):
+        crf_dense.den_forward(lp.transpose(0, 1), lens, den)
+    with pytest.raises(ValueError, match="V = 8"):
+        crf_dense.den_forward(lp[..., :8].contiguous(), lens, den)
 
 
 def test_conformer_forward_matches_plain_on_the_card(gen, monkeypatch):

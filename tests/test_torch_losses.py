@@ -1,12 +1,22 @@
 """Port parity for the training losses and SpecAugment, in float32 on the
 CPU: `cat_tpu_torch.ops.ctc`, `ops.crf_dense`, `fst.ngram`, `ops.specaug`
-against their `cat_tpu` counterparts (the XLA scan paths) on the same
-numpy inputs, and CTC also against `torch.nn.functional.ctc_loss`.
+against their `cat_tpu` counterparts (the XLA scan paths, and the Pallas
+routes in interpret mode) on the same numpy inputs, and CTC also against
+`torch.nn.functional.ctc_loss`.
+
+The plain versions of the loss kernels against the TPU kernels they
+stand for: `forward_alphas_reference` / `backward_betas_reference` against
+`forward_alphas_pallas` / `backward_betas_pallas`, `den_forward_reference`
+against `dense_den_forward_pallas`, `den_backward_reference` against the
+VJP of `dense_den_log_partition` with the fused den on. The fused den
+needs `CAT_TPU_PARTITIONED=0` here: under the 8 virtual devices of
+`tests/conftest.py` the JAX package would otherwise route around it.
 
 Tolerances: loss values and gradients rtol 1e-4, atol 1e-4 against JAX
-and torch (the same recursions in another order); dense tables equal to
-rtol 1e-6; the n-gram LM and SpecAugment with the same masks exactly
-equal.
+and torch (the same recursions in another order); lattice states and
+snapshots rtol 1e-5, atol 1e-4 where live (above LOG_EPS / 2), and at or
+below LOG_EPS / 2 on both sides elsewhere; dense tables equal to rtol
+1e-6; the n-gram LM and SpecAugment with the same masks exactly equal.
 """
 import numpy as np
 import pytest
@@ -19,28 +29,35 @@ from cat_tpu.fst.ngram import train_ngram as jax_train_ngram
 from cat_tpu.ops.crf_dense import DenseDen as JaxDenseDen
 from cat_tpu.ops.crf_dense import \
     dense_den_log_partition as jax_den_log_partition
+from cat_tpu.ops.crf_dense_pallas import dense_den_forward_pallas
 from cat_tpu.ops.ctc import ctc_loss as jax_ctc_loss
+from cat_tpu.ops.ctc_pallas import (backward_betas_pallas,
+                                    forward_alphas_pallas)
 from cat_tpu.ops.specaug import specaug as jax_specaug
 from cat_tpu_torch.fst.ngram import train_ngram
+from cat_tpu_torch.ops import ctc as ctc_op
 from cat_tpu_torch.ops import specaug
-from cat_tpu_torch.ops.crf_dense import DenseDen, dense_den_log_partition
+from cat_tpu_torch.ops.crf_dense import (DenseDen, den_backward_reference,
+                                         den_forward_reference,
+                                         dense_den_log_partition)
 from cat_tpu_torch.ops.ctc import ctc_loss
+from cat_tpu_torch.ops.semiring import LOG_EPS
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _log_probs(N, T, V, seed):
-    x = np.random.default_rng(seed).standard_normal((N, T, V)) * 2
+def _log_probs(N, T, V, seed, scale=2.0):
+    x = np.random.default_rng(seed).standard_normal((N, T, V)) * scale
     return np.array(jax.nn.log_softmax(x.astype(np.float32), -1))
 
 
-def _ctc_case(seed=0):
+def _ctc_case(seed=0, llens=(6, 4, 3, 1)):
     rng = np.random.default_rng(seed)
     N, T, V, U = 4, 23, 7, 6
     lp = _log_probs(N, T, V, seed)
     ilens = np.array([23, 17, 9, 1])
-    llens = np.array([6, 4, 3, 1])
+    llens = np.array(llens)
     labels = rng.integers(1, V, (N, U))
     labels[1, :2] = 5                      # a repeat: the skip is barred
     labels *= np.arange(U)[None, :] < llens[:, None]
@@ -51,6 +68,72 @@ def _ctc_case(seed=0):
 def test_ctc_matches_jax():
     lp, labels, ilens, llens = _ctc_case()
     g = np.random.default_rng(9).standard_normal(lp.shape[0]).astype(
+        np.float32)
+    want, vjp = jax.vjp(lambda x: jax_ctc_loss(x, labels, ilens, llens,
+                                               reduction="none"),
+                        jnp.asarray(lp))
+    lpt = torch.from_numpy(lp).requires_grad_()
+    got = ctc_loss(lpt, torch.from_numpy(labels), torch.from_numpy(ilens),
+                   torch.from_numpy(llens), reduction="none")
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(lpt.grad.numpy(), np.asarray(vjp(g)[0]),
+                               **TOL)
+
+
+def _assert_states_close(got, want):
+    """Live states (above LOG_EPS / 2) to rtol 1e-5, atol 1e-4; the rest
+    at or below LOG_EPS / 2 on both sides."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    live = want > LOG_EPS / 2
+    assert (got[~live] <= LOG_EPS / 2).all()
+    np.testing.assert_allclose(got[live], want[live], rtol=1e-5, atol=1e-4)
+    return live.mean()
+
+
+# a repeated label (the skip is barred), U_n = 0 and T_n = 1
+LATTICE_CASE = dict(seed=2, llens=(6, 4, 0, 1))
+
+
+def _lattice_inputs():
+    """em (T, N, S), allow2, allow2_dst (N, S) bool and beta_last (N, S)
+    of the CTC case, as the port's `_CTCNll` builds them."""
+    lp, labels, ilens, llens = _ctc_case(**LATTICE_CASE)
+    labels, llens = torch.from_numpy(labels).long(), \
+        torch.from_numpy(llens).long()
+    S = 2 * labels.shape[1] + 1
+    ext, svalid, allow2 = ctc_op._lattice_tables(labels, llens, 0, S)
+    em = ctc_op._emissions(torch.from_numpy(lp), ext, svalid,
+                           torch.from_numpy(ilens).long(), 0)
+    allow2_dst, beta_last = ctc_op._beta_tables(allow2, llens)
+    return em, allow2, allow2_dst, beta_last
+
+
+def test_ctc_alphas_match_pallas_kernel():
+    em, allow2, _, _ = _lattice_inputs()
+    want = forward_alphas_pallas(jnp.asarray(em.numpy()),
+                                 jnp.asarray(allow2.numpy()), interpret=True)
+    got = ctc_op.forward_alphas_reference(em, allow2)
+    assert 0.05 < _assert_states_close(got.numpy(), want) < 1.0
+
+
+def test_ctc_betas_match_pallas_kernel():
+    em, _, allow2_dst, beta_last = _lattice_inputs()
+    want = backward_betas_pallas(jnp.asarray(em.numpy()),
+                                 jnp.asarray(allow2_dst.numpy()),
+                                 jnp.asarray(beta_last.numpy()),
+                                 interpret=True)
+    got = ctc_op.backward_betas_reference(em, allow2_dst, beta_last)
+    assert 0.05 < _assert_states_close(got.numpy(), want) < 1.0
+
+
+def test_ctc_matches_jax_pallas_route(monkeypatch):
+    """The port's CTC loss and gradient against JAX's with the Pallas
+    alpha/beta kernels (interpret mode), on the lattice case."""
+    monkeypatch.setenv("CAT_TPU_CTC_IMPL", "pallas")
+    lp, labels, ilens, llens = _ctc_case(**LATTICE_CASE)
+    g = np.random.default_rng(3).standard_normal(lp.shape[0]).astype(
         np.float32)
     want, vjp = jax.vjp(lambda x: jax_ctc_loss(x, labels, ilens, llens,
                                                reduction="none"),
@@ -130,6 +213,54 @@ def test_dense_den_matches_jax(tmp_path):
     got.backward(torch.from_numpy(g))
     np.testing.assert_allclose(lpt.grad.numpy(), np.asarray(vjp(g)[0]),
                                **TOL)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_den_forward_matches_pallas_kernel(order):
+    """Snapshots and logZ of the plain den forward against the TPU
+    kernel's (interpret mode): T = 53 is two full 24-frame segments and a
+    partial one; one utterance has a single frame."""
+    V, N, T = 9, 3, 53
+    port, ref = _lm_and_tables(V, order)
+    # logits of unit scale: the TPU kernel's exp-domain snapshots floor
+    # states more than ~87 nats below their utterance's maximum (ROADMAP.md,
+    # reference caveat 2), which peakier log-probs reach at this depth
+    lp = _log_probs(N, T, V, seed=5, scale=1.0)
+    ilens = np.array([53, 30, 1], np.int32)
+    (want_in, want_bl), want_z = dense_den_forward_pallas(
+        jnp.asarray(lp), jnp.asarray(ilens), ref, interpret=True)
+    (got_in, got_bl), got_z = den_forward_reference(
+        torch.from_numpy(lp), torch.from_numpy(ilens).long(), port)
+    assert got_in.shape == (3, N, V, V)
+    np.testing.assert_allclose(got_z.numpy(), np.asarray(want_z), rtol=1e-5,
+                               atol=1e-4)
+    for got, want in ((got_in, want_in), (got_bl, want_bl)):
+        assert _assert_states_close(got, want) > 0.01
+
+
+def test_den_backward_matches_jax_fused_route(monkeypatch):
+    """The plain den backward, fed the plain forward's snapshots, against
+    the VJP of JAX's fused-den route (Pallas forward in interpret mode,
+    XLA backward)."""
+    monkeypatch.setenv("CAT_TPU_FUSED_DEN", "1")
+    monkeypatch.setenv("CAT_TPU_PARTITIONED", "0")
+    from cat_tpu.ops.crf_dense import _use_pallas_den
+    assert _use_pallas_den()
+    V, N, T = 9, 3, 53
+    port, ref = _lm_and_tables(V)
+    lp = _log_probs(N, T, V, seed=6)
+    ilens = np.array([53, 30, 1], np.int32)
+    g = np.array([1.0, -0.5, 2.0], np.float32)
+    want_z, vjp = jax.vjp(lambda x: jax_den_log_partition(x, ilens, ref),
+                          jnp.asarray(lp))
+    lpt, lens = torch.from_numpy(lp), torch.from_numpy(ilens).long()
+    snaps, logz = den_forward_reference(lpt, lens, port)
+    np.testing.assert_allclose(logz.numpy(), np.asarray(want_z), **TOL)
+    got = den_backward_reference(lpt, lens, snaps, logz,
+                                 torch.from_numpy(g), port)
+    assert got.shape == (N, T, V)
+    np.testing.assert_allclose(got.numpy(), np.asarray(vjp(g)[0]), **TOL)
+    assert (got[2, 1:] == 0).all() and (got[1, 30:] == 0).all()
 
 
 def _jax_masks(key, lengths, F, cfg):

@@ -9,8 +9,10 @@ chip_smoke.py's serving batch (8 utterances of 400..2400 frames), at
 dropout 0 and 0.1, with SpecAugment off and on, each taken three ways
 from the same weights, SpecAugment masks and dropout seeds:
 
-  kernels  every fused op on its CUDA kernel, bf16 (the port as it runs);
-  plain    every fused op on its plain PyTorch version, bf16;
+  kernels  every kernel wrapper (the encoder's fused ops, the dropout,
+           the CTC and dense-denominator recursions) on its CUDA kernel,
+           bf16 (the port as it runs);
+  plain    every kernel wrapper on its plain PyTorch version, bf16;
   f32      the plain versions, float32 throughout: the reference.
 
 For each setting it prints the distance of the kernel and plain steps to
@@ -24,8 +26,10 @@ to chiprun_out/step_diag.json.
 --mask-seeds adds, for each seed, dropout 0 and 0.1 with SpecAugment
 masks drawn from a generator of that seed in place of the step's own
 draw; at dropout 0.1 it also runs the forward with one kernel at a time
-and with jittered plain versions (`attribute`), and probes the loss's
-gradient along the kernels' logit error (`sensitivity`).
+(each forward kernel, the dropout, and the loss kernels under an
+otherwise plain step) and with jittered plain versions (`attribute`),
+and probes the loss's gradient along the kernels' logit error
+(`sensitivity`).
 
 --cpu runs a 2-cell, d=128 model on short utterances on the CPU, where
 the "kernels" take their plain versions: it checks the script itself.
@@ -85,12 +89,14 @@ class Shadow:
         rec["calls"] += 1
 
     def compare(self, name, got, want):
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for i, (o, r) in enumerate(zip(got, want)):
+        for i, (o, r) in enumerate(zip(flat(got), flat(want))):
             o, r = o.detach().float(), r.detach().float()
             if name == "relpos_attention_fwd" and i == 1:   # lse (N, H, T)
                 o, r = o.permute(0, 2, 1), r.permute(0, 2, 1)
+            if name in LOG_STATES:
+                # log-domain states: the live ones (floored ones are zeros)
+                live = (o > LOG_EPS / 2) | (r > LOG_EPS / 2)
+                o, r = o[live], r[live]
             regions = self._regions(o.shape)
             if regions is None:
                 self._keep(f"{name} d{i}", "all", o, r)
@@ -117,6 +123,24 @@ class Shadow:
         return out
 
 
+LOG_EPS = -1e30
+# kernels whose outputs are log-domain states floored at LOG_EPS
+LOG_STATES = ("ctc_alpha", "ctc_beta", "den_fwd")
+
+
+def flat(out):
+    """The tensors of a kernel's output, nested tuples flattened."""
+    if not isinstance(out, tuple):
+        return (out,)
+    return tuple(t for o in out for t in flat(o))
+
+
+def loss_plain():
+    """The loss kernels' wrappers on their plain versions."""
+    return {m: f for m, f in cs.plain_patches().items()
+            if m.__name__.endswith((".ctc", ".crf_dense"))}
+
+
 def set_rate(model, rate):
     """Every dropout site of `model` at `rate`."""
     from cat_tpu_torch.models.layers import Dropout
@@ -139,19 +163,23 @@ def run_step(model, start, cfg, den, batch, rate, spec, mode, shadow=None):
                               f32=mode == "f32", specaug=spec)
 
 
-def loss_grad(logits, batch, lengths, den, lamb):
+def loss_grad(logits, batch, lengths, den, lamb, kernels=True):
     """The CTC-CRF loss (weighted mean) at given logits and its gradient
-    with respect to them."""
+    with respect to them, on the loss kernels or their plain versions."""
     import torch
     from cat_tpu_torch.ops.crf_dense import ctc_crf_loss_dense
-    x = logits.detach().clone().requires_grad_()
-    per = ctc_crf_loss_dense(torch.log_softmax(x, -1), batch["labels"],
-                             lengths, batch["label_lengths"], den, lamb,
-                             reduction="none")
-    w = batch["weight"].float()
-    loss = (per * w).sum() / w.sum().clamp_min(1.0)
-    (g,) = torch.autograd.grad(loss, x)
-    return loss.item(), g
+
+    def run():
+        x = logits.detach().clone().requires_grad_()
+        per = ctc_crf_loss_dense(torch.log_softmax(x, -1), batch["labels"],
+                                 lengths, batch["label_lengths"], den, lamb,
+                                 reduction="none")
+        w = batch["weight"].float()
+        loss = (per * w).sum() / w.sum().clamp_min(1.0)
+        (g,) = torch.autograd.grad(loss, x)
+        return loss.item(), g
+
+    return run() if kernels else cs.patched(loss_plain(), run)
 
 
 def sensitivity(k, p, r, batch, lengths, den, lamb, valid):
@@ -198,12 +226,14 @@ def coherence(delta, valid):
 
 def attribute(model, start, cfg, den, batch, masks, rate, lengths, valid):
     """The step's forward (training mode, the step's dropout seeds) with
-    each forward kernel alone on its CUDA kernel and the other fused ops on
-    their plain versions, and with every fused op on its plain version
-    with its output jittered by a relative error of the size that
-    separates the kernel from it (four draws); per variant, the distance
-    of the loss's gradient at its logits to the one at the f32 logits,
-    per utterance, and the coherence of its logits error."""
+    each forward kernel (the dropout's too) alone on its CUDA kernel and
+    the other fused ops on their plain versions, with every fused op on its
+    plain version and the loss on its kernels, and with every fused op on
+    its plain version with its output jittered by a relative error of the
+    size that separates the kernel from it (four draws); per variant, the
+    distance of the loss's gradient at its logits (plain loss unless the
+    variant runs the loss kernels) to the one at the f32 logits (plain
+    loss), per utterance, and the coherence of its logits error."""
     import torch
     from cat_tpu_torch.ops.specaug import apply_masks
     model.load_state_dict(start)
@@ -212,7 +242,8 @@ def attribute(model, start, cfg, den, batch, masks, rate, lengths, valid):
     feats = apply_masks(batch["feats"], masks)
     fwd = {"ffn_fwd": "ff_forward", "glu_in_fwd": "glu_in_forward",
            "bn_out_fwd": "bn_out_forward",
-           "relpos_attention_fwd": "relpos_attention_forward"}
+           "relpos_attention_fwd": "relpos_attention_forward",
+           "dropout": "dropout_apply"}
 
     # the kernels' distance to their plain versions on this step's inputs
     # (the shadow calls): a relative error of this size, made by rounding
@@ -260,16 +291,18 @@ def attribute(model, start, cfg, den, batch, masks, rate, lengths, valid):
 
     lamb = cfg["trainer"]["lamb"]
     l32 = forward32()
-    _, g32 = loss_grad(l32, batch, lengths, den, lamb)
-    variants = {"all kernels": set(fwd.values()), "all plain": set()}
-    variants.update({f"only {k}": {v} for k, v in fwd.items()})
-    variants.update({f"plain, jittered {j}": (set(), 200 + j)
+    _, g32 = loss_grad(l32, batch, lengths, den, lamb, kernels=False)
+    # name: (forward kernels kept, jitter seed, loss on its kernels)
+    variants = {"all kernels": (set(fwd.values()), None, True),
+                "all plain": (set(), None, False)}
+    variants.update({f"only {k}": ({v}, None, False) for k, v in fwd.items()})
+    variants["only the loss kernels"] = (set(), None, True)
+    variants.update({f"plain, jittered {j}": (set(), 200 + j, False)
                      for j in range(4)})
     out = {}
-    for name, keep in variants.items():
-        keep, seed = keep if isinstance(keep, tuple) else (keep, None)
+    for name, (keep, seed, loss_kernels) in variants.items():
         logits = forward(keep, seed)
-        _, g = loss_grad(logits, batch, lengths, den, lamb)
+        _, g = loss_grad(logits, batch, lengths, den, lamb, loss_kernels)
         out[name] = {
             "logits_rel": [rel(logits[n][valid[n]], l32[n][valid[n]])
                            for n in range(logits.shape[0])],
