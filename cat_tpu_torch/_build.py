@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("ffn_fwd", "ffn_bwd", "conv_module_fwd", "conv_module_bwd",
            "relpos_attention_fwd", "relpos_attention_bwd", "dropout", "ctc",
-           "crf_dense")
+           "crf_dense", "rnnt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

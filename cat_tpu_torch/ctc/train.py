@@ -100,7 +100,16 @@ def make_train_step(model, optimizer, loss_type="ctc", den=None, lamb=0.1,
     metrics "loss", "grad_norm" (tensors) and "skipped" (0 or 1), and with
     grad_accum_fold > 1 "applied" (0 or 1). The step updates
     `state.model` and `state.optimizer` in place."""
-    loss_fn = make_loss_fn(model, loss_type, den, lamb, specaug_cfg)
+    return make_step(model, optimizer,
+                     make_loss_fn(model, loss_type, den, lamb, specaug_cfg),
+                     grad_clip, grad_accum_fold)
+
+
+def make_step(model, optimizer, loss_fn, grad_clip=5.0, grad_accum_fold=1):
+    """`make_train_step` around any loss_fn(batch, gen, train) ->
+    (weighted mean loss, per-sequence loss): backward, the NaN/Inf guard,
+    clipping and the optimizer step, or one micro-step of the weighted
+    fold when grad_accum_fold > 1. The RNN-T trainer shares it."""
     params = [p for p in model.parameters() if p.requires_grad]
     if grad_accum_fold > 1:
         return _make_accum_train_step(model, loss_fn, WeightedMultiSteps(

@@ -1,5 +1,6 @@
-"""Carry `cat_tpu` weights across: a JAX `ConformerNet`'s variables (nested
-dicts of numpy arrays, as in its checkpoints) to the port's state_dict.
+"""Carry `cat_tpu` weights across: a JAX `ConformerNet`'s or
+`TransducerModel`'s variables (nested dicts of numpy arrays, as in its
+checkpoints) to the port's state_dict.
 
 Layouts handled:
 - cells are `cell_{i}` subtrees, or one `cells` subtree whose leaves carry
@@ -108,4 +109,43 @@ def conformer_state_dict(params, batch_stats):
         _cell(sd, f"cells.{i}.", p, s)
     if "classifier" in params:
         _dense(sd, "classifier.", params["classifier"])
+    return sd
+
+
+
+def predictor_state_dict(params, pre=""):
+    """The port's predictor state_dict (keys prefixed with `pre`) from a
+    JAX `LSTMPredictor`'s params (`embed`, `lstm_{i}_{wx,wh,b}`), an
+    `Embedding` predictor's (`Embed_0`) or a `ZeroDecoder`'s (none)."""
+    sd = {}
+    for name, p in params.items():
+        if name in ("embed", "Embed_0"):
+            sd[pre + "embed.weight"] = _t(p["embedding"])
+        elif re.fullmatch(r"lstm_\d+_(wx|wh|b)", name):
+            sd[pre + name] = _t(p)
+        else:
+            raise KeyError(f"predictor parameter {name!r} is not ported")
+    return sd
+
+
+def joiner_state_dict(params, pre=""):
+    """The port's joiner state_dict from a JAX joiner's params: its
+    `fc_enc`, `fc_pred`, `fc_cat` and `fc_out` dense layers, whichever it
+    has."""
+    sd = {}
+    for name, p in params.items():
+        _dense(sd, f"{pre}{name}.", p)
+    return sd
+
+
+def transducer_state_dict(params, batch_stats):
+    """The port's `TransducerModel` state_dict from a `cat_tpu`
+    TransducerModel's `params` and `batch_stats` trees: the encoder
+    through `conformer_state_dict` (either cell layout), then the
+    predictor and the joiner."""
+    sd = {"encoder." + k: v for k, v in conformer_state_dict(
+        params["encoder"], (batch_stats or {}).get("encoder", {})).items()}
+    sd.update(predictor_state_dict(params.get("predictor", {}),
+                                   "predictor."))
+    sd.update(joiner_state_dict(params["joiner"], "joiner."))
     return sd

@@ -54,10 +54,31 @@ Phases, any failure exits non-zero:
    forward and backward), 1 CTC alpha, 1 CTC beta, 1 den forward and 1
    den backward; step time, audio seconds trained per second, peak
    memory and the split of one step into encoder and loss;
-7. device: the card's name and power limit.
-With --profile, one serving forward and one train step also run under
-torch.profiler; the device time by kernel is printed and written to
-chiprun_out/profile.txt and chiprun_out/profile_train.txt.
+7. RNN-T kernels: the lattice recursions of `ops/rnnt.py` against their
+   plain versions at the rnnt-v1 training batch (the training batch's
+   T' = 299..493, labels U = T'//6 ids in 1..1023, V = 1024, tables of
+   log-softmaxed random logits): states as the CTC ones, log-likelihoods
+   to 1e-5 relative, gradient rows within 1e-3 + 1e-3·|plain|; and at
+   edge shapes (U+1 of 1, 2, 33, 257 and 1500, T' = 1, label length 0);
+   no PyTorch call computes an RNN-T loss (torchaudio is absent), so
+   `library_ms` is null;
+8. RNN-T serving: the libri rnnt-v1 transducer (egs/libri/exp/rnnt-v1:
+   the crf-v1 encoder without its classifier, a 640-wide LSTM predictor,
+   a 512-wide "add" joiner, V = 1024) greedy-decodes the serving batch
+   and beam-searches (width 16) two of its utterances; the counters must
+   show the four encoder forward kernels and nothing else;
+9. RNN-T train vs plain: one rnnt-v1 train step on the serving batch, as
+   phase 4 (the encoder output in place of the logits);
+10. RNN-T training: `cat_tpu_torch.rnnt.train.make_train_step` trains the
+   full rnnt-v1 model (SpecAugment, dropout 0.1, Noam + Adam, clipping at
+   5) on the training batch's 32 utterances: 2 warm-up and 5 timed steps;
+   exactly the encoder launches of phase 6, 2 dropout, 1 rnnt_alpha, 1
+   rnnt_beta and no CTC or den kernel per step; step time, audio-s/s,
+   peak memory and the split of one step;
+11. device: the card's name and power limit.
+With --profile, one serving forward and the two train steps also run
+under torch.profiler; the device time by kernel is printed and written to
+chiprun_out/profile.txt, profile_train.txt and profile_rnnt_train.txt.
 
 The last two lines are the per-kernel JSON record and the result line
 {"ok": true, "device": {...}}. Needs CUDA; imports nothing of JAX.
@@ -65,6 +86,7 @@ The last two lines are the per-kernel JSON record and the result line
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -93,18 +115,26 @@ SEED = (0x0BADF00D, 0x5EED1234)
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("ffn_fwd", "glu_in_fwd", "bn_out_fwd", "relpos_attention_fwd",
            "ffn_bwd", "glu_in_bwd", "bn_out_bwd", "relpos_attention_bwd",
-           "dropout", "ctc_alpha", "ctc_beta", "den_fwd", "den_bwd")
+           "dropout", "ctc_alpha", "ctc_beta", "den_fwd", "den_bwd",
+           "rnnt_alpha", "rnnt_beta")
+# launches per train step: crf-v1 (PER_STEP) and rnnt-v1 (RNNT_STEP); the
+# serving forward of either model runs the four encoder forward kernels
 PER_STEP = {"ffn_fwd": 34, "glu_in_fwd": 17, "bn_out_fwd": 17,
             "relpos_attention_fwd": 17, "ffn_bwd": 34, "glu_in_bwd": 17,
             "bn_out_bwd": 17, "relpos_attention_bwd": 17, "dropout": 2,
-            "ctc_alpha": 1, "ctc_beta": 1, "den_fwd": 1, "den_bwd": 1}
+            "ctc_alpha": 1, "ctc_beta": 1, "den_fwd": 1, "den_bwd": 1,
+            "rnnt_alpha": 0, "rnnt_beta": 0}
+RNNT_STEP = {k: (v if k in KERNELS[:9] else 0) for k, v in PER_STEP.items()}
+RNNT_STEP.update(rnnt_alpha=1, rnnt_beta=1)
 SERVE = {k: (v if k in KERNELS[:4] else 0) for k, v in PER_STEP.items()}
+RNNT_V = 1024  # rnnt-v1's unigram vocabulary (hyper-p.json)
 # the loss kernels against their plain versions (f32): lattice states
-# within 1e-3 + 2e-6·|plain| (the values reach about -2e3 at T' = 493,
-# where one f32 step is 2.4e-4), snapshots, log-likelihoods and logZ to
-# 1e-5 relative, gradient rows (posteriors exp(alpha + beta - logZ), in
-# which a one-step difference of a deep alpha shows as ~2.4e-4 relative)
-# within 1e-3 + 1e-3·|plain|; values at or below LOG_EPS / 2 are zeros
+# within 1e-3 + 2e-6·|plain| (the values reach about -2e3 for CTC and
+# -4e3 for RNN-T at T' = 493, where one f32 step is 2.4e-4 and 4.9e-4),
+# snapshots, log-likelihoods and logZ to 1e-5 relative, gradient rows
+# (posteriors exp(alpha + beta - ll), in which a one-step difference of a
+# deep alpha shows as ~5e-4 relative) within 1e-3 + 1e-3·|plain|; values
+# at or below LOG_EPS / 2 are zeros
 STATE_ATOL, STATE_RTOL, LL_RTOL, GRAD_TOL = 1e-3, 2e-6, 1e-5, 1e-3
 # biases whose exact gradient is 0, so both steps hold rounding noise
 # there: the depthwise conv bias (re-centred by batch normalisation) and
@@ -196,7 +226,7 @@ def wrappers():
     """Every kernel wrapper of the port by kernel name; each counts the
     launches of its kernel."""
     from cat_tpu_torch.ops import (attention, conv_module, crf_dense, ctc,
-                                   dropout, ffn)
+                                   dropout, ffn, rnnt)
     return {"ffn_fwd": ffn.ff_forward, "ffn_bwd": ffn.ff_backward,
             "glu_in_fwd": conv_module.glu_in_forward,
             "glu_in_bwd": conv_module.glu_in_backward,
@@ -208,7 +238,9 @@ def wrappers():
             "ctc_alpha": ctc.forward_alphas,
             "ctc_beta": ctc.backward_betas,
             "den_fwd": crf_dense.den_forward,
-            "den_bwd": crf_dense.den_backward}
+            "den_bwd": crf_dense.den_backward,
+            "rnnt_alpha": rnnt.forward_alphas,
+            "rnnt_beta": rnnt.backward_betas}
 
 
 def reset_counts():
@@ -223,8 +255,10 @@ def counts():
 def plain_patches():
     """Every kernel wrapper, forward and backward, on its plain version."""
     from cat_tpu_torch.ops import (attention, conv_module, crf_dense, ctc,
-                                   dropout, ffn)
+                                   dropout, ffn, rnnt)
     return {dropout: {"dropout_apply": dropout.dropout_reference},
+            rnnt: {"forward_alphas": rnnt.forward_alphas_reference,
+                   "backward_betas": rnnt.backward_betas_reference},
             ctc: {"forward_alphas": ctc.forward_alphas_reference,
                   "backward_betas": ctc.backward_betas_reference},
             crf_dense: {"den_forward": crf_dense.den_forward_reference,
@@ -697,8 +731,8 @@ def patched(patches, fn):
         return fn()
 
 
-def load_config():
-    with open(os.path.join(REPO, "egs/libri/exp/crf-v1/config.json")) as f:
+def load_config(name="crf-v1"):
+    with open(os.path.join(REPO, f"egs/libri/exp/{name}/config.json")) as f:
         return json.load(f)
 
 
@@ -816,17 +850,17 @@ def phase_serving(cfg):
     return forward
 
 
-def make_batch(frames, seed, device="cuda"):
-    """Features numpy-normal from `seed`, labels U_n = T'_n // 4 ids in
-    1..71, weights 1."""
+def make_batch(frames, seed, device="cuda", vocab=72, frames_per_label=4):
+    """Features numpy-normal from `seed`, labels U_n = T'_n //
+    frames_per_label ids in 1..vocab-1, weights 1."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     N, T = len(frames), max(frames)
     feats = rng.standard_normal((N, T, 80)).astype(np.float32)
     feats *= np.arange(T)[None, :, None] < np.array(frames)[:, None, None]
-    llens = np.array([subsampled(f) // 4 for f in frames])
-    labels = rng.integers(1, 72, (N, llens.max()))
+    llens = np.array([subsampled(f) // frames_per_label for f in frames])
+    labels = rng.integers(1, vocab, (N, llens.max()))
     labels *= np.arange(llens.max())[None, :] < llens[:, None]
     t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
     return {"feats": t(feats, torch.float32),
@@ -862,82 +896,101 @@ def time_masked(masks, frames, Tp):
     return out
 
 
-def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
-                    specaug=True):
-    """One crf-v1 train step from the weights and statistics `start`, with
-    the fused ops patched by `patches` ({module: {name: fn}}) and, with
-    `f32`, the forward in float32 throughout (the plain versions then run
-    in float32). The SpecAugment masks and dropout seeds come from a
-    generator of seed 5. Returns the loss, grad norm and skipped flag, the
-    unclipped gradients, the updated buffers, the logits and the loss's
-    gradient at them."""
+def forward32(encoder):
+    """The ConformerNet `encoder`'s forward in float32 throughout (its fused
+    ops then take their plain versions in float32)."""
     import torch
-    from cat_tpu_torch.ctc.train import init_state, make_train_step
-    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    def forward(x, lengths, gen=None):
+        h, lengths = encoder.subsampling(x, lengths, torch.float32)
+        h = encoder.dropout(h, gen)
+        for cell in encoder.cells:
+            h = cell(h, lengths, gen)
+        if encoder.classifier is not None:
+            h = encoder.classifier(h, torch.float32)
+        return h, lengths
+
+    return forward
+
+
+def step_once(model, start, make_step, batch, encoder, patches=None,
+              f32=False):
+    """One train step, built by `make_step()` -> (step, lr, optimizer), from
+    the weights and statistics `start`, with the fused ops patched by
+    `patches` ({module: {name: fn}}) and, with `f32`, the encoder in
+    float32 throughout. The SpecAugment masks and dropout seeds come from a
+    generator of seed 5.
+    Returns the loss, grad norm and skipped flag, the unclipped gradients,
+    the updated buffers, and under "logits" and "dlogits" the encoder's
+    output (a CTC model's logits) and the loss's gradient at it."""
+    import torch
+    from cat_tpu_torch.ctc.train import init_state
 
     model.load_state_dict(start)
     seen = {}
 
     def hook(_m, _i, out):
         out[0].retain_grad()
-        seen["logits"] = out[0]
+        seen["out"] = out[0]
 
-    def forward32(x, lengths, gen=None):
-        h, lengths = model.subsampling(x, lengths, torch.float32)
-        h = model.dropout(h, gen)
-        for cell in model.cells:
-            h = cell(h, lengths, gen)
-        return model.classifier(h, torch.float32), lengths
-
-    sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
-    tr = cfg["trainer"]
-    step = make_train_step(model, opt, tr["loss"], den, tr["lamb"],
-                           cfg["specaug"] if specaug else None, grad_clip=5.0)
     with ExitStack() as stack:
         for mod, fns in (patches or {}).items():
             for name, fn in fns.items():
                 stack.enter_context(mock.patch.object(mod, name, fn))
         if f32:
-            stack.enter_context(mock.patch.object(model, "forward",
-                                                  forward32))
-        stack.callback(model.register_forward_hook(hook).remove)
-        _, m = step(init_state(model, opt), batch, sched.lr,
+            stack.enter_context(mock.patch.object(encoder, "forward",
+                                                  forward32(encoder)))
+        stack.callback(encoder.register_forward_hook(hook).remove)
+        step, lr, opt = make_step()
+        _, m = step(init_state(model, opt), batch, lr,
                     torch.Generator().manual_seed(5))
     gn = m["grad_norm"].item()
     unclip = max(1.0, (gn + 1e-6) / 5.0)
-    logits = seen["logits"]
+    out = seen["out"]
     return {"loss": m["loss"].item(), "grad_norm": gn,
             "skipped": m["skipped"],
             "grads": {n: (p.grad.detach().float() * unclip
                           if p.grad is not None else torch.zeros_like(p))
                       for n, p in model.named_parameters()},
             "buffers": {n: b.clone() for n, b in model.named_buffers()},
-            "logits": logits.detach().float(),
-            "dlogits": logits.grad.detach().float()}
+            "logits": out.detach().float(),
+            "dlogits": out.grad.detach().float()}
 
 
-def phase_train_vs_plain(cfg, den):
-    """One train step with the kernels against the same step on every
-    kernel's plain version (the encoder's fused ops, the dropout and the
-    losses), in bf16 and in float32, from the same weights and generator
-    (the same SpecAugment masks and dropout seeds)."""
+def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
+                    specaug=True):
+    """One crf-v1 train step (`step_once`), SpecAugment optional."""
+    from cat_tpu_torch.ctc.train import make_train_step
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    def make_step():
+        sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+        tr = cfg["trainer"]
+        return make_train_step(model, opt, tr["loss"], den, tr["lamb"],
+                               cfg["specaug"] if specaug else None,
+                               grad_clip=5.0), sched.lr, opt
+
+    return step_once(model, start, make_step, batch, model, patches, f32)
+
+
+def steps_agree(what, run, batch, specaug_cfg, per_step, out_name):
+    """One train step with the kernels, `run(None, False)`, against the
+    same step on every kernel's plain version (the encoder's fused ops,
+    the dropout and the losses) in bf16, `run(plain_patches(), False)`,
+    and in float32, `run(plain_patches(), True)`, all from the same
+    weights and generator (the same SpecAugment masks and dropout seeds);
+    fails unless they meet the gates of STEP_* and STEP_CONTROL."""
     import torch
-    from cat_tpu_torch.ctc.train import build_model
     from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops.specaug import draw_masks
 
-    model = build_model(cfg, num_classes=72, device="cuda", seed=0)
-    perturb(model, torch.Generator().manual_seed(1))
-    start = {k: v.clone() for k, v in model.state_dict().items()}
-    batch = make_batch(FRAMES, seed=3)
     reset_counts()
-    k = train_step_once(model, start, cfg, den, batch)
-    if counts() != PER_STEP:
-        fail(f"train step launch counts {counts()} != {PER_STEP}")
-    p = train_step_once(model, start, cfg, den, batch, plain_patches())
-    r = train_step_once(model, start, cfg, den, batch, plain_patches(),
-                        f32=True)
-    if counts() != PER_STEP:
+    k = run(None, False)
+    if counts() != per_step:
+        fail(f"{what} train step launch counts {counts()} != {per_step}")
+    p = run(plain_patches(), False)
+    r = run(plain_patches(), True)
+    if counts() != per_step:
         fail("a kernel launched while every kernel wrapper was patched to "
              "its plain version")
     if k["skipped"] or p["skipped"] or r["skipped"]:
@@ -954,48 +1007,65 @@ def phase_train_vs_plain(cfg, den):
     gk, gp, gr = flat(k), flat(p), flat(r)
     dist = {"kernels": (gk - gr).norm().item() / gr.norm().item(),
             "plain": (gp - gr).norm().item() / gr.norm().item()}
-    # the logits, frame by frame, in the frames a SpecAugment time mask
-    # covered (the step's own draw, the first from its generator) and in
-    # the other valid frames
+    # the encoder's output, frame by frame, in the frames a SpecAugment
+    # time mask covered (the step's own draw, the first from its
+    # generator) and in the other valid frames
+    frames = batch["feat_lengths"].tolist()
     Tp = k["logits"].shape[1]
-    valid = length_mask(torch.tensor([subsampled(f) for f in FRAMES],
+    valid = length_mask(torch.tensor([subsampled(f) for f in frames],
                                      device="cuda"), Tp)
     masks = draw_masks(torch.Generator().manual_seed(5),
-                       batch["feat_lengths"], 80, **cfg["specaug"])
-    tm = time_masked(masks, FRAMES, Tp).to("cuda")
-    logit_dist = {}
+                       batch["feat_lengths"], 80, **specaug_cfg)
+    tm = time_masked(masks, frames, Tp).to("cuda")
+    out_dist = {}
     for region, m in (("time-masked", tm & valid), ("other", ~tm & valid)):
         ref = r["logits"][m]
         ek, ep = ((d["logits"][m] - ref).norm() / ref.norm() for d in (k, p))
-        logit_dist[region] = (int(m.sum()), ek.item(), ep.item())
+        out_dist[region] = (int(m.sum()), ek.item(), ep.item())
     stats_rel = max(((k["buffers"][n] - p["buffers"][n]).norm()
                      / p["buffers"][n].norm()).item() for n in k["buffers"])
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     gn_rel = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
-    log(f"[step] crf-v1 train step on the serving batch (dropout 0.1, "
+    log(f"[step] {what} train step on the serving batch (dropout 0.1, "
         f"SpecAugment), kernels / plain bf16 / plain float32: loss "
         f"{k['loss']:.6g} / {p['loss']:.6g} / {r['loss']:.6g} (kernels vs "
         f"plain rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); grad norm "
         f"{k['grad_norm']:.6g} / {p['grad_norm']:.6g} / "
         f"{r['grad_norm']:.6g} (rel {gn_rel:.3g}, tol {STEP_GNORM_REL}); "
         f"running statistics rel {stats_rel:.3g} (tol {STEP_STATS_REL})")
-    log(f"[step] gradient cosine, kernels vs plain bf16, over {len(cos)} "
-        f"tensors: min {cos[worst]:.5f} ({worst}), median "
+    log(f"[step] {what} gradient cosine, kernels vs plain bf16, over "
+        f"{len(cos)} tensors: min {cos[worst]:.5f} ({worst}), median "
         f"{sorted(cos.values())[len(cos) // 2]:.5f} (tol {STEP_COS}; "
         f"exact-zero bias gradients not gated)")
-    log(f"[step] distance to the float32 step: gradient kernels "
-        f"{dist['kernels']:.4g}, plain bf16 {dist['plain']:.4g}; logits "
+    log(f"[step] {what} distance to the float32 step: gradient kernels "
+        f"{dist['kernels']:.4g}, plain bf16 {dist['plain']:.4g}; {out_name} "
         + "; ".join(f"{reg} frames ({n}) kernels {ek:.4g}, plain {ep:.4g}"
-                    for reg, (n, ek, ep) in logit_dist.items())
+                    for reg, (n, ek, ep) in out_dist.items())
         + f" (kernels within {STEP_CONTROL}x plain)")
     if loss_rel > STEP_LOSS_REL or gn_rel > STEP_GNORM_REL \
             or stats_rel > STEP_STATS_REL or cos[worst] < STEP_COS:
-        fail("the kernel train step does not agree with the plain one")
+        fail(f"the {what} kernel train step does not agree with the plain "
+             "one")
     if dist["kernels"] > STEP_CONTROL * dist["plain"] or any(
-            ek > STEP_CONTROL * ep for _, ek, ep in logit_dist.values()):
-        fail("the kernel train step is farther from the float32 step than "
-             f"{STEP_CONTROL}x the plain bf16 step")
-    del model, k, p, r
+            ek > STEP_CONTROL * ep for _, ek, ep in out_dist.values()):
+        fail(f"the {what} kernel train step is farther from the float32 step "
+             f"than {STEP_CONTROL}x the plain bf16 step")
+
+
+def phase_train_vs_plain(cfg, den):
+    """One crf-v1 train step with the kernels against the plain versions in
+    bf16 and in float32 (`steps_agree`)."""
+    import torch
+    from cat_tpu_torch.ctc.train import build_model
+
+    model = build_model(cfg, num_classes=72, device="cuda", seed=0)
+    perturb(model, torch.Generator().manual_seed(1))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = make_batch(FRAMES, seed=3)
+    steps_agree("crf-v1", lambda patches, f32: train_step_once(
+        model, start, cfg, den, batch, patches, f32), batch, cfg["specaug"],
+        PER_STEP, "logits")
+    del model
     torch.cuda.empty_cache()
 
 
@@ -1129,6 +1199,305 @@ def phase_training(cfg, den, profile):
     return launches
 
 
+def rnnt_edge_tables(gen, U1, T, N, V=9):
+    """RNN-T tables (`_row_tables`) of U = U1 - 1 labels over V: label
+    lengths falling from U to 0, input lengths from T down, for N > 1 one
+    utterance of one frame and one without labels."""
+    import torch
+    from cat_tpu_torch.ops import rnnt
+    U = U1 - 1
+    lp = torch.log_softmax(_rnd(gen, N, T, U1, V, s=2.0), -1)
+    labels = torch.randint(1, V, (N, U), generator=gen, device="cuda")
+    llens = torch.tensor([U - (U * i) // N for i in range(N)], device="cuda")
+    ilens = torch.tensor([max(1, T - 3 * i) for i in range(N)],
+                         device="cuda")
+    if N > 1:
+        llens[-1], ilens[1] = 0, 1
+    labels *= torch.arange(U, device="cuda")[None, :] < llens[:, None]
+    return rnnt._row_tables(lp, labels, ilens, llens, 0), llens
+
+
+def phase_rnnt_kernels(gen, rec):
+    """The RNN-T lattice kernels (rows 20-21) against their plain versions
+    at the rnnt-v1 training batch (N = 32, T' = 299..493, U = T' // 6, V =
+    1024, tables of log-softmaxed random logits) and at edge shapes; the
+    JSON records of both."""
+    import torch
+    from cat_tpu_torch.ops import rnnt
+
+    tl = [subsampled(f) for f in TRAIN_FRAMES]
+    N, T = len(tl), max(tl)
+    batch = make_batch(TRAIN_FRAMES, seed=11, vocab=RNNT_V,
+                       frames_per_label=6)
+    labels, llens = batch["labels"], batch["label_lengths"]
+    U1 = labels.shape[1] + 1
+    lens = torch.tensor(tl, device="cuda")
+    lp = torch.log_softmax(_rnd(gen, N, T, U1, RNNT_V, s=2.0), -1)
+    be, le, _, _ = rnnt._row_tables(lp, labels, lens, llens, 0)
+    term = rnnt.beta_term(llens, U1)
+    alphas = rnnt.forward_alphas(be, le)
+    plain_a = rnnt.forward_alphas_reference(be, le)
+    e_a = close_states("rnnt_alpha", alphas, plain_a, STATE_ATOL, STATE_RTOL)
+    close_rel("rnnt log-likelihood", rnnt._final_ll(alphas, be, llens),
+              rnnt._final_ll(plain_a, be, llens))
+    e_b = close_states("rnnt_beta", rnnt.backward_betas(be, le, term),
+                       rnnt.backward_betas_reference(be, le, term),
+                       STATE_ATOL, STATE_RTOL)
+    del alphas, plain_a
+
+    def rnnt_grad():
+        xl = lp.clone().requires_grad_()
+        rnnt.rnnt_loss(xl, labels, lens, llens, reduction="sum").backward()
+        return xl.grad
+
+    g_k = rnnt_grad()
+    g_p = patched(plain_patches(), rnnt_grad)
+    e_g = max(close_rows(f"rnnt gradient rows, utterance {n}", g_k[n], g_p[n])
+              for n in range(N))
+    del g_k, g_p, lp
+    torch.cuda.empty_cache()
+    edges = []
+    for U1e, Te, Ne in ((1, 24, 3), (2, 24, 3), (33, 24, 3), (257, 24, 3),
+                        (1500, 24, 3), (9, 1, 2)):
+        (eb, el, _, _), ell = rnnt_edge_tables(gen, U1e, Te, Ne)
+        eterm = rnnt.beta_term(ell, U1e)
+        ea = rnnt.forward_alphas(eb, el)
+        pa = rnnt.forward_alphas_reference(eb, el)
+        tag = f"U+1={U1e} T'={Te} N={Ne}"
+        edges.append(close_states(f"rnnt_alpha {tag}", ea, pa, STATE_ATOL,
+                                  STATE_RTOL))
+        close_rel(f"rnnt log-likelihood {tag}", rnnt._final_ll(ea, eb, ell),
+                  rnnt._final_ll(pa, eb, ell))
+        edges.append(close_states(
+            f"rnnt_beta {tag}", rnnt.backward_betas(eb, el, eterm),
+            rnnt.backward_betas_reference(eb, el, eterm), STATE_ATOL,
+            STATE_RTOL))
+    log(f"[kernel] rnnt alphas, betas, log-likelihoods and gradient rows "
+        f"agree with the plain versions (max abs err over live states: alpha "
+        f"{e_a:.4g}, beta {e_b:.4g}; gradient rows {e_g:.4g}; edge shapes U+1 "
+        f"in 1, 2, 33, 257, 1500 at T'=24 and T'=1, label lengths down to 0: "
+        f"{max(edges):.4g}); no PyTorch call computes an RNN-T loss here "
+        f"(torchaudio is absent): library_ms null")
+    # bytes: the two tables read and the states written (and beta_T read);
+    # about 12 f32 operations a state and frame (an exp, a log1p, adds and
+    # maxima of the sequential recurrence)
+    nbytes = 3 * be.numel() * 4
+    what = (f"N={N} T'={min(tl)}..{T} U+1={U1} "
+            f"(U={llens.min().item()}..{llens.max().item()}) V={RNNT_V}")
+    rec.add("rnnt_alpha", "cat_tpu_torch/csrc/rnnt.cu",
+            "cat_tpu/ops/rnnt_pallas.py:87", max(e_a, e_g),
+            timed(lambda: rnnt.forward_alphas(be, le), 10, 2),
+            timed(lambda: rnnt.forward_alphas_reference(be, le), 1, 1),
+            12 * be.numel(), nbytes, what, PEAK_F32_FLOPS)
+    rec.add("rnnt_beta", "cat_tpu_torch/csrc/rnnt.cu",
+            "cat_tpu/ops/rnnt_pallas.py:112", max(e_b, e_g),
+            timed(lambda: rnnt.backward_betas(be, le, term), 10, 2),
+            timed(lambda: rnnt.backward_betas_reference(be, le, term), 1, 1),
+            12 * be.numel(), nbytes + term.numel() * 4, what, PEAK_F32_FLOPS)
+    torch.cuda.empty_cache()
+
+
+def rnnt_model(cfg, perturbed=True):
+    """The rnnt-v1 transducer over V = 1024 with seeded random weights (and
+    random biases, norms and statistics)."""
+    import torch
+    from cat_tpu_torch.rnnt.train import build_model
+    model = build_model(cfg, num_classes=RNNT_V, device="cuda", seed=0)
+    if perturbed:
+        perturb(model, torch.Generator().manual_seed(1))
+    return model
+
+
+def phase_rnnt_serving(cfg):
+    """rnnt-v1 greedy decoding of the serving batch and a width-16 beam
+    search of two of its utterances, through the port's decoders."""
+    import torch
+    from cat_tpu_torch.rnnt.decode import RNNTBeamDecoder, make_greedy_decoder
+
+    t0 = time.perf_counter()
+    model = rnnt_model(cfg)
+    log(f"[rnnt-serve] rnnt-v1 TransducerModel (encoder "
+        f"{cfg['encoder']['kwargs']}, predictor {cfg['predictor']}, joiner "
+        f"{cfg['joiner']}) V={RNNT_V}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    N, T = len(FRAMES), max(FRAMES)
+    lengths = torch.tensor(FRAMES, device="cuda")
+    feats = torch.randn(N, T, 80, generator=gen, device="cuda")
+    feats *= (torch.arange(T, device="cuda")[None, :, None]
+              < lengths[:, None, None])
+    greedy = make_greedy_decoder(model)
+    walls = []
+    for i in range(2):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tokens, n_tok = greedy(feats, lengths)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        seen = counts()
+        if seen != SERVE:
+            fail(f"rnnt greedy decode launch counts {seen} != {SERVE}")
+    if tuple(tokens.shape) != (N, 200) or not (
+            (tokens >= 0) & (tokens < RNNT_V)).all():
+        fail(f"rnnt greedy tokens {tuple(tokens.shape)} out of range")
+    reset_counts()
+    t = time.perf_counter()
+    beam = RNNTBeamDecoder(model, beam_width=16).decode(feats[:2],
+                                                        lengths[:2])
+    beam_s = time.perf_counter() - t
+    if counts() != SERVE:
+        fail(f"rnnt beam decode launch counts {counts()} != {SERVE}")
+    if not all(math.isfinite(b[0][0]) for b in beam):
+        fail("rnnt beam search: non-finite score")
+    audio_s = sum(FRAMES) * 0.01
+    log(f"[rnnt-serve] greedy decode of {N} utterances ({audio_s:.1f} audio "
+        f"s, max 4 symbols a frame, at most 200 tokens): launches {seen}; "
+        f"tokens per utterance "
+        f"{n_tok.tolist()}; host wall {[round(w * 1e3, 1) for w in walls]} "
+        f"ms")
+    log(f"[rnnt-serve] beam16 decode of 2 utterances "
+        f"({sum(FRAMES[:2]) * 0.01:.1f} audio s), encoder and host search: "
+        f"{beam_s * 1e3:.1f} ms host wall; best scores "
+        f"{[round(b[0][0], 3) for b in beam]}, "
+        f"{[len(b[0][1]) for b in beam]} tokens")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_rnnt_train_vs_plain(cfg):
+    """One rnnt-v1 train step with the kernels against the plain versions
+    in bf16 and in float32 (`steps_agree`), labels U = T' // 6 ids in
+    1..1023."""
+    import torch
+    from cat_tpu_torch.rnnt.train import make_train_step
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    model = rnnt_model(cfg)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = make_batch(FRAMES, seed=3, vocab=RNNT_V, frames_per_label=6)
+
+    def make_step():
+        sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+        return make_train_step(model, opt, cfg["specaug"], grad_clip=5.0), \
+            sched.lr, opt
+
+    steps_agree("rnnt-v1", lambda patches, f32: step_once(
+        model, start, make_step, batch, model.encoder, patches, f32), batch,
+        cfg["specaug"], RNNT_STEP, "encoder output")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_rnnt_training(cfg, profile):
+    """The RNN-T main path: train steps of the full rnnt-v1 model."""
+    import torch
+    import torch.nn.functional as F
+    from cat_tpu_torch.ops.rnnt import rnnt_loss
+    from cat_tpu_torch.rnnt.train import init_state, make_train_step
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    model = rnnt_model(cfg, perturbed=False)
+    sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+    step = make_train_step(model, opt, cfg["specaug"], grad_clip=5.0)
+    batch = make_batch(TRAIN_FRAMES, seed=6, vocab=RNNT_V,
+                       frames_per_label=6)
+    audio_s = sum(TRAIN_FRAMES) * 0.01
+    tl = [subsampled(f) for f in TRAIN_FRAMES]
+    U1 = batch["labels"].shape[1] + 1
+    log(f"[rnnt-train] batch: {len(TRAIN_FRAMES)} utterances of "
+        f"{min(TRAIN_FRAMES)}..{max(TRAIN_FRAMES)} frames ({audio_s:.1f} "
+        f"audio s), T' {min(tl)}..{max(tl)}, labels "
+        f"{batch['label_lengths'].min().item()}.."
+        f"{batch['label_lengths'].max().item()} of V={RNNT_V}; lattice "
+        f"(N, T', U+1, V) = ({len(tl)}, {max(tl)}, {U1}, {RNNT_V}), "
+        f"{len(tl) * max(tl) * U1 * RNNT_V * 4 / 1e9:.2f} GB in f32")
+    state = init_state(model, opt)
+    gen = torch.Generator().manual_seed(7)
+    reset_counts()
+    events, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(7):
+        sched.update_lr_step(state.step + 1)
+        before = counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        state, m = step(state, batch, sched.lr, gen)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ms = start.elapsed_time(end)
+        per = {k: v - before[k] for k, v in counts().items()}
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        log(f"[rnnt-train] step {i + 1} ({'warm-up' if i < 2 else 'timed'}): "
+            f"loss {loss:.5g}, grad norm {gn:.5g}, skipped {m['skipped']}, "
+            f"{ms:.1f} ms (CUDA events), {wall * 1e3:.1f} ms host wall")
+        if per != RNNT_STEP:
+            fail(f"rnnt train step launch counts {per} != {RNNT_STEP}")
+        if m["skipped"] or not (torch.isfinite(m["loss"])
+                                and torch.isfinite(m["grad_norm"])):
+            fail(f"rnnt train step {i + 1}: non-finite loss or grad norm")
+        if i >= 2:
+            events.append(ms)
+            walls.append(wall)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mean_ms = sum(events) / len(events)
+    log(f"[rnnt-train] {len(events)} timed steps: {mean_ms:.1f} ms per step "
+        f"(CUDA events; {min(events):.1f}..{max(events):.1f}), host wall "
+        f"{1e3 * sum(walls) / len(walls):.1f} ms; "
+        f"{audio_s / (mean_ms / 1e3):.1f} audio-s/s trained; peak memory "
+        f"{peak:.2f} GiB; launches per step {RNNT_STEP}")
+
+    # the split of one step: encoder forward, predictor + joiner forward
+    # (with the log-softmax), loss forward, loss backward (to the
+    # log-probs), predictor + joiner backward, encoder backward
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    labels, llens = batch["labels"], batch["label_lengths"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    enc, olen = model.encoder(batch["feats"], batch["feat_lengths"], gen)
+    ev[1].record()
+    enc_d = enc.detach().requires_grad_()
+    pred, _ = model.predictor(F.pad(labels, (1, 0)), llens + 1, gen)
+    lp = torch.log_softmax(model.joiner(enc_d, pred).float(), dim=-1)
+    ev[2].record()
+    lp_d = lp.detach().requires_grad_()
+    loss = rnnt_loss(lp_d, labels, olen, llens)
+    ev[3].record()
+    loss.backward()
+    ev[4].record()
+    lp.backward(lp_d.grad)
+    ev[5].record()
+    enc.backward(enc_d.grad)
+    ev[6].record()
+    torch.cuda.synchronize()
+    part = [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+    log(f"[rnnt-train] one step split (CUDA events, ms): encoder forward "
+        f"{part[0]:.1f}, predictor + joiner forward {part[1]:.1f}, loss "
+        f"forward {part[2]:.1f}, loss backward {part[3]:.1f}, predictor + "
+        f"joiner backward {part[4]:.1f}, encoder backward {part[5]:.1f}; "
+        f"encoder fwd+bwd {part[0] + part[5]:.1f}, predictor + joiner "
+        f"fwd+bwd {part[1] + part[4]:.1f}, loss fwd+bwd "
+        f"{part[2] + part[3]:.1f}")
+    del enc, enc_d, pred, lp, lp_d, loss
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    if profile:
+        phase_profile(lambda: step(state, batch, sched.lr, gen),
+                      "one rnnt-v1 train step",
+                      "chiprun_out/profile_rnnt_train.txt")
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_profile(fn, what, path):
     """Device time of fn() by kernel (torch.profiler), and the device's
     busy share over the span from its first kernel's start to its last
@@ -1196,6 +1565,7 @@ def main():
     phase_backward_kernels(torch.Generator(device="cuda").manual_seed(1), rec)
     phase_loss_kernels(torch.Generator(device="cuda").manual_seed(4), rec,
                        den)
+    phase_rnnt_kernels(torch.Generator(device="cuda").manual_seed(12), rec)
     cfg = load_config()
     forward = phase_serving(cfg)
     if profile:
@@ -1206,9 +1576,16 @@ def main():
     phase_train_vs_plain(cfg, den)
     phase_fold(cfg, den)
     launches = phase_training(cfg, den, profile)
+    rnnt_cfg = load_config("rnnt-v1")
+    phase_rnnt_serving(rnnt_cfg)
+    phase_rnnt_train_vs_plain(rnnt_cfg)
+    rnnt_launches = phase_rnnt_training(rnnt_cfg, profile)
+    # each kernel's launches on the main path that runs it: the crf-v1
+    # training phase, or the rnnt-v1 one for the RNN-T lattice kernels
     records = [rec.by_name[k] for k in KERNELS]
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (rnnt_launches if r["name"].startswith("rnnt_")
+                         else launches)[r["name"]]
     log(f"[env] whole run {time.perf_counter() - t_all:.1f} s")
 
     smi = subprocess.run(

@@ -18,7 +18,8 @@ order, partly by atomics. The loss kernels (f32), as chip_smoke.py holds
 them: dropout bit for bit; CTC states live in the plain version (above
 LOG_EPS / 2) within 1e-3 + 2e-6·|plain|, den snapshots there within 1e-5
 relative, the other states at or below LOG_EPS / 2 in both; den logZ to
-1e-5 relative; gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|.
+1e-5 relative; gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|;
+RNN-T states as the CTC ones.
 """
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from cat_tpu_torch.ctc.train import build_model
 from cat_tpu_torch.fst.ngram import train_ngram
 from cat_tpu_torch.models.layers import length_mask
 from cat_tpu_torch.ops import attention, conv_module, crf_dense, ctc, dropout
-from cat_tpu_torch.ops import ffn
+from cat_tpu_torch.ops import ffn, rnnt, rnnt_simple
 from cat_tpu_torch.utils import tolerance
 
 pytestmark = pytest.mark.cuda
@@ -419,6 +420,61 @@ def test_loss_functions_keep_the_graph_on_the_card(gen):
     torch.testing.assert_close(x.grad.cpu(), xc.grad, atol=1e-4, rtol=1e-4)
 
 
+def _rnnt_tables(gen, U1, T, N, V=9):
+    """RNN-T tables (`_row_tables`) of U = U1 - 1 labels over V: label
+    lengths falling from U to 0 and input lengths from T; for N > 1 the
+    last utterance has no label and the second one frame."""
+    U = U1 - 1
+    lp = torch.log_softmax(_rnd(gen, N, T, U1, V, s=2.0), -1)
+    labels = torch.randint(1, V, (N, U), generator=gen, device="cuda")
+    llens = torch.tensor([U - (U * i) // N for i in range(N)], device="cuda")
+    ilens = torch.tensor([max(1, T - 3 * i) for i in range(N)],
+                         device="cuda")
+    if N > 1:
+        llens[-1], ilens[1] = 0, 1
+    labels *= torch.arange(U, device="cuda")[None, :] < llens[:, None]
+    return rnnt._row_tables(lp, labels, ilens, llens, 0), llens
+
+
+@pytest.mark.parametrize("N", [1, 3, 32])
+@pytest.mark.parametrize("T", [1, 24, 493])
+@pytest.mark.parametrize("U1", [1, 2, 31, 32, 33, 83, 257, 1500])
+def test_rnnt_kernels(gen, U1, T, N):
+    (be, le, _, _), llens = _rnnt_tables(gen, U1, T, N)
+    term = rnnt.beta_term(llens, U1)
+    before = (rnnt.forward_alphas.launches, rnnt.backward_betas.launches)
+    _states_close(rnnt.forward_alphas(be, le),
+                  rnnt.forward_alphas_reference(be, le))
+    _states_close(rnnt.backward_betas(be, le, term),
+                  rnnt.backward_betas_reference(be, le, term))
+    assert (rnnt.forward_alphas.launches, rnnt.backward_betas.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_rnnt_losses_keep_the_graph_on_the_card(gen):
+    """rnnt_loss and rnnt_loss_simple on CUDA tensors go through both
+    kernels, and their gradients match the CPU's plain path."""
+    N, T, U, V = 3, 20, 6, 11
+    labels = torch.randint(1, V, (N, U), generator=gen, device="cuda")
+    lens = torch.tensor([20, 13, 1], device="cuda")
+    llens = torch.tensor([6, 2, 0], device="cuda")
+    ks = (rnnt.forward_alphas, rnnt.backward_betas)
+    lp = torch.log_softmax(_rnd(gen, N, T, U + 1, V, s=2.0), -1)
+    f, g = _rnd(gen, N, T, V, s=2.0), _rnd(gen, N, U + 1, V, s=2.0)
+    for fn, args in ((rnnt.rnnt_loss, (lp,)),
+                     (rnnt_simple.rnnt_loss_simple, (f, g))):
+        before = [k.launches for k in ks]
+        xs = [a.clone().requires_grad_() for a in args]
+        fn(*xs, labels, lens, llens, reduction="sum").backward()
+        assert [k.launches for k in ks] == [b + 1 for b in before]
+        xc = [a.cpu().requires_grad_() for a in args]
+        fn(*xc, labels.cpu(), lens.cpu(), llens.cpu(),
+           reduction="sum").backward()
+        for a, b in zip(xs, xc):
+            torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-4,
+                                       rtol=1e-4)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x32 = _rnd(gen, 2, 3, 256)
     p = (torch.ones(256, device="cuda"), torch.zeros(256, device="cuda"),
@@ -455,6 +511,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         crf_dense.den_forward(lp.transpose(0, 1), lens, den)
     with pytest.raises(ValueError, match="V = 8"):
         crf_dense.den_forward(lp[..., :8].contiguous(), lens, den)
+    be, le = _rnd(gen, 5, 2, 7), _rnd(gen, 5, 2, 7)
+    term = _rnd(gen, 2, 7)
+    with pytest.raises(ValueError, match="contiguous"):
+        rnnt.forward_alphas(be.transpose(0, 1), le.transpose(0, 1))
+    with pytest.raises(ValueError, match="f32"):
+        rnnt.forward_alphas(be.double(), le)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rnnt.forward_alphas(be, le.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rnnt.backward_betas(be, le, term.cpu())
+    with pytest.raises(ValueError, match="f32"):
+        rnnt.backward_betas(be, le, term[:, :6].contiguous())
+    big = torch.zeros(1, 1, rnnt.MAX_U1 + 1, device="cuda")
+    with pytest.raises(ValueError, match="U\\+1 <="):
+        rnnt.forward_alphas(big, big)
 
 
 def test_conformer_forward_matches_plain_on_the_card(gen, monkeypatch):

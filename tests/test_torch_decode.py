@@ -124,7 +124,8 @@ for m in pkgutil.walk_packages(cat_tpu_torch.__path__, "cat_tpu_torch."):
     importlib.import_module(m.name)
 for m in ("ops.dropout", "ops.semiring", "ops.ctc", "ops.crf_dense",
           "ops.specaug", "fst.ngram", "utils.scheduler", "utils.manager",
-          "utils.tolerance", "ctc.train"):
+          "utils.tolerance", "ctc.train", "ops.rnnt", "ops.rnnt_simple",
+          "rnnt.train", "rnnt.decode"):
     assert "cat_tpu_torch." + m in sys.modules, m
 import runpy
 runpy.run_path("tools/torch_step_diag.py", run_name="imported")
