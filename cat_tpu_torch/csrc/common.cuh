@@ -1,28 +1,18 @@
-// Helpers shared by the port's kernels (bf16 operands, f32 sums).
+// Helpers shared by the port's wmma kernels (bf16 operands, f32 sums).
 //
 // Products use the warp-level `nvcuda::wmma` bf16 16x16x16 fragments;
 // each kernel keeps its activation tiles in shared memory and reads the
-// weight fragments straight from global memory (they stay in L2).
-//
-// Dropout bits: Philox-4x32-10 (Salmon et al., SC'11), counter-based, so
-// a keep decision is a pure function of (seed, stream, plane, row,
-// column) and forward and backward kernels draw the same mask whatever
-// their tiling. Counter = (column / 4, row, plane, stream), key = the two
-// seed words; word i of the output decides column 4*(column/4) + i. A
-// value is kept iff its word >= thr = min(floor(rate * 2^32), 2^32 - 1)
-// and kept values are scaled by 1 / (1 - rate). The plain PyTorch twin is
-// `cat_tpu_torch/ops/dropout.py`.
+// weight fragments straight from global memory (they stay in L2). The
+// Philox dropout bits, warp sums and the sigmoid are in common_math.cuh.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common_math.cuh"
 
 namespace catk {
 
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
     FragA;
@@ -38,52 +28,6 @@ typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
 
 __host__ __device__ constexpr int align128(int bytes) {
   return (bytes + 127) / 128 * 128;
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Dropout parameters as the wrappers pass them.
-struct Drop {
-  uint32_t seed0, seed1, thr;
-  float inv;  // 1 / (1 - rate)
-};
-
-// Keep bits of columns 4g .. 4g+3 (bit i for column 4g + i) of `row` in
-// `plane` of `stream`. thr == 0 (rate 0) keeps everything without Philox.
-__device__ __forceinline__ unsigned keep4(const Drop& d, uint32_t stream,
-                                          uint32_t plane, uint32_t row,
-                                          uint32_t g) {
-  if (d.thr == 0u) return 0xFu;
-  const uint4 b = philox4x32_10(make_uint4(g, row, plane, stream), d.seed0,
-                                d.seed1);
-  return (b.x >= d.thr ? 1u : 0u) | (b.y >= d.thr ? 2u : 0u) |
-         (b.z >= d.thr ? 4u : 0u) | (b.w >= d.thr ? 8u : 0u);
-}
-
-__device__ __forceinline__ float keep_scale(const Drop& d, unsigned bits,
-                                            int i) {
-  return (bits >> i) & 1u ? d.inv : 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + __expf(-x));
 }
 
 // One warp: LayerNorm of one row of D values (f32 statistics, two-pass

@@ -373,6 +373,57 @@ def special_rows(t):
     return t
 
 
+FFN_BWD_STAGES = ("prep", "up", "down", "ln", "wgrad", "reduce")
+
+
+def ffn_bwd_split_and_repro(x, ffp, do, kw, calls=5):
+    """The FF backward's launches inside one call (ffn_bwd.cu: prep, up,
+    down, ln, wgrad, reduce), device ms by kernel name from
+    torch.profiler over `calls` calls; and two calls on the same inputs,
+    which must give the same bits (no atomics)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cat_tpu_torch.ops import ffn
+
+    def call():
+        return ffn.ff_backward(x, *ffp, do, **kw)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    split, other = dict.fromkeys(FFN_BWD_STAGES, 0.0), 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        stage = next((st for st in FFN_BWD_STAGES
+                      if f"ffn_bwd_{st}(" in e.name
+                      or f"ffn_bwd_{st}<" in e.name), None)
+        if stage is None:
+            other += us
+        else:
+            split[stage] += us
+    if sum(split.values()) == 0:
+        log("[kernel] ffn_bwd split of one call: the profiler recorded no "
+            "device time: not measured")
+    else:
+        log("[kernel] ffn_bwd split of one call (device ms, torch.profiler, "
+            f"{calls} calls): " + ", ".join(
+                f"{k} {v / calls / 1e3:.4f}" for k, v in split.items())
+            + f"; other {other / calls / 1e3:.4f}; sum "
+            f"{(sum(split.values()) + other) / calls / 1e3:.4f}")
+    first, second = call(), call()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[kernel] ffn_bwd bitwise reproducible over two calls at the "
+        f"training batch (rate {kw['rate']}): {same}")
+    if not same:
+        fail("ffn_bwd: two calls on the same inputs differ")
+
+
 def phase_backward_kernels(gen, rec):
     """Backward kernels, and the forward kernels with dropout, against their
     plain versions at the training batch's shapes, rates 0 and 0.1, on
@@ -523,6 +574,7 @@ def phase_backward_kernels(gen, rec):
                 10 * Rv * D * F,
                 3 * Rv * D * 2 + 2 * D * F * 2 + 2 * D * F * 4
                 + (4 * D + F) * 4 * 2, what + f" F={F}")
+        ffn_bwd_split_and_repro(x, ffp, do, kw)
         rec.add("glu_in_bwd", "cat_tpu_torch/csrc/conv_module_bwd.cu",
                 "cat_tpu/ops/conv_module_pallas.py:71", e_glu,
                 timed(lambda: conv_module.glu_in_backward(x, mask, *glp, do),
