@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels that need no tensor cores: the
-// bf16 type, Philox dropout bits, warp sums and the sigmoid.
+// bf16 type, Philox dropout bits, warp sums, LayerNorm row statistics,
+// four-value bf16 loads and stores, and the sigmoid.
 //
 // Dropout bits: Philox-4x32-10 (Salmon et al., SC'11), counter-based, so
 // a keep decision is a pure function of (seed, stream, plane, row,
@@ -59,6 +60,47 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// LayerNorm statistics of a row of 128·V values that a warp holds, V
+// groups of 4 a lane: the mean and 1 / sqrt(variance + eps), f32, the
+// variance from a second pass over the values.
+template <int V>
+__device__ __forceinline__ void row_stats(const float (&v)[V][4], float eps,
+                                          float& mean, float& rstd) {
+  constexpr int D = 128 * V;
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s += v[j][e];
+  mean = warp_sum(s) / D;
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ss += (v[j][e] - mean) * (v[j][e] - mean);
+  rstd = rsqrtf(warp_sum(ss) / D + eps);
+}
+
+// Four consecutive bf16 values as f32, and back (8-byte aligned).
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  v[0] = __low2float(a);
+  v[1] = __high2float(a);
+  v[2] = __low2float(b);
+  v[3] = __high2float(b);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float sigmoid(float x) {

@@ -69,25 +69,6 @@ constexpr int SMS = 132;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  v[0] = __low2float(a);
-  v[1] = __high2float(a);
-  v[2] = __low2float(b);
-  v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 // Sums red[0..7][c] in order into out[c], c < D (the block's threads).
 template <int D>
 __device__ __forceinline__ void sum8(const float (*red)[D], float* out) {
@@ -117,20 +98,10 @@ __global__ void __launch_bounds__(RW)
     if (row >= R) break;
     const size_t o = (size_t)row * D;
     float v[V][4];
-    float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      load4(x + o + 4 * (lane + 32 * j), v[j]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s += v[j][e];
-    }
-    const float mean = warp_sum(s) / D;
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ss += (v[j][e] - mean) * (v[j][e] - mean);
-    const float rstd = rsqrtf(warp_sum(ss) / D + 1e-6f);
+    for (int j = 0; j < V; ++j) load4(x + o + 4 * (lane + 32 * j), v[j]);
+    float mean, rstd;
+    row_stats<V>(v, 1e-6f, mean, rstd);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const int c = 4 * (lane + 32 * j);

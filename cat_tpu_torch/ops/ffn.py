@@ -15,22 +15,25 @@ backward `ff_backward`, which launch the CUDA kernels
 the plain versions `ff_reference` and `ff_backward_reference` on a CPU
 tensor. Each of the two counts its kernel launches.
 
-What bounds them on the H100: the forward at the serving batch (R = 8 x
-599 rows, D = 512, F = 2048) is 4·R·D·F = 20.1 GFLOP, 20 us at the
-989 TFLOP/s bf16 peak, against 14 MB of x, out and weights, 4.2 us at
-3.35 TB/s: operations bound it. The forward keeps the (R, F) hidden
-activation out of device memory: each block of 32 rows walks F in chunks
-of 64 through shared memory and sums into an f32 accumulator held in
-registers. The backward is 10·R·D·F operations (0.134 ms over the valid
-rows of the training batch), with about 0.58 GB of scratch traffic
-between its stages, 0.17 ms at 3.35 TB/s. It recomputes the forward from
-x, as the TPU kernel does, in six launches inside one call (see
-ffn_bwd.cu): two row passes (LayerNorm and dropout in, LayerNorm backward
-out) around three products on the Hopper GEMM mainloop of
-`csrc/hopper_gemm.cuh` (TMA and wgmma, the SiLU and dropout backward in
-the first product's epilogue, the weight gradients split over rows), and
-a pass that sums every partial in a fixed order: no atomics, so two calls
-on the same inputs give the same bits.
+What bounds them on the H100: the forward is 4·R·D·F operations (0.054
+ms over the 12,664 valid rows of the training batch, R = 15,776, D = 512,
+F = 2048, at the 989 TFLOP/s bf16 peak), the backward 10·R·D·F (0.134
+ms). Both run as stages inside one C call, the products on the Hopper
+GEMM mainloop of `csrc/hopper_gemm.cuh` (TMA and wgmma) with the
+elementwise work fused into their epilogues, and both sum in a fixed order
+without atomics, so two calls on the same inputs give the same bits. The
+forward is three launches (see ffn_fwd.cu): a LayerNorm row pass to h, the
+up product h . W1 with bias, SiLU and dropout in its epilogue to the (R,
+F) hidden a1, and the down product a1 . W2 with bias, dropout and the
+residual in its epilogue. h and a1 go through device memory as bf16
+scratch (about 0.21 GB a call at the training batch, 0.063 ms at 3.35
+TB/s), which the TPU kernel keeps in VMEM. The backward recomputes the
+forward from x, as the TPU kernel does, in six launches (see ffn_bwd.cu):
+two row passes (LayerNorm and dropout in, LayerNorm backward out) around
+three products (the SiLU and dropout backward in the first one's
+epilogue, the weight gradients split over rows), and a pass that sums
+every partial in a fixed order (about 0.58 GB of scratch traffic, 0.17 ms
+at 3.35 TB/s).
 """
 from __future__ import annotations
 
@@ -42,6 +45,9 @@ from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 
 LN_EPS = 1e-6
 _DIMS = (128, 256, 384, 512)
+# the C entries of csrc/ffn_fwd.cu and ffn_bwd.cu: (pointers, ints, floats)
+_FWD = {"ffn_fwd": (10, 6, 2)}
+_BWD = {"ffn_bwd": (19, 7, 2), "ffn_bwd_workspace": (0, 3, 0)}
 
 
 def _masks(seed, rate, R, D, Fh, device):
@@ -149,10 +155,12 @@ def ff_forward(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
     args = _operands(x, gamma, beta, w1, b1, w2, b2)
     drop, inv = kernel_args(rate, seed)
     xr = args[0]
-    out = torch.empty_like(xr)
-    err = _build.load("ffn_fwd", {"ffn_fwd": (8, 6, 2)}).ffn_fwd(
-        *(t.data_ptr() for t in args), out.data_ptr(), xr.shape[0],
-        x.shape[-1], w1.shape[-1], *drop, float(alpha), inv,
+    R, D = xr.shape
+    out, h = torch.empty_like(xr), torch.empty_like(xr)
+    a1 = torch.empty(R, w1.shape[-1], dtype=torch.bfloat16, device=x.device)
+    err = _build.load("ffn_fwd", _FWD).ffn_fwd(
+        *(t.data_ptr() for t in (*args, out, h, a1)), R, D, w1.shape[-1],
+        *drop, float(alpha), inv,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ffn_fwd")
     ff_forward.launches += 1
@@ -183,8 +191,7 @@ def ff_backward(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5, rate=0.0,
     dg, db, dw1, db1, dw2, db2 = (new(D, dt=f32), new(D, dt=f32),
                                   new(D, Fh, dt=f32), new(Fh, dt=f32),
                                   new(Fh, D, dt=f32), new(D, dt=f32))
-    lib = _build.load("ffn_bwd", {"ffn_bwd": (19, 7, 2),
-                                  "ffn_bwd_workspace": (0, 3, 0)})
+    lib = _build.load("ffn_bwd", _BWD)
     units = lib.ffn_bwd_workspace(R, D, Fh, None)
     ws = new(units * 64, dt=f32)
     outs = [dx, h, dh2, a1, dh1, dg, db, dw1, db1, dw2, db2, ws]

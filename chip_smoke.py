@@ -14,7 +14,10 @@ Phases, any failure exits non-zero:
    utterance identical (as SpecAugment's time masks leave them after
    subsampling), constant or zero; the JSON records time the training
    batch at rate 0.1; no single PyTorch call computes any of these
-   functions, so `library_ms` is null; then the loss path's kernels at
+   functions, so `library_ms` is null; the FF forward's and backward's
+   launches inside one call (torch.profiler; the forward at both
+   batches, beside its two products alone by `torch.matmul`) and two
+   calls of each bit for bit; then the loss path's kernels at
    the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
    3-gram denominator of `make_den`): the standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
@@ -324,6 +327,9 @@ def phase_kernels(gen):
            _rnd(gen, F, D, s=F ** -0.5, dtype=bf), _rnd(gen, D, s=0.1))
     errs = {"ffn_fwd": compare("ffn_fwd", ffn.ff_forward(x, *ffp),
                                ffn.ff_reference(x, *ffp))}
+    ffn_split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp),
+                        f"serving batch, R={N * T}, rate 0")
+    ffn_fwd_products(x, ffp, "serving batch")
     glp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
            _rnd(gen, D, 2 * D, s=D ** -0.5, dtype=bf), _rnd(gen, 2 * D, s=0.1))
     errs["glu_in_fwd"] = compare(
@@ -373,21 +379,20 @@ def special_rows(t):
     return t
 
 
-FFN_BWD_STAGES = ("prep", "up", "down", "ln", "wgrad", "reduce")
+# the launches inside one call of each FF kernel (csrc/ffn_fwd.cu,
+# ffn_bwd.cu)
+FFN_STAGES = {"ffn_fwd": ("ln", "up", "down"),
+              "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce")}
 
 
-def ffn_bwd_split_and_repro(x, ffp, do, kw, calls=5):
-    """The FF backward's launches inside one call (ffn_bwd.cu: prep, up,
-    down, ln, wgrad, reduce), device ms by kernel name from
-    torch.profiler over `calls` calls; and two calls on the same inputs,
-    which must give the same bits (no atomics)."""
+def ffn_split_and_repro(name, call, what, calls=5):
+    """The launches inside one call of an FF kernel (`FFN_STAGES`), device
+    ms by kernel name from torch.profiler over `calls` calls; and two
+    calls on the same inputs, which must give the same bits (no
+    atomics)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from cat_tpu_torch.ops import ffn
-
-    def call():
-        return ffn.ff_backward(x, *ffp, do, **kw)
 
     call()
     torch.cuda.synchronize()
@@ -395,33 +400,48 @@ def ffn_bwd_split_and_repro(x, ffp, do, kw, calls=5):
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
-    split, other = dict.fromkeys(FFN_BWD_STAGES, 0.0), 0.0
+    split, other = dict.fromkeys(FFN_STAGES[name], 0.0), 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         us = e.time_range.end - e.time_range.start
-        stage = next((st for st in FFN_BWD_STAGES
-                      if f"ffn_bwd_{st}(" in e.name
-                      or f"ffn_bwd_{st}<" in e.name), None)
+        stage = next((st for st in split if f"{name}_{st}(" in e.name
+                      or f"{name}_{st}<" in e.name), None)
         if stage is None:
             other += us
         else:
             split[stage] += us
     if sum(split.values()) == 0:
-        log("[kernel] ffn_bwd split of one call: the profiler recorded no "
-            "device time: not measured")
+        log(f"[kernel] {name} split of one call ({what}): the profiler "
+            f"recorded no device time: not measured")
     else:
-        log("[kernel] ffn_bwd split of one call (device ms, torch.profiler, "
-            f"{calls} calls): " + ", ".join(
+        log(f"[kernel] {name} split of one call ({what}; device ms, "
+            f"torch.profiler, {calls} calls): " + ", ".join(
                 f"{k} {v / calls / 1e3:.4f}" for k, v in split.items())
             + f"; other {other / calls / 1e3:.4f}; sum "
             f"{(sum(split.values()) + other) / calls / 1e3:.4f}")
     first, second = call(), call()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
     same = all(torch.equal(a, b) for a, b in zip(first, second))
-    log(f"[kernel] ffn_bwd bitwise reproducible over two calls at the "
-        f"training batch (rate {kw['rate']}): {same}")
+    log(f"[kernel] {name} bitwise reproducible over two calls ({what}): "
+        f"{same}")
     if not same:
-        fail("ffn_bwd: two calls on the same inputs differ")
+        fail(f"{name}: two calls on the same inputs differ")
+
+
+def ffn_fwd_products(x, ffp, what):
+    """The FF forward's two products alone by torch.matmul at its shapes
+    (bf16, (R, D) . (D, F) and (R, F) . (F, D)): a reference line beside
+    the kernel's split, not a library time of the FF module."""
+    import torch
+    D, F = ffp[2].shape
+    h = x.reshape(-1, D)
+    a1 = torch.empty(h.shape[0], F, dtype=h.dtype, device=h.device)
+    up = timed(lambda: torch.matmul(h, ffp[2], out=a1), 10, 2)
+    down = timed(lambda: torch.matmul(a1, ffp[4]), 10, 2)
+    log(f"[kernel] ffn_fwd's products alone by torch.matmul ({what}): up "
+        f"{up:.4f} ms, down {down:.4f} ms, sum {up + down:.4f} ms")
 
 
 def phase_backward_kernels(gen, rec):
@@ -574,7 +594,12 @@ def phase_backward_kernels(gen, rec):
                 10 * Rv * D * F,
                 3 * Rv * D * 2 + 2 * D * F * 2 + 2 * D * F * 4
                 + (4 * D + F) * 4 * 2, what + f" F={F}")
-        ffn_bwd_split_and_repro(x, ffp, do, kw)
+        ffn_split_and_repro("ffn_bwd",
+                            lambda: ffn.ff_backward(x, *ffp, do, **kw),
+                            f"training batch, rate {rate}")
+        ffn_split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp, **kw),
+                            f"training batch, rate {rate}")
+        ffn_fwd_products(x, ffp, "training batch")
         rec.add("glu_in_bwd", "cat_tpu_torch/csrc/conv_module_bwd.cu",
                 "cat_tpu/ops/conv_module_pallas.py:71", e_glu,
                 timed(lambda: conv_module.glu_in_backward(x, mask, *glp, do),

@@ -65,19 +65,6 @@ def _rel(got, want, name=""):
 SEED = (0x2468ACE0, 0x13579BDF)
 
 
-@pytest.mark.parametrize("D,F,N,T", [(128, 512, 1, 1), (256, 1024, 3, 11),
-                                     (384, 1536, 2, 33), (512, 2048, 2, 50)])
-def test_ffn_kernel(gen, D, F, N, T):
-    x = _rnd(gen, N, T, D, dtype=torch.bfloat16)
-    p = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
-         _rnd(gen, D, F, s=D ** -0.5), _rnd(gen, F, s=0.1),
-         _rnd(gen, F, D, s=F ** -0.5), _rnd(gen, D, s=0.1))
-    before = ffn.ff_forward.launches
-    got = ffn.fused_ff_residual(x, *p, alpha=1.0)
-    assert ffn.ff_forward.launches == before + 1
-    _close(got, ffn.ff_reference(x, *p, alpha=1.0))
-
-
 def _special_rows(t):
     """t (N, T, D) with identical, constant and zero rows in every
     utterance, where T allows (as chip_smoke.py's `special_rows`)."""
@@ -102,14 +89,28 @@ def _ffn_inputs(gen, D, F, N, T):
 
 
 # every width; row counts R = N·T of 1, around the 64-row blocks of the
-# row passes and the 128-row tiles of the products (63, 64, 65, 129) and
-# 4,097; F of 64 and 192, not multiples of the 128-column tile
+# row passes and the 64- and 128-row tiles of the products (63, 64, 65,
+# 129) and 4,097 (the forward's down product on 128-row tiles there, on
+# 64-row ones at the others); F of 64 and 192, not multiples of the
+# 128-column tile
+FFN_SHAPES = [(128, 512, 1, 1), (256, 1024, 3, 11), (384, 1536, 2, 33),
+              (512, 2048, 2, 50), (128, 64, 1, 63), (256, 192, 1, 64),
+              (512, 64, 1, 65), (384, 192, 1, 129), (512, 2048, 1, 4097)]
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("D,F,N,T", [(128, 512, 1, 1), (256, 1024, 3, 11),
-                                     (384, 1536, 2, 33), (512, 2048, 2, 50),
-                                     (128, 64, 1, 63), (256, 192, 1, 64),
-                                     (512, 64, 1, 65), (384, 192, 1, 129),
-                                     (512, 2048, 1, 4097)])
+@pytest.mark.parametrize("D,F,N,T", FFN_SHAPES)
+def test_ffn_kernel(gen, D, F, N, T, rate):
+    x, _, p = _ffn_inputs(gen, D, F, N, T)
+    kw = dict(alpha=1.0, rate=rate, seed=SEED)
+    before = ffn.ff_forward.launches
+    got = ffn.fused_ff_residual(x, *p, **kw)
+    assert ffn.ff_forward.launches == before + 1
+    _close(got, ffn.ff_reference(x, *p, **kw))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D,F,N,T", FFN_SHAPES)
 def test_ffn_backward_kernel(gen, D, F, N, T, rate):
     x, do, p = _ffn_inputs(gen, D, F, N, T)
     kw = dict(alpha=0.5, rate=rate, seed=SEED)
@@ -138,6 +139,16 @@ def test_ffn_backward_kernel_is_reproducible(gen, D, F, N, T):
     second = ffn.ff_backward(x, *p, do, **kw)
     for name, a, b in zip("x gamma beta w1 b1 w2 b2".split(), first, second):
         assert torch.equal(a, b), name
+
+
+# the forward's down product on 128-row tiles (R = 2,400, D = 512: 76
+# tiles, or 152 of 64 rows, two on some of the 132 SMs) and on 64-row
+# ping-pong tiles (R = 4,097, D = 128: 65 tiles of 64 rows, one a block)
+@pytest.mark.parametrize("D,F,N,T", [(512, 2048, 4, 600), (128, 512, 1, 4097)])
+def test_ffn_forward_kernel_is_reproducible(gen, D, F, N, T):
+    x, _, p = _ffn_inputs(gen, D, F, N, T)
+    kw = dict(alpha=0.5, rate=0.1, seed=SEED)
+    assert torch.equal(ffn.ff_forward(x, *p, **kw), ffn.ff_forward(x, *p, **kw))
 
 
 @pytest.mark.parametrize("D,N,T", [(128, 1, 1), (256, 3, 11), (384, 2, 33),
