@@ -20,7 +20,8 @@ it replaces; `den_backward` recomputes each segment's alphas from its
 snapshot and runs the beta recursion over it, emitting the exact
 posterior gradient row by row (the XLA `_den_bwd` of the JAX package). On
 a CUDA tensor each launches its kernel in `cat_tpu_torch/csrc/crf_dense.cu`
-(one launch for all frames) and counts it; on a CPU tensor each takes its
+(one launch for all frames, on thread-block clusters laid out by
+`den_plan`) and counts it; on a CPU tensor each takes its
 plain version (`den_forward_reference`, `den_backward_reference`: loops
 over frames).
 """
@@ -116,21 +117,12 @@ class DenseDen:
 
     def device_tables(self, device=None):
         """(exp(W) (V, V, V), F (V, V)) f32 on `device`, made once per
-        device."""
+        device (`_tables` also keeps the card's cluster counts)."""
         key = str(torch.device(device or "cpu"))
         if key not in self._tables:
             logw = torch.from_numpy(self.logw).to(device)
             self._tables[key] = (torch.exp(torch.clamp_min(logw, LOG_EPS)),
                                  torch.from_numpy(self.final).to(device))
-        return self._tables[key]
-
-    def transposed_expw(self, device):
-        """exp(W) as (u, a, b), contiguous, for the backward kernel's
-        beta contraction; made once per device."""
-        key = "t " + str(torch.device(device))
-        if key not in self._tables:
-            self._tables[key] = self.device_tables(device)[0] \
-                .permute(2, 0, 1).contiguous()
         return self._tables[key]
 
     def save(self, path):
@@ -269,7 +261,120 @@ def den_backward_reference(log_probs, input_lengths, snaps, logz, g, den):
     return grad.transpose(0, 1) * g.float()[:, None, None]
 
 
-MAX_V = 96  # the backward kernel keeps six (V, V) f32 tensors in 227 KB
+MAX_V = 96  # the kernels' largest vocabulary
+
+# The kernels' plan (`csrc/crf_dense.cu`). A thread-block cluster of C
+# blocks runs a group of G utterances; block j owns the context symbols
+# `owned(V, C, j)`, the column slices of the states for them, and, where
+# it fits in shared memory, its slice expW[:, B_j, :] (else the same loop
+# reads the slice from L2). Utterances are grouped by length, longest
+# first, so a cluster loops only to its group's longest utterance.
+SMEM_LIMIT = 232_448  # shared memory a block may take on the H100
+MAX_CLUSTER = 16      # blocks a cluster (above 8: non-portable)
+MAX_GROUP = 8         # utterances a cluster (the kernels' template range)
+
+
+def owned(V, C, j):
+    """The context symbols [lo, hi) that block j of a C-block cluster
+    owns: floor(V / C) or ceil(V / C) of them."""
+    return j * V // C, (j + 1) * V // C
+
+
+def owner(V, C, u):
+    """The block of a C-block cluster that owns symbol u, and u's index
+    among its symbols."""
+    j = ((u + 1) * C - 1) // V
+    return j, u - j * V // C
+
+
+def cluster_size(V):
+    """Blocks a cluster: the largest power of two <= min(16, V)."""
+    return 1 << (min(MAX_CLUSTER, V).bit_length() - 1)
+
+
+def _al4(x):
+    return -(-x // 4) * 4
+
+
+def _smem_bytes(V, C, G, w_smem, backward):
+    """Shared memory of one block of the plan, as `make_layout` of
+    `csrc/crf_dense.cu` lays it out (that file refuses any other count)."""
+    S = -(-V // C)
+    col = V * S
+    SC = _al4(G * col)
+    n = _al4(V * ((S * V) | 1)) if w_smem else 0
+    n += 2 * col * _al4(2 * G) + _al4(2 * G * col) + 2 * SC
+    n += 5 * SC if backward else 0
+    n += (_al4(4 * G * S) + _al4(2 * G * (S + 1)) + _al4(G * S) + _al4(2 * G)
+          + 2 * _al4(4 * G) + _al4(2 * V))
+    return 4 * n
+
+
+class DenPlan:
+    """How the den kernels split a batch: C blocks a cluster (S = ceil(V /
+    C) symbols at most a block), G utterances a cluster in `groups`
+    clusters, utterance order[k G : (k + 1) G] in cluster k (`order`: by
+    length, longest first, int32 on the lengths' device), the expW slice
+    resident in shared memory (`w_smem`) or read from L2, `smem_bytes` a
+    block."""
+
+    def __init__(self, C, G, N, V, w_smem, backward, order):
+        self.C, self.G, self.V, self.w_smem = C, G, V, w_smem
+        self.S = -(-V // C)
+        self.groups = -(-N // G)
+        self.smem_bytes = _smem_bytes(V, C, G, w_smem, backward)
+        # backward scratch a block and frame: pre-update a_in, a_bl, emit0
+        self.frame_scratch = 3 * _al4(G * V * self.S)
+        self.order = order
+
+    def __repr__(self):
+        return (f"C={self.C} G={self.G} groups={self.groups} S={self.S} "
+                f"W {'shared memory' if self.w_smem else 'L2'} "
+                f"smem={self.smem_bytes} B")
+
+
+def _layout(V, backward):
+    """(C, W route, largest G) for V: the slice sits in shared memory
+    where it fits beside one utterance's state."""
+    C = cluster_size(V)
+    w_smem = _smem_bytes(V, C, 1, True, backward) <= SMEM_LIMIT
+    g_max = max(G for G in range(1, MAX_GROUP + 1)
+                if _smem_bytes(V, C, G, w_smem, backward) <= SMEM_LIMIT)
+    return C, w_smem, g_max
+
+
+def den_plan(input_lengths, V, clusters, backward):
+    """The plan for N = len(input_lengths) utterances over V classes on a
+    card that holds `clusters` clusters of the largest group at once: as
+    few utterances a cluster as fill those clusters, G = ceil(N /
+    clusters) (at most the largest group that fits; more groups than
+    clusters run in waves)."""
+    N = int(input_lengths.shape[0])
+    C, w_smem, g_max = _layout(V, backward)
+    G = max(1, min(g_max, -(-N // max(clusters, 1))))
+    order = torch.argsort(input_lengths, descending=True, stable=True)
+    return DenPlan(C, G, N, V, w_smem, backward, order.to(torch.int32))
+
+
+def _cluster_count(den, device, backward):
+    """Clusters of the largest group that the card holds at once
+    (`cudaOccupancyMaxActiveClusters`), once per device (kept with the
+    denominator's device tables)."""
+    key = ("clusters", str(torch.device(device)), backward)
+    if key not in den._tables:
+        V = den.num_classes
+        C, w_smem, g_max = _layout(V, backward)
+        out = np.zeros(1, np.int32)
+        with torch.cuda.device(device):
+            err = _build.load("crf_dense", _ENTRIES).den_clusters(
+                out.ctypes.data, V, C, g_max, int(w_smem), int(backward),
+                None)
+        _build.check(err, "den_clusters")
+        if out[0] < 1:
+            raise RuntimeError(f"den kernels: the card holds no cluster of "
+                               f"{C} blocks at V = {V}")
+        den._tables[key] = int(out[0])
+    return den._tables[key]
 
 
 def _check(name, log_probs, input_lengths, den):
@@ -302,13 +407,16 @@ def den_forward(log_probs, input_lengths, den):
     N, T, V = _check("den_forward", log_probs, input_lengths, den)
     K = den.ckpt_every
     expw, final = den.device_tables(log_probs.device)
+    plan = den_plan(input_lengths, V,
+                    _cluster_count(den, log_probs.device, False), False)
     S = -(-T // K)
     snap_in, snap_bl = (log_probs.new_empty(S, N, V, V) for _ in range(2))
     logz = log_probs.new_empty(N)
     err = _build.load("crf_dense", _ENTRIES).den_fwd(
-        log_probs.data_ptr(), input_lengths.data_ptr(), expw.data_ptr(),
-        final.data_ptr(), snap_in.data_ptr(), snap_bl.data_ptr(),
-        logz.data_ptr(), N, T, V, K,
+        log_probs.data_ptr(), input_lengths.data_ptr(),
+        plan.order.data_ptr(), expw.data_ptr(), final.data_ptr(),
+        snap_in.data_ptr(), snap_bl.data_ptr(), logz.data_ptr(), N, T, V, K,
+        plan.C, plan.G, int(plan.w_smem), plan.smem_bytes,
         torch.cuda.current_stream(log_probs.device).cuda_stream)
     _build.check(err, "den_fwd")
     den_forward.launches += 1
@@ -336,21 +444,27 @@ def den_backward(log_probs, input_lengths, snaps, logz, g, den):
                              f"on {log_probs.device}, got {t.dtype} "
                              f"{tuple(t.shape)}")
     expw, final = den.device_tables(log_probs.device)
-    expw_t = den.transposed_expw(log_probs.device)
+    plan = den_plan(input_lengths, V,
+                    _cluster_count(den, log_probs.device, True), True)
     grad = log_probs.new_empty(N, T, V)
-    scratch = log_probs.new_empty(N, K, 3, V, V)
+    # per block: K frames of the pre-update a_in, a_bl and emit0 of its
+    # G utterances' column slices
+    scratch = log_probs.new_empty(plan.groups * plan.C, K,
+                                  plan.frame_scratch)
     err = _build.load("crf_dense", _ENTRIES).den_bwd(
-        log_probs.data_ptr(), input_lengths.data_ptr(), expw.data_ptr(),
-        expw_t.data_ptr(), final.data_ptr(), snap_in.data_ptr(),
-        snap_bl.data_ptr(), logz.data_ptr(), g.data_ptr(), grad.data_ptr(),
-        scratch.data_ptr(), N, T, V, K,
+        log_probs.data_ptr(), input_lengths.data_ptr(),
+        plan.order.data_ptr(), expw.data_ptr(), final.data_ptr(),
+        snap_in.data_ptr(), snap_bl.data_ptr(), logz.data_ptr(), g.data_ptr(),
+        grad.data_ptr(), scratch.data_ptr(), N, T, V, K, plan.C, plan.G,
+        int(plan.w_smem), plan.smem_bytes,
         torch.cuda.current_stream(log_probs.device).cuda_stream)
     _build.check(err, "den_bwd")
     den_backward.launches += 1
     return grad
 
 
-_ENTRIES = {"den_fwd": (7, 4, 0), "den_bwd": (11, 4, 0)}
+_ENTRIES = {"den_fwd": (8, 8, 0), "den_bwd": (11, 8, 0),
+            "den_clusters": (1, 5, 0)}
 den_forward.launches = 0
 den_backward.launches = 0
 

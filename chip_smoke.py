@@ -26,7 +26,9 @@ Phases, any failure exits non-zero:
    relative, the den snapshots to 1e-5 relative on live states, the CTC
    and den gradient rows within 1e-3 + 1e-3·|plain| (CTC beside
    `torch.nn.functional.ctc_loss`, forward and forward + backward; no
-   single call computes the dense denominator);
+   single call computes the dense denominator); the den kernels' plan
+   (blocks a cluster, utterances a cluster, where the expW slices live,
+   shared memory a block) and two calls of each den kernel bit for bit;
 3. serving: the libri crf-v1 conformer (egs/libri/exp/crf-v1/config.json:
    17 cells, d=512, 8 heads, bf16; 72 classes) with seeded random weights
    decodes a ragged batch of 8 synthetic utterances through
@@ -777,6 +779,24 @@ def phase_loss_kernels(gen, rec, den):
         lp, lens, (p_in, p_bl), plain_z, g, den))
     log(f"[kernel] den logZ (max abs err {e_z:.4g}), snapshots ({e_s:.4g}) "
         f"and gradient rows ({e_d:.4g}) agree with the plain versions")
+    for bwd, name in ((False, "den_fwd"), (True, "den_bwd")):
+        clusters = crf_dense._cluster_count(den, lens.device, bwd)
+        plan = crf_dense.den_plan(lens, V, clusters, bwd)
+        log(f"[kernel] {name} plan: clusters of C={plan.C} blocks, G="
+            f"{plan.G} utterances a cluster, {plan.groups} clusters, expW "
+            f"slice in {'shared memory' if plan.w_smem else 'L2'}, "
+            f"{plan.smem_bytes} bytes of shared memory a block; the card "
+            f"holds {clusters} such clusters")
+    (r_in, r_bl), r_z = crf_dense.den_forward(lp, lens, den)
+    same = [torch.equal(s_in, r_in) and torch.equal(s_bl, r_bl)
+            and torch.equal(logz, r_z),
+            torch.equal(grad, crf_dense.den_backward(lp, lens, snaps, logz,
+                                                     g, den))]
+    log(f"[kernel] den_fwd, den_bwd bitwise reproducible over two calls "
+        f"(training batch): {same[0]}, {same[1]}")
+    if not all(same):
+        fail("den kernels: two calls on the same inputs differ")
+    del r_in, r_bl
     # two (V, V, V) contractions a valid frame forward, twice that
     # backward (the recompute and the beta contraction)
     flops = 2 * 2 * V ** 3 * Rv

@@ -426,16 +426,25 @@ def _den(V, order):
     return crf_dense.DenseDen.from_ngram(train_ngram(seqs, order=order), V)
 
 
-@pytest.mark.parametrize("order", [2, 3])
-@pytest.mark.parametrize("V,T,N", [(9, 1, 1), (9, 23, 3), (9, 24, 2),
-                                   (9, 25, 3), (72, 25, 1), (72, 493, 32)])
-def test_den_kernels(gen, order, V, T, N):
-    den = _den(V, order)
+def _den_inputs(gen, V, T, N):
     lp = torch.log_softmax(_rnd(gen, N, T, V, s=2.0), -1).contiguous()
     lens = torch.tensor([T] + [max(1, T - 7 * i) for i in range(1, N)],
                         device="cuda")
     if N > 2:
         lens[-1] = 1
+    return lp, lens
+
+
+# V = 96 (MAX_V) reads the expW slices from L2, V = 72 and 9 keep them in
+# shared memory; N = 40 puts more utterances in a cluster than 32 does
+# (ragged, lengths down to 1)
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("V,T,N", [(9, 1, 1), (9, 23, 3), (9, 24, 2),
+                                   (9, 25, 3), (72, 25, 1), (72, 493, 32),
+                                   (72, 60, 40), (96, 50, 5)])
+def test_den_kernels(gen, order, V, T, N):
+    den = _den(V, order)
+    lp, lens = _den_inputs(gen, V, T, N)
     before = (crf_dense.den_forward.launches, crf_dense.den_backward.launches)
     (s_in, s_bl), logz = crf_dense.den_forward(lp, lens, den)
     (r_in, r_bl), r_logz = crf_dense.den_forward_reference(lp, lens, den)
@@ -450,6 +459,23 @@ def test_den_kernels(gen, order, V, T, N):
         (got - want).abs().max().item()
     assert (crf_dense.den_forward.launches,
             crf_dense.den_backward.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("V,T,N", [(9, 25, 3), (72, 493, 32), (72, 60, 40),
+                                   (96, 50, 5)])
+def test_den_kernels_are_reproducible(gen, V, T, N):
+    """Two calls of each den kernel on the same inputs give the same bits:
+    every sum runs in a fixed order and nothing goes through atomics."""
+    den = _den(V, 3)
+    lp, lens = _den_inputs(gen, V, T, N)
+    (a_in, a_bl), a_z = crf_dense.den_forward(lp, lens, den)
+    (b_in, b_bl), b_z = crf_dense.den_forward(lp, lens, den)
+    assert torch.equal(a_in, b_in) and torch.equal(a_bl, b_bl)
+    assert torch.equal(a_z, b_z)
+    g = _rnd(gen, N)
+    assert torch.equal(
+        crf_dense.den_backward(lp, lens, (a_in, a_bl), a_z, g, den),
+        crf_dense.den_backward(lp, lens, (a_in, a_bl), a_z, g, den))
 
 
 def test_loss_functions_keep_the_graph_on_the_card(gen):
