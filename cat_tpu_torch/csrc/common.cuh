@@ -30,39 +30,6 @@ __host__ __device__ constexpr int align128(int bytes) {
   return (bytes + 127) / 128 * 128;
 }
 
-// One warp: LayerNorm of one row of D values (f32 statistics, two-pass
-// variance), times gamma plus beta, written as bf16 to `dst`. A row past
-// the end (`valid` false) is normalised from zeros, so it stays finite.
-template <int D>
-__device__ __forceinline__ void layer_norm_row(const bf16* __restrict__ x,
-                                               bool valid,
-                                               const float* __restrict__ gamma,
-                                               const float* __restrict__ beta,
-                                               float eps, bf16* dst,
-                                               int lane) {
-  constexpr int PER = D / 32;
-  float v[PER];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    v[i] = valid ? __bfloat162float(x[lane + 32 * i]) : 0.f;
-    s += v[i];
-  }
-  const float mean = warp_sum(s) / D;
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const float d = v[i] - mean;
-    ss += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = lane + 32 * i;
-    dst[c] = __float2bfloat16((v[i] - mean) * rstd * gamma[c] + beta[c]);
-  }
-}
-
 // acc += A(16 x K, shared, row-major, lda) . B(K x 16, global, row-major, ldb)
 template <int K>
 __device__ __forceinline__ void mma_rows16(FragC& acc,
@@ -96,42 +63,6 @@ __device__ __forceinline__ void mma_rows16_bt(FragC& acc,
     wmma::load_matrix_sync(fb, bt + k, ldbt);
     wmma::mma_sync(acc, fa, fb, acc);
   }
-}
-
-// One warp: LayerNorm statistics of one row of D values (f32, two-pass);
-// writes LN(x) * gamma + beta as bf16 to `dst` (and to `gdst` when not
-// null) and returns mean and rstd. A row past the end is normalised from
-// zeros.
-template <int D>
-__device__ __forceinline__ void layer_norm_row_stats(
-    const bf16* __restrict__ x, bool valid, const float* __restrict__ gamma,
-    const float* __restrict__ beta, float eps, bf16* dst, bf16* gdst,
-    int lane, float& mean_out, float& rstd_out) {
-  constexpr int PER = D / 32;
-  float v[PER];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    v[i] = valid ? __bfloat162float(x[lane + 32 * i]) : 0.f;
-    s += v[i];
-  }
-  const float mean = warp_sum(s) / D;
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const float d = v[i] - mean;
-    ss += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(ss) / D + eps);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = lane + 32 * i;
-    const bf16 h = __float2bfloat16((v[i] - mean) * rstd * gamma[c] + beta[c]);
-    dst[c] = h;
-    if (gdst != nullptr) gdst[c] = h;
-  }
-  mean_out = mean;
-  rstd_out = rstd;
 }
 
 // ---- weight gradients: C (M x N, f32) += A^T . B, summed over R rows ----

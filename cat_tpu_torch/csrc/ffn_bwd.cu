@@ -65,9 +65,9 @@ constexpr int ROWS = 64;       // rows of a prep or ln block, 8 rows a warp
 constexpr int RW = 256;        // threads of a prep or ln block
 constexpr int MAX_SPLITS = 8;  // splits of R in the wgrad stage
 constexpr int UP_STAGES = 4, DOWN_STAGES = 4, WGRAD_STAGES = 4;
-constexpr int SMS = 132;
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+using hg::cdiv;
+using hg::SMS;
 
 // Sums red[0..7][c] in order into out[c], c < D (the block's threads).
 template <int D>
@@ -460,12 +460,6 @@ struct Args {
   float alpha;
   Drop dr;
 };
-
-#define CATK_TRY(expr)                        \
-  do {                                        \
-    const cudaError_t e_ = (expr);            \
-    if (e_ != cudaSuccess) return e_;         \
-  } while (0)
 
 template <int D>
 cudaError_t launch(const Args& a, cudaStream_t s) {

@@ -32,8 +32,9 @@
 //      (its rows are the K index); epilogue: bias, drop1, alpha, the
 //      residual x, the bf16 store of out. Cooperative tiles of 128 x 128,
 //      or ping-pong tiles of 64 x 128 where the 128-row tiles would leave
-//      the busiest SM with more 64-row steps (`down_pp`: short R, as the
-//      serving batch's 4,792 rows give 152 tiles of 128 rows on 132 SMs).
+//      the busiest SM with more 64-row steps (`hg::pingpong`: short R, as
+//      the serving batch's 4,792 rows give 152 tiles of 128 rows on 132
+//      SMs).
 // Ping-pong up tiles, where one warpgroup's epilogue overlaps the other's
 // products, measured no faster (tools/torch_ffn_ablate.py). The (R, F)
 // hidden goes through device memory (65 MB each way at the training
@@ -50,9 +51,8 @@ using namespace catk;
 
 constexpr int LN_WARPS = 8;  // rows of an ln block, one a warp
 constexpr int UP_STAGES = 5, DOWN_STAGES = 5;
-constexpr int SMS = 132;
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+using hg::cdiv;
 
 // ---- 1. ln: h = LN(x) in bf16. Lane l of a warp holds columns
 // 4(l + 32j) .. + 3.
@@ -238,19 +238,6 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
       });
 }
 
-// The down stage's schedule: ping-pong 64-row tiles where the SM with the
-// most tiles would take fewer 64-row steps than with 128-row tiles.
-bool down_pp(int R, int D) {
-  const int nd = D / hg::BN;
-  return cdiv(cdiv(R, 64) * nd, SMS) < 2 * cdiv(cdiv(R, 128) * nd, SMS);
-}
-
-#define CATK_TRY(expr)                        \
-  do {                                        \
-    const cudaError_t e_ = (expr);            \
-    if (e_ != cudaSuccess) return e_;         \
-  } while (0)
-
 template <bool PP>
 cudaError_t launch_down(const bf16* a1, const bf16* w2, const bf16* x,
                         const float* b2, bf16* out, int R, int D, int F,
@@ -290,7 +277,7 @@ cudaError_t launch(const bf16* x, const float* gamma, const float* beta,
                                                             h, R);
   CATK_TRY(cudaGetLastError());
   CATK_TRY(launch_up<false>(h, w1, b1, a1, R, D, F, dr, s));
-  return down_pp(R, D)
+  return hg::pingpong(R, D / hg::BN)
              ? launch_down<true>(a1, w2, x, b2, out, R, D, F, alpha, dr, s)
              : launch_down<false>(a1, w2, x, b2, out, R, D, F, alpha, dr, s);
 }

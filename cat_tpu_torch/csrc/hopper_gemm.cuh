@@ -49,9 +49,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Returns from the enclosing host function with the CUDA error of `expr`
+// unless it is cudaSuccess.
+#define CATK_TRY(expr)                        \
+  do {                                        \
+    const cudaError_t e_ = (expr);            \
+    if (e_ != cudaSuccess) return e_;         \
+  } while (0)
+
 namespace hg {
 
 constexpr int BN = 128, BK = 64;
+constexpr int SMS = 132;  // streaming multiprocessors of an H100 SXM
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 constexpr int TILE_BYTES = BN * BK * 2;  // a B tile: 128 x 64 bf16
 constexpr int THREADS = 384;  // two consumer warpgroups, one producer
 constexpr int EPI_BYTES = 8 * BN * 4;  // epilogue scratch: 8 warps x BN f32
@@ -339,6 +350,13 @@ __device__ __forceinline__ void run(int ntiles, const TileF& tile,
     epi(tl, acc, ctx);
     ++j;
   }
+}
+
+// The schedule of a product of R rows and n column tiles: ping-pong
+// tiles of 64 rows where the SM with the most tiles would take fewer
+// 64-row steps than with cooperative tiles of 128 rows (short R).
+static inline bool pingpong(int R, int n) {
+  return cdiv(cdiv(R, 64) * n, SMS) < 2 * cdiv(cdiv(R, 128) * n, SMS);
 }
 
 // Blocks of a persistent launch over `ntiles` tiles: one per SM at most.

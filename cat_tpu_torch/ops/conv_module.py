@@ -15,23 +15,33 @@ Replaces the TPU kernels `_glu_in_fwd_kernel`, `_glu_in_bwd_kernel`,
 `cat_tpu/ops/conv_module_pallas.py` (under the custom VJPs `_glu_in_core`
 and `_bn_out_core`). `fused_glu_in` and `fused_bn_out` are
 `torch.autograd.Function`s; their forwards call `glu_in_forward` and
-`bn_out_forward` (CUDA kernels in `cat_tpu_torch/csrc/conv_module_fwd.cu`)
-and their backwards `glu_in_backward` and `bn_out_backward`
-(`conv_module_bwd.cu`). On a CPU tensor each takes its plain version
+`bn_out_forward` and their backwards `glu_in_backward` and
+`bn_out_backward`: CUDA kernels in `cat_tpu_torch/csrc/glu_in.cu` (both
+glu_in directions) and `conv_module_fwd.cu` / `conv_module_bwd.cu`
+(bn_out). On a CPU tensor each takes its plain version
 (`glu_in_reference`, `glu_in_backward_reference`, `bn_out_reference`,
 `bn_out_backward_reference`); each counts its kernel launches. The
 bn_out backward also returns d(mean) and d(var), so that autograd
 completes the batch statistics -> conv output chain outside the kernel,
 as the TPU kernel does; dx of bn_out is dO itself (the residual).
 
-What bounds the forwards on the H100, at the serving batch's R = 8 x 599
-rows and D = 512: glu_in does 4·R·D² = 5.0 GFLOP (5.1 us at 989 TFLOP/s)
-against 10.9 MB (3.3 us at 3.35 TB/s); bn_out does 2·R·D² = 2.5 GFLOP
-(2.5 us) against 15.2 MB (4.5 us). The designs read each input once and
-write the output once: the normalised rows of a 32-row block stay in
-shared memory as bf16 while the output is produced 64 columns at a time.
-The backwards (see conv_module_bwd.cu) recompute the forward from the
-inputs and write bf16 scratch only for the weight gradients.
+What bounds them on the H100, at the training batch's R = 15,776 rows
+(12,664 valid) and D = 512: the glu_in forward does 4·R·D² operations
+(0.0134 ms over the valid rows at 989 TFLOP/s), its backward 12·R·D²
+(0.040 ms). Both run as stages inside one C call, the products on the
+Hopper GEMM mainloop of `csrc/hopper_gemm.cuh` (TMA and wgmma) with the
+GLU and its backward fused into the epilogues, and sum in a fixed order
+without atomics, so two calls on the same inputs give the same bits and
+every gradient output is written whole (see glu_in.cu): the forward is a
+LayerNorm row pass to bf16 scratch h, then the product h . W with bias,
+GLU and mask in its epilogue; the backward recomputes h and the product,
+whose epilogue writes dh2 = [du | dg] as bf16 scratch, then dh = dh2 .
+W^T, the LayerNorm backward, dW = h^T . dh2 split over rows into an f32
+workspace (`glu_in_bwd_workspace`), and a pass that sums every partial.
+bn_out does 2·R·D² operations forward and 4·R·D² backward; its kernels
+keep the activated rows of a 32-row block in shared memory as bf16 while
+the output is produced 64 columns at a time (legacy wmma), and add the
+backward's sums with f32 atomics.
 """
 from __future__ import annotations
 
@@ -44,8 +54,12 @@ from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 LN_EPS = 1e-6
 BN_EPS = 1e-5
 _DIMS = (128, 256, 384, 512)
-_FWD = {"glu_in_fwd": (7, 2, 0), "bn_out_fwd": (10, 5, 1)}
-_BWD = {"glu_in_bwd": (14, 2, 0), "bn_out_bwd": (17, 5, 1)}
+# the C entries of csrc/glu_in.cu, conv_module_fwd.cu and conv_module_bwd.cu:
+# (pointers, ints, floats)
+_GLU = {"glu_in_fwd": (8, 2, 0), "glu_in_bwd": (15, 3, 0),
+        "glu_in_bwd_workspace": (0, 2, 0)}
+_FWD = {"bn_out_fwd": (10, 5, 1)}
+_BWD = {"bn_out_bwd": (17, 5, 1)}
 
 
 def glu_in_reference(x, mask, gamma, beta, w, b):
@@ -177,9 +191,9 @@ def glu_in_forward(x, mask, gamma, beta, w, b):
     if x.device.type == "cpu":
         return glu_in_reference(x, mask, gamma, beta, w, b)
     args, R, D = _glu_operands(x, mask, gamma, beta, w, b)
-    out = torch.empty_like(args[0])
-    err = _build.load("conv_module_fwd", _FWD).glu_in_fwd(
-        *(t.data_ptr() for t in args), out.data_ptr(), R, D,
+    out, h = torch.empty_like(args[0]), torch.empty_like(args[0])
+    err = _build.load("glu_in", _GLU).glu_in_fwd(
+        *(t.data_ptr() for t in (*args, out, h)), R, D,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "glu_in_fwd")
     glu_in_forward.launches += 1
@@ -188,20 +202,25 @@ def glu_in_forward(x, mask, gamma, beta, w, b):
 
 def glu_in_backward(x, mask, gamma, beta, w, b, dout):
     """(dx, dgamma, dbeta, dw, db) of `fused_glu_in`. A CPU tensor takes
-    `glu_in_backward_reference`; a CUDA tensor launches
-    `conv_module_bwd.cu` (the shapes of `glu_in_forward`) or raises."""
+    `glu_in_backward_reference`; a CUDA tensor launches `glu_in.cu` (the
+    shapes of `glu_in_forward`) or raises. Every output is written whole
+    by the kernels."""
     if x.device.type == "cpu":
         return glu_in_backward_reference(x, mask, gamma, beta, w, b, dout)
     args, R, D = _glu_operands(x, mask, gamma, beta, w, b)
     do = dout.reshape(R, D).to(torch.bfloat16).contiguous()
-    new = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=x.device)
-    zeros = lambda *s: torch.zeros(*s, dtype=torch.float32, device=x.device)
+    _check_operands("fused_glu_in", x, [do])
+    bf, f32 = torch.bfloat16, torch.float32
+    new = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device=x.device)
+    lib = _build.load("glu_in", _GLU)
+    units = lib.glu_in_bwd_workspace(R, D, None)
     dx, h, dh2 = new(R, D), new(R, D), new(R, 2 * D)
-    dg, dbe, dw, db = zeros(D), zeros(D), zeros(D, 2 * D), zeros(2 * D)
-    err = _build.load("conv_module_bwd", _BWD).glu_in_bwd(
-        *(t.data_ptr() for t in args), do.data_ptr(),
-        *(t.data_ptr() for t in (dx, h, dh2, dg, dbe, dw, db)), R, D,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    dg, dbe, dw, db = (new(D, dt=f32), new(D, dt=f32), new(D, 2 * D, dt=f32),
+                       new(2 * D, dt=f32))
+    ws = new(units * 64, dt=f32)
+    err = lib.glu_in_bwd(
+        *(t.data_ptr() for t in (*args, do, dx, h, dh2, dg, dbe, dw, db, ws)),
+        R, D, units, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "glu_in_bwd")
     glu_in_backward.launches += 1
     return dx.view(x.shape), dg, dbe, dw, db

@@ -14,10 +14,10 @@ Phases, any failure exits non-zero:
    utterance identical (as SpecAugment's time masks leave them after
    subsampling), constant or zero; the JSON records time the training
    batch at rate 0.1; no single PyTorch call computes any of these
-   functions, so `library_ms` is null; the FF forward's and backward's
-   launches inside one call (torch.profiler; the forward at both
-   batches, beside its two products alone by `torch.matmul`) and two
-   calls of each bit for bit; then the loss path's kernels at
+   functions, so `library_ms` is null; the FF and glu_in forwards' and
+   backwards' launches inside one call (torch.profiler; the forwards at
+   both batches, the FF forward beside its two products alone by
+   `torch.matmul`) and two calls of each bit for bit; then the loss path's kernels at
    the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
    3-gram denominator of `make_den`): the standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
@@ -329,14 +329,17 @@ def phase_kernels(gen):
            _rnd(gen, F, D, s=F ** -0.5, dtype=bf), _rnd(gen, D, s=0.1))
     errs = {"ffn_fwd": compare("ffn_fwd", ffn.ff_forward(x, *ffp),
                                ffn.ff_reference(x, *ffp))}
-    ffn_split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp),
-                        f"serving batch, R={N * T}, rate 0")
+    split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp),
+                    f"serving batch, R={N * T}, rate 0")
     ffn_fwd_products(x, ffp, "serving batch")
     glp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
            _rnd(gen, D, 2 * D, s=D ** -0.5, dtype=bf), _rnd(gen, 2 * D, s=0.1))
     errs["glu_in_fwd"] = compare(
         "glu_in_fwd", conv_module.glu_in_forward(x, mask, *glp),
         conv_module.glu_in_reference(x, mask, *glp))
+    split_and_repro("glu_in_fwd",
+                    lambda: conv_module.glu_in_forward(x, mask, *glp),
+                    f"serving batch, R={N * T}")
     c = _rnd(gen, N, T, D, dtype=bf)
     bnp = (_rnd(gen, D, s=0.1), 1 + _rnd(gen, D, s=0.2).abs(),
            1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
@@ -381,14 +384,16 @@ def special_rows(t):
     return t
 
 
-# the launches inside one call of each FF kernel (csrc/ffn_fwd.cu,
-# ffn_bwd.cu)
-FFN_STAGES = {"ffn_fwd": ("ln", "up", "down"),
-              "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce")}
+# the launches inside one call of each staged kernel (csrc/ffn_fwd.cu,
+# ffn_bwd.cu, glu_in.cu)
+STAGES = {"ffn_fwd": ("ln", "up", "down"),
+          "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce"),
+          "glu_in_fwd": ("ln", "up"),
+          "glu_in_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce")}
 
 
-def ffn_split_and_repro(name, call, what, calls=5):
-    """The launches inside one call of an FF kernel (`FFN_STAGES`), device
+def split_and_repro(name, call, what, calls=5):
+    """The launches inside one call of a staged kernel (`STAGES`), device
     ms by kernel name from torch.profiler over `calls` calls; and two
     calls on the same inputs, which must give the same bits (no
     atomics)."""
@@ -402,7 +407,7 @@ def ffn_split_and_repro(name, call, what, calls=5):
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
-    split, other = dict.fromkeys(FFN_STAGES[name], 0.0), 0.0
+    split, other = dict.fromkeys(STAGES[name], 0.0), 0.0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -557,7 +562,7 @@ def phase_backward_kernels(gen, rec):
                 timed(lambda: ffn.ff_reference(x, *ffp, **kw), 3, 1),
                 4 * Rv * D * F, 2 * Rv * D * 2 + 2 * D * F * 2 + (3 * D + F) * 4,
                 what + f" F={F} rate 0.1")
-        rec.add("glu_in_fwd", "cat_tpu_torch/csrc/conv_module_fwd.cu",
+        rec.add("glu_in_fwd", "cat_tpu_torch/csrc/glu_in.cu",
                 "cat_tpu/ops/conv_module_pallas.py:53",
                 compare("glu_in_fwd", conv_module.glu_in_forward(x, mask, *glp),
                         conv_module.glu_in_reference(x, mask, *glp)),
@@ -596,13 +601,13 @@ def phase_backward_kernels(gen, rec):
                 10 * Rv * D * F,
                 3 * Rv * D * 2 + 2 * D * F * 2 + 2 * D * F * 4
                 + (4 * D + F) * 4 * 2, what + f" F={F}")
-        ffn_split_and_repro("ffn_bwd",
-                            lambda: ffn.ff_backward(x, *ffp, do, **kw),
-                            f"training batch, rate {rate}")
-        ffn_split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp, **kw),
-                            f"training batch, rate {rate}")
+        split_and_repro("ffn_bwd",
+                        lambda: ffn.ff_backward(x, *ffp, do, **kw),
+                        f"training batch, rate {rate}")
+        split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp, **kw),
+                        f"training batch, rate {rate}")
         ffn_fwd_products(x, ffp, "training batch")
-        rec.add("glu_in_bwd", "cat_tpu_torch/csrc/conv_module_bwd.cu",
+        rec.add("glu_in_bwd", "cat_tpu_torch/csrc/glu_in.cu",
                 "cat_tpu/ops/conv_module_pallas.py:71", e_glu,
                 timed(lambda: conv_module.glu_in_backward(x, mask, *glp, do),
                       10, 2),
@@ -611,6 +616,12 @@ def phase_backward_kernels(gen, rec):
                 12 * Rv * D * D,
                 3 * Rv * D * 2 + Rv * 4 + 2 * D * D * (2 + 4) + 8 * D * 4,
                 what)
+        split_and_repro("glu_in_bwd",
+                        lambda: conv_module.glu_in_backward(x, mask, *glp, do),
+                        "training batch")
+        split_and_repro("glu_in_fwd",
+                        lambda: conv_module.glu_in_forward(x, mask, *glp),
+                        "training batch")
         rec.add("bn_out_bwd", "cat_tpu_torch/csrc/conv_module_bwd.cu",
                 "cat_tpu/ops/conv_module_pallas.py:261", e_bn,
                 timed(lambda: conv_module.bn_out_backward(c, x, mask, *bnp, do,

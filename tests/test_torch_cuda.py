@@ -199,6 +199,71 @@ def test_conv_module_backward_kernels(gen, D, N, T, rate):
         _rel(a, b_, "bn_out " + name)
 
 
+def _glu_inputs(gen, D, R, mask="ragged"):
+    """x, dO (1, R, D) bf16 with identical, constant and zero rows where R
+    allows; mask (1, R): about 1 in 5 rows off at random, all off, or all
+    on; the glu_in parameters (gamma, beta, W (D, 2D), b)."""
+    bf = torch.bfloat16
+    x = _special_rows(_rnd(gen, 1, R, D, dtype=bf))
+    do = _special_rows(_rnd(gen, 1, R, D, dtype=bf))
+    m = torch.rand(1, R, generator=gen, device="cuda") > 0.2
+    m = {"ragged": m, "zero": torch.zeros_like(m), "one": torch.ones_like(m)}
+    g = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+         _rnd(gen, D, 2 * D, s=D ** -0.5), _rnd(gen, 2 * D, s=0.1))
+    return x, do, m[mask], g
+
+
+# every width; row counts R of 0, below 64, around the backward's 64-row
+# up tiles and LayerNorm blocks and the 128-row tiles of the forward's up
+# (ping-pong below about 1,000 rows at D = 512) and of the down and wgrad
+# stages, and 4,097 (wgrad split over R into the workspace); masks ragged,
+# all off and all on
+GLU_SHAPES = [(D, R) for D in (128, 256, 384, 512)
+              for R in (0, 1, 37, 63, 64, 65, 127, 128, 129, 4097)]
+
+
+@pytest.mark.parametrize("mask", ["ragged", "zero", "one"])
+@pytest.mark.parametrize("D,R", GLU_SHAPES)
+def test_glu_in_kernels(gen, D, R, mask):
+    x, do, m, g = _glu_inputs(gen, D, R, mask)
+    before = (conv_module.glu_in_forward.launches,
+              conv_module.glu_in_backward.launches)
+    _close(conv_module.glu_in_forward(x, m, *g),
+           conv_module.glu_in_reference(x, m, *g))
+    got = conv_module.glu_in_backward(x, m, *g, do)
+    assert (conv_module.glu_in_forward.launches,
+            conv_module.glu_in_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = conv_module.glu_in_backward_reference(x, m, *g, do)
+    # a layer norm's backward multiplies the rows of zero variance by
+    # 1/sqrt(eps) = 1000: their dx is held to the relative norm tolerance
+    flat = x.float().var(-1, unbiased=False) == 0
+    _close(got[0], want[0], ~flat)
+    if flat.any():
+        _rel(got[0][flat], want[0][flat], "glu_in dx, zero-variance rows")
+    for name, a, b in zip("gamma beta w b".split(), got[1:], want[1:]):
+        assert a.shape == b.shape, name
+        _rel(a, b, "glu_in " + name)
+    if mask == "zero" or R == 0:  # no row passes a gradient
+        for name, a in zip("x gamma beta w b".split(), got):
+            assert not a.any(), name
+
+
+# the forward's up stage on 128-row tiles (R = 15,776, D = 512) and on
+# 64-row ping-pong ones (R = 4,792); the backward's weight gradient split
+# over R (summed by the reduce pass) at both, unsplit at R = 37
+@pytest.mark.parametrize("D,R", [(512, 15776), (512, 4792), (128, 4097),
+                                 (384, 37)])
+def test_glu_in_kernels_are_reproducible(gen, D, R):
+    x, do, m, g = _glu_inputs(gen, D, R)
+    assert torch.equal(conv_module.glu_in_forward(x, m, *g),
+                       conv_module.glu_in_forward(x, m, *g))
+    first = conv_module.glu_in_backward(x, m, *g, do)
+    second = conv_module.glu_in_backward(x, m, *g, do)
+    for name, a, b in zip("x gamma beta w b".split(), first, second):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("N,T,H,Dh", [(1, 1, 1, 64), (2, 7, 2, 16),
                                       (3, 65, 2, 32), (2, 130, 4, 64),
                                       (2, 700, 2, 128)])

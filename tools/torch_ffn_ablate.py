@@ -44,7 +44,7 @@ SIGMOID = "const float sg = __fdividef(1.f, 1.f + __expf(-v));"
 FWD_STORE = "          if (row < R && c < F)"
 NO_STORE = "          if (row < 0)"
 STORE = "            if (row < R && cv) {"
-SCHEDULE = "return down_pp(R, D)"
+SCHEDULE = "return hg::pingpong(R, D / hg::BN)"
 UP = "launch_up<false>("
 # (source, entry, (pointers, ints, floats), variants, (rows, rate) cases)
 KERNELS = {
