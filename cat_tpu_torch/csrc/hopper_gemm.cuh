@@ -3,7 +3,10 @@
 // warpgroups issuing wgmma.mma_async (bf16 x bf16 -> f32), and an epilogue
 // that each caller supplies. First used by ffn_bwd.cu, whose products
 // replace the tensor-core work of the TPU kernel `_ff_bwd_kernel`
-// (cat_tpu/ops/ffn_pallas.py:104).
+// (cat_tpu/ops/ffn_pallas.py:104). Its barriers, TMA loads, wgmma
+// wrappers (m64n128 and m64n64, A from shared memory or registers) and
+// host side also serve relpos_attention_fwd.cu's flash kernel, which runs
+// a loop of its own.
 //
 // What bounds a product on the H100: 2·M·N·K operations at 989 TFLOP/s
 // bf16 against each operand read once at 3.35 TB/s; the FF backward's
@@ -48,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 // Returns from the enclosing host function with the CUDA error of `expr`
 // unless it is cudaSuccess.
@@ -169,9 +174,10 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128 f32 fragment) += A (64 x 16) . B (16 x 128), both from
@@ -202,6 +208,61 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64 f32 fragment) += A (64 x 16) . B (16 x 64), both from shared
+// memory; TA, TB = 1 for MN-major operands; scale_d = 0 overwrites.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64 f32 fragment) += A (64 x 16, registers) . B (16 x 64, shared
+// memory); TB = 1 for an MN-major B; scale_d = 0 overwrites. A register i
+// of a thread holds the bf16 pair of row frag_row(2i), columns
+// frag_col(2i), + 1 of the 16: the layout of the accumulator registers
+// 8j + 2i, + 1 of a product whose 16-column slice j becomes the A operand
+// (`pack_bf16`).
+template <int TB>
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// Two f32 values as the bf16 pair of a 32-bit A register (lo: the lower
+// column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Accumulator register r of a consumer thread holds row frag_row(r) of its
@@ -411,20 +472,51 @@ static inline cudaError_t tensor_map(CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Sets the kernel's dynamic shared memory; with REGS, refuses a kernel
+// Sets the kernel's dynamic shared memory; with `regs`, refuses a kernel
 // that ptxas did not give the 168 registers a thread that setmaxnreg's
-// 40 / 232 split needs (setmaxnreg.inc would wait for ever).
+// 40 / 232 split needs (setmaxnreg.inc would wait for ever). Each is done
+// once per device and kernel (by its address: several kernels share one
+// function type), and again only for a larger shared-memory size: the
+// host cost of a call is then the launch and its tensor maps.
+static inline cudaError_t prepare_fn(const void* kernel, int smem,
+                                     bool regs) {
+  struct Done {
+    int dev;
+    const void* kernel;
+    int smem;
+    bool regs;
+  };
+  static std::mutex mu;
+  static Done done[32];
+  static int ndone = 0;
+  int dev = 0;
+  CATK_TRY(cudaGetDevice(&dev));
+  std::lock_guard<std::mutex> lock(mu);
+  Done* d = nullptr;
+  for (int i = 0; i < ndone; ++i)
+    if (done[i].dev == dev && done[i].kernel == kernel) d = &done[i];
+  if (d != nullptr && d->smem >= smem && (d->regs || !regs))
+    return cudaSuccess;
+  if (d != nullptr) {
+    smem = smem > d->smem ? smem : d->smem;
+    regs = regs || d->regs;
+  }
+  CATK_TRY(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (regs) {
+    cudaFuncAttributes attr;
+    CATK_TRY(cudaFuncGetAttributes(&attr, kernel));
+    if (attr.numRegs * THREADS < 128 * 40 + 256 * 232)
+      return cudaErrorInvalidConfiguration;
+  }
+  if (d == nullptr && ndone < 32) d = &done[ndone++];
+  if (d != nullptr) *d = Done{dev, kernel, smem, regs};
+  return cudaSuccess;
+}
+
 template <class K>
 static inline cudaError_t prepare(K kernel, int smem, bool regs) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess || !regs) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  return attr.numRegs * THREADS >= 128 * 40 + 256 * 232
-             ? cudaSuccess
-             : cudaErrorInvalidConfiguration;
+  return prepare_fn(reinterpret_cast<const void*>(kernel), smem, regs);
 }
 
 }  // namespace hg

@@ -24,22 +24,26 @@ and so is the gradient of W_pos (a plain product of dp with the table),
 as the TPU's tiled path also does.
 
 What bounds the forward on the H100: per utterance of length L and head
-the work is three L x L x Dh products, 6·L²·Dh FLOP. At the serving batch
-(8 utterances of 97..599 frames, H = 8, Dh = 64) that is about 2.3 GFLOP,
-2.3 us at the 989 TFLOP/s bf16 peak, against about 9 MB of q, k, v, p and
-output, 2.7 us at 3.35 TB/s. The design keeps every score in shared
-memory: one block per (64-query tile, head, utterance) walks the key
-tiles up to the utterance's length with an online softmax, so padded key
-tiles and padded query tiles cost nothing. The position scores for a
-tile pair come from the 127 rows of p that its relative positions cover;
-the diagonal band is then read by index, which leaves behind the TPU's
-lane shears and trig-table decomposition. The backward (see
+the work is three L x L x Dh products, 6·L²·Dh FLOP. At the training
+batch (32 utterances of 299..493 frames, H = 8, Dh = 64) that is 15.7
+GFLOP, 15.9 us at the 989 TFLOP/s bf16 peak, against 53 MB of q, k, v, p
+and output, 15.9 us at 3.35 TB/s. Every score stays on chip: a block per
+query tile, head and utterance walks the key tiles up to the utterance's
+length with an online softmax, so padded key tiles and padded query
+tiles cost nothing. The position scores for a tile pair come from the
+rows of p that its relative positions cover; the diagonal band is then
+read by index, which leaves behind the TPU's lane shears and trig-table
+decomposition. Two routes by head dimension (`fwd_route`): Dh = 64, the
+width of every recipe, takes a TMA + wgmma flash kernel (128 queries a
+block, window coordinates as `fwd_plan` gives them); 16, 32 and 128 a
+wmma kernel (64 queries a block). The backward (see
 relpos_attention_bwd.cu) walks query tiles per key tile and adds dq and
 dp with atomics.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +54,37 @@ NEG = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 _FWD = {"relpos_attention_fwd": (9, 7, 2)}
 _BWD = {"relpos_attention_bwd": (16, 7, 2)}
+# the Dh = 64 forward kernel's tiles: queries a block, keys a stage
+FWD_BQ, FWD_BK = 128, 64
+
+
+class FwdPlan(NamedTuple):
+    """Where the Dh = 64 forward kernel reads for one (query tile, key
+    tile, consumer), in rows of the utterance (q, k, v) or of the (2T-1)
+    table (p); TMA fills rows outside the tensor with zeros."""
+    q_row: int          # first of the consumer's 64 query rows
+    kv_row: int         # first of the 64 key rows (K and V boxes)
+    p_rows: tuple       # first rows of the stage's three 64-row p boxes
+    win: int            # first stage window row of the consumer's 128
+    band: torch.Tensor  # (64, 64) window column of (query r, key c)
+
+
+def fwd_route(Dh: int) -> str:
+    """The forward kernel a head dimension takes: "wgmma" (Dh = 64) or
+    "wmma" (16, 32, 128)."""
+    return "wgmma" if Dh == 64 else "wmma"
+
+
+def fwd_plan(T: int, t0: int, s0: int, w: int) -> FwdPlan:
+    """Coordinates of `relpos_attention_fwd_wgmma` for the query tile at
+    t0 (a multiple of FWD_BQ), the key tile at s0 (a multiple of FWD_BK)
+    and consumer w (query rows t0 + 64w ..). Query t = q_row + r and key
+    s = kv_row + c read table row T-1-t+s, which is row win + band[r, c]
+    of the 192 rows p_rows[0] .. p_rows[0] + 191 that the stage holds."""
+    w0 = T - FWD_BQ - t0 + s0
+    r = torch.arange(64)
+    return FwdPlan(t0 + 64 * w, s0, (w0, w0 + 64, w0 + 128), 64 * (1 - w),
+                   r[None, :] - r[:, None] + 63)
 
 
 def rel_shift(bd):
@@ -174,9 +209,9 @@ def _operands(q, k, v, p, u_bias, v_bias, lengths):
 def relpos_attention_forward(q, k, v, p, u_bias, v_bias, lengths, scale=None,
                              rate=0.0, seed=None):
     """(out, lse) of `relpos_attention`. A CPU tensor takes
-    `relpos_attention_reference_lse`. A CUDA tensor launches the kernel,
-    which takes bf16 with Dh in (16, 32, 64, 128); anything else
-    raises."""
+    `relpos_attention_reference_lse`. A CUDA tensor launches the kernel
+    of its route (`fwd_route`), which takes bf16 with Dh in (16, 32, 64,
+    128); anything else raises."""
     if q.device.type == "cpu":
         return relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias,
                                               lengths, scale, rate, seed)
@@ -193,6 +228,7 @@ def relpos_attention_forward(q, k, v, p, u_bias, v_bias, lengths, scale=None,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "relpos_attention_fwd")
     relpos_attention_forward.launches += 1
+    relpos_attention_forward.routes[fwd_route(Dh)] += 1
     return out, lse
 
 
@@ -229,6 +265,8 @@ def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
 
 
 relpos_attention_forward.launches = 0
+# launches by route (`fwd_route`); `launches` counts both
+relpos_attention_forward.routes = {"wgmma": 0, "wmma": 0}
 relpos_attention_backward.launches = 0
 
 

@@ -10,14 +10,16 @@ Phases, any failure exits non-zero:
    card. Forward kernels at the serving batch's shapes (attention also at
    a batch of at most 512 frames after subsampling); every kernel at the
    training batch's shapes, at dropout rates 0 and 0.1 (the plain
-   versions draw the same Philox masks), with some rows of every
+   versions draw the same Philox masks; attention's out and lse at
+   both batches, through its Dh = 64 wgmma route), with some rows of every
    utterance identical (as SpecAugment's time masks leave them after
    subsampling), constant or zero; the JSON records time the training
    batch at rate 0.1; no single PyTorch call computes any of these
    functions, so `library_ms` is null; the FF and glu_in forwards' and
    backwards' launches inside one call (torch.profiler; the forwards at
    both batches, the FF forward beside its two products alone by
-   `torch.matmul`) and two calls of each bit for bit; then the loss path's kernels at
+   `torch.matmul`) and two calls of each, and of the attention forward
+   (both batches), bit for bit; then the loss path's kernels at
    the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
    3-gram denominator of `make_den`): the standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
@@ -349,7 +351,8 @@ def phase_kernels(gen):
         conv_module.bn_out_reference(c, x, mask, *bnp))
 
     # rel-pos attention: the serving batch (T' > 512) and, without its
-    # longest utterance, a batch of at most 512 frames
+    # longest utterance, a batch of at most 512 frames; out and lse at
+    # rates 0 and 0.1, on the Dh = 64 route
     for lens in (tl, tl[1:]):
         n, t = len(lens), max(lens)
         lt = torch.tensor(lens, device=dev)
@@ -358,15 +361,30 @@ def phase_kernels(gen):
         ub, vb = _rnd(gen, H, Dh, s=0.1, dtype=bf), _rnd(gen, H, Dh, s=0.1,
                                                           dtype=bf)
         args = (q, k, v, p, ub, vb, lt)
-        out, _ = attention.relpos_attention_forward(*args)
         valid = length_mask(lt, t)
-        errs[f"relpos_attention_fwd T'={t}"] = compare(
-            f"relpos_attention_fwd T'={t}", out,
-            attention.relpos_attention_reference(*args), valid)
-        if not (out.float()[~valid] == 0).all():
-            fail("relpos_attention_fwd: padded query rows are not zero")
+        for rate in (0.0, 0.1):
+            kw = dict(rate=rate, seed=SEED)
+            before = attention.relpos_attention_forward.routes["wgmma"]
+            out, lse = attention.relpos_attention_forward(*args, **kw)
+            if attention.relpos_attention_forward.routes["wgmma"] != \
+                    before + 1:
+                fail("relpos_attention_fwd: Dh = 64 did not take the "
+                     "wgmma route")
+            ref_out, ref_lse = attention.relpos_attention_reference_lse(
+                *args, **kw)
+            tag = f"relpos_attention_fwd T'={t} rate {rate}"
+            errs[tag] = compare(tag, out, ref_out, valid)
+            vm = valid[:, None, :].expand_as(lse)
+            errs[f"{tag} lse"] = compare(f"{tag} lse", lse[vm], ref_lse[vm])
+            if not (out.float()[~valid] == 0).all() or lse[~vm].any():
+                fail("relpos_attention_fwd: padded query rows are not zero")
+        split_and_repro("relpos_attention_fwd",
+                        lambda: attention.relpos_attention_forward(
+                            *args, rate=0.1, seed=SEED),
+                        f"N={n} T'={t} H={H} Dh={Dh}, rate 0.1")
     log(f"[kernel] forward kernels at the serving batch's shapes (N={N}, "
-        f"T'={T}, D={D}), rate 0, agree with their plain versions; max abs "
+        f"T'={T}, D={D}), rate 0 (attention also 0.1), agree with their "
+        f"plain versions; max abs "
         f"err " + ", ".join(f"{k} {e:.4g}" for k, e in errs.items()))
 
 
@@ -385,8 +403,9 @@ def special_rows(t):
 
 
 # the launches inside one call of each staged kernel (csrc/ffn_fwd.cu,
-# ffn_bwd.cu, glu_in.cu)
-STAGES = {"ffn_fwd": ("ln", "up", "down"),
+# ffn_bwd.cu, glu_in.cu), and of the attention forward's Dh = 64 route
+STAGES = {"relpos_attention_fwd": ("wgmma",),
+          "ffn_fwd": ("ln", "up", "down"),
           "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce"),
           "glu_in_fwd": ("ln", "up"),
           "glu_in_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce")}
@@ -524,6 +543,9 @@ def phase_backward_kernels(gen, rec):
         compare(f"relpos_attention_fwd lse {tag}", lse[vm], ref_lse[vm])
         log(f"[kernel] forward kernels with dropout at the training batch, "
             f"{tag}: ffn, bn_out, attention (out and lse) agree")
+        split_and_repro("relpos_attention_fwd",
+                        lambda: attention.relpos_attention_forward(*att, **kw),
+                        f"training batch, {tag}")
 
         e_ff = grads(f"ffn_bwd {tag}", ffn.ff_backward(x, *ffp, do, **kw),
                      ffn.ff_backward_reference(x, *ffp, do, **kw), flat)
@@ -592,7 +614,8 @@ def phase_backward_kernels(gen, rec):
                     *att, **kw), 3, 1),
                 6 * sq * Dh * H,
                 (3 * Rv * D + (2 * T - 1) * D + Rv * D) * 2 + Rv * H * 4,
-                f"N={N} T'={T} H={H} Dh={Dh} rate 0.1")
+                f"N={N} T'={T} H={H} Dh={Dh} rate 0.1, "
+                f"{attention.fwd_route(Dh)} route")
         rec.add("ffn_bwd", "cat_tpu_torch/csrc/ffn_bwd.cu",
                 "cat_tpu/ops/ffn_pallas.py:104", e_ff,
                 timed(lambda: ffn.ff_backward(x, *ffp, do, **kw), 10, 2),

@@ -264,9 +264,15 @@ def test_glu_in_kernels_are_reproducible(gen, D, R):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("N,T,H,Dh", [(1, 1, 1, 64), (2, 7, 2, 16),
-                                      (3, 65, 2, 32), (2, 130, 4, 64),
-                                      (2, 700, 2, 128)])
+# Dh = 64 takes the TMA + wgmma kernel (128-query tiles, 64-key stages):
+# T at and around both tile sizes, H = 8 as in every recipe, lengths T and
+# 8, 15 (mid-tile)
+ATT_SHAPES = [(1, 1, 1, 64), (2, 7, 2, 16), (3, 65, 2, 32), (2, 130, 4, 64),
+              (2, 700, 2, 128), (3, 64, 8, 64), (3, 65, 8, 64),
+              (3, 128, 8, 64), (3, 129, 8, 64), (3, 599, 8, 64)]
+
+
+@pytest.mark.parametrize("N,T,H,Dh", ATT_SHAPES)
 def test_attention_kernel(gen, N, T, H, Dh):
     bf = torch.bfloat16
     q, k, v = (_rnd(gen, N, T, H, Dh, dtype=bf) for _ in range(3))
@@ -283,9 +289,7 @@ def test_attention_kernel(gen, N, T, H, Dh):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("N,T,H,Dh", [(1, 1, 1, 64), (2, 7, 2, 16),
-                                      (3, 65, 2, 32), (2, 130, 4, 64),
-                                      (2, 700, 2, 128)])
+@pytest.mark.parametrize("N,T,H,Dh", ATT_SHAPES)
 def test_attention_backward_kernel(gen, N, T, H, Dh, rate):
     bf = torch.bfloat16
     q, k, v = (_rnd(gen, N, T, H, Dh, dtype=bf) for _ in range(3))
@@ -311,6 +315,40 @@ def test_attention_backward_kernel(gen, N, T, H, Dh, rate):
         _close(a, b)
     for name, a, b in zip("dp du dv_bias".split(), got[3:], want[3:]):
         _rel(a, b, name)
+
+
+def _attention_inputs(gen, N, T, H, Dh):
+    bf = torch.bfloat16
+    q, k, v = (_rnd(gen, N, T, H, Dh, dtype=bf) for _ in range(3))
+    p = _rnd(gen, 2 * T - 1, H, Dh, s=0.5, dtype=bf)
+    u, vb = _rnd(gen, H, Dh, s=0.1, dtype=bf), _rnd(gen, H, Dh, s=0.1,
+                                                      dtype=bf)
+    lengths = torch.tensor([T] + [1 + (7 * i) % T for i in range(1, N)],
+                           device="cuda")
+    return q, k, v, p, u, vb, lengths
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", [129, 599])
+def test_attention_forward_is_reproducible(gen, T, rate):
+    """The Dh = 64 forward has no atomics: two calls, the same bits."""
+    args = _attention_inputs(gen, 3, T, 8, 64)
+    kw = dict(rate=rate, seed=SEED)
+    first = attention.relpos_attention_forward(*args, **kw)
+    second = attention.relpos_attention_forward(*args, **kw)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_attention_forward_routes(gen):
+    """Dh = 64 launches the wgmma kernel, Dh = 32 the wmma one; each
+    counts on its own route and on `launches`."""
+    fwd = attention.relpos_attention_forward
+    for Dh, route in ((64, "wgmma"), (32, "wmma")):
+        before, total = dict(fwd.routes), fwd.launches
+        fwd(*_attention_inputs(gen, 2, 65, 2, Dh))
+        assert fwd.launches == total + 1
+        assert fwd.routes == {**before, route: before[route] + 1}
 
 
 def _special_rows(t):

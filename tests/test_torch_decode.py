@@ -128,7 +128,8 @@ for m in ("ops.dropout", "ops.semiring", "ops.ctc", "ops.crf_dense",
           "rnnt.train", "rnnt.decode"):
     assert "cat_tpu_torch." + m in sys.modules, m
 import runpy
-for tool in ("torch_step_diag", "torch_ffn_ab", "torch_ffn_ablate"):
+for tool in ("torch_step_diag", "torch_ffn_ab", "torch_ffn_ablate",
+             "torch_attn_ab"):
     runpy.run_path(f"tools/{tool}.py", run_name="imported")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "cat_tpu"))
