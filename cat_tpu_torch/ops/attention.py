@@ -36,9 +36,15 @@ read by index, which leaves behind the TPU's lane shears and trig-table
 decomposition. Two routes by head dimension (`fwd_route`): Dh = 64, the
 width of every recipe, takes a TMA + wgmma flash kernel (128 queries a
 block, window coordinates as `fwd_plan` gives them); 16, 32 and 128 a
-wmma kernel (64 queries a block). The backward (see
-relpos_attention_bwd.cu) walks query tiles per key tile and adds dq and
-dp with atomics.
+wmma kernel (64 queries a block). The backward has two routes too
+(`bwd_route`). Dh = 64: a TMA + wgmma pass in the forward's orientation
+(query tiles of 128, key tiles of 64, coordinates from `bwd_plan`) that
+writes dq and, as per-slot partials in a workspace, dp, du and dv_bias;
+a reduce kernel that sums the partials in a fixed order (`bwd_slots`);
+and the wmma kernel cut to dK and dV, whose key-major accumulators need
+no atomics: three launches, no atomics, the same bits on every call.
+Dh = 16, 32 and 128: the wmma kernel alone, which adds dq, dp, du and
+dv_bias with f32 atomics into zeroed buffers.
 """
 from __future__ import annotations
 
@@ -53,8 +59,9 @@ from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 NEG = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 _FWD = {"relpos_attention_fwd": (9, 7, 2)}
-_BWD = {"relpos_attention_bwd": (16, 7, 2)}
-# the Dh = 64 forward kernel's tiles: queries a block, keys a stage
+_BWD = {"relpos_attention_bwd": (19, 7, 2)}
+# the Dh = 64 forward kernel's tiles: queries a block, keys a stage; the
+# Dh = 64 backward's dq pass has the same
 FWD_BQ, FWD_BK = 128, 64
 
 
@@ -85,6 +92,68 @@ def fwd_plan(T: int, t0: int, s0: int, w: int) -> FwdPlan:
     r = torch.arange(64)
     return FwdPlan(t0 + 64 * w, s0, (w0, w0 + 64, w0 + 128), 64 * (1 - w),
                    r[None, :] - r[:, None] + 63)
+
+
+class BwdPlan(NamedTuple):
+    """Where the Dh = 64 backward's dq pass reads and writes for one
+    (query tile, key tile, consumer). It reads what the forward reads
+    (`fwd`), scatters dS[r, c] into column scatter[r, c] of the
+    consumer's 64 x 128 window gradient dQP, and after the key tile
+    writes the 64 table rows flush_row .. flush_row + 63 of its dp window
+    (final: the next key tile's window starts 64 rows further) to rows
+    slot_row .. slot_row + 63 of workspace slot `slot`; after its last key
+    tile it writes the next 64 rows (the window's upper half) to the 64
+    slot rows after those."""
+    fwd: FwdPlan
+    scatter: torch.Tensor  # (64, 64) window column of (query r, key c)
+    slot: int              # the utterance's 64-query sub-tile, q_row / 64
+    flush_row: int         # first table row of the flush
+    slot_row: int          # first slot row of the flush
+
+
+def bwd_route(Dh: int) -> str:
+    """The backward kernels a head dimension takes: "wgmma" (Dh = 64: the
+    dq pass, the reduce and the wmma dK/dV kernel) or "wmma" (16, 32,
+    128: the wmma kernel alone)."""
+    return "wgmma" if Dh == 64 else "wmma"
+
+
+def bwd_plan(T: int, t0: int, s0: int, w: int) -> BwdPlan:
+    """Coordinates of `relpos_attention_bwd_dq_wgmma` for the query tile
+    at t0, the key tile at s0 and consumer w, as `fwd_plan`. Window
+    column m of the consumer is table row T-64-q_row+s0+m, so query
+    t = q_row + r and key s = s0 + c scatter into column c - r + 63
+    (table row T-1-t+s), and window rows 0..63 are table rows
+    flush_row = T-64-q_row+s0 ..; slot row = table row - (T-64-q_row)."""
+    f = fwd_plan(T, t0, s0, w)
+    return BwdPlan(f, f.band, f.q_row // 64, T - 64 - f.q_row + s0, s0)
+
+
+def bwd_slot_rows(T: int, j: int, length: int) -> tuple:
+    """(first table row, rows) of workspace slot j (query rows 64j ..
+    64j + 63) of an utterance of `length`: the windows of its key tiles,
+    64·ceil(length/64) + 64 rows from T-64-64j (some may lie outside the
+    table; their partials are zeros)."""
+    return T - 64 - 64 * j, 64 * -(-length // 64) + 64
+
+
+def bwd_workspace_rows(T: int) -> int:
+    """Rows a slot takes in the workspace, whatever the length: slot j of
+    utterance n starts at row (n·J + j)·bwd_workspace_rows(T), J =
+    ceil(T/64)."""
+    return 64 * -(-T // 64) + 64
+
+
+def bwd_slots(T: int, lengths) -> list:
+    """The slots the reduce sums, in its order (utterance ascending, then
+    sub-tile ascending): (n, j, first table row, rows, first workspace
+    row)."""
+    J, SR = -(-T // 64), bwd_workspace_rows(T)
+    out = []
+    for n, L in enumerate(int(x) for x in lengths):
+        for j in range(-(-L // 64)):
+            out.append((n, j, *bwd_slot_rows(T, j, L), (n * J + j) * SR))
+    return out
 
 
 def rel_shift(bd):
@@ -236,7 +305,10 @@ def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
                               dout, scale=None, rate=0.0, seed=None):
     """(dq, dk, dv, dp, du, dv_bias) of `relpos_attention`. A CPU tensor
     takes `relpos_attention_backward_reference`; a CUDA tensor launches
-    `relpos_attention_bwd.cu` (the shapes of the forward) or raises."""
+    the kernels of its route (`bwd_route`, the shapes of the forward) or
+    raises. At Dh = 64 dq comes out of the kernel in bf16, and dp, du
+    and dv_bias from the reduce of an f32 workspace of N·ceil(T/64)
+    slots of `bwd_workspace_rows(T)` x H·Dh."""
     if q.device.type == "cpu":
         return relpos_attention_backward_reference(
             q, k, v, p, u_bias, v_bias, lengths, out, lse, dout, scale,
@@ -249,18 +321,31 @@ def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
     do = dout.to(torch.bfloat16).contiguous()
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.zeros(N, T, H, Dh, **f32)
     dk, dv = torch.empty_like(args[0]), torch.empty_like(args[0])
-    dp = torch.zeros(2 * T - 1, H, Dh, **f32)
-    du, dvb = torch.zeros(H, Dh, **f32), torch.zeros(H, Dh, **f32)
+    route = bwd_route(Dh)
+    if route == "wgmma":  # every output written whole, no atomics
+        dq = torch.empty_like(args[0])
+        dp = torch.empty(2 * T - 1, H, Dh, **f32)
+        du, dvb = torch.empty(H, Dh, **f32), torch.empty(H, Dh, **f32)
+        slots = N * -(-T // 64)
+        ws = [torch.empty(slots * bwd_workspace_rows(T), H * Dh, **f32),
+              torch.empty(slots, H * Dh, **f32),
+              torch.empty(slots, H * Dh, **f32)]
+    else:  # the wmma kernel adds into zeroed f32 buffers
+        dq = torch.zeros(N, T, H, Dh, **f32)
+        dp = torch.zeros(2 * T - 1, H, Dh, **f32)
+        du, dvb = torch.zeros(H, Dh, **f32), torch.zeros(H, Dh, **f32)
+        ws = [None] * 3  # no workspace
     err = _build.load("relpos_attention_bwd", _BWD).relpos_attention_bwd(
         *(t.data_ptr() for t in args), lse.contiguous().data_ptr(),
         delta.data_ptr(), do.data_ptr(),
-        *(t.data_ptr() for t in (dq, dk, dv, dp, du, dvb)), N, T, H, Dh,
+        *(t.data_ptr() for t in (dq, dk, dv, dp, du, dvb)),
+        *(None if t is None else t.data_ptr() for t in ws), N, T, H, Dh,
         *drop, float(scale), inv,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "relpos_attention_bwd")
     relpos_attention_backward.launches += 1
+    relpos_attention_backward.routes[route] += 1
     return dq.to(q.dtype), dk, dv, dp, du, dvb
 
 
@@ -268,6 +353,8 @@ relpos_attention_forward.launches = 0
 # launches by route (`fwd_route`); `launches` counts both
 relpos_attention_forward.routes = {"wgmma": 0, "wmma": 0}
 relpos_attention_backward.launches = 0
+# calls by route (`bwd_route`); `launches` counts both, one a call
+relpos_attention_backward.routes = {"wgmma": 0, "wmma": 0}
 
 
 class _RelPosAttention(torch.autograd.Function):

@@ -19,7 +19,10 @@ Phases, any failure exits non-zero:
    backwards' launches inside one call (torch.profiler; the forwards at
    both batches, the FF forward beside its two products alone by
    `torch.matmul`) and two calls of each, and of the attention forward
-   (both batches), bit for bit; then the loss path's kernels at
+   (both batches), bit for bit; the attention backward through its
+   Dh = 64 wgmma route (the dq pass, the reduce and the wmma dK/dV
+   kernel: the three launches' device split, and all six outputs of two
+   calls bit for bit, at both rates); then the loss path's kernels at
    the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
    3-gram denominator of `make_den`): the standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
@@ -403,8 +406,10 @@ def special_rows(t):
 
 
 # the launches inside one call of each staged kernel (csrc/ffn_fwd.cu,
-# ffn_bwd.cu, glu_in.cu), and of the attention forward's Dh = 64 route
+# ffn_bwd.cu, glu_in.cu), and of the attention forward's and backward's
+# Dh = 64 routes
 STAGES = {"relpos_attention_fwd": ("wgmma",),
+          "relpos_attention_bwd": ("dq_wgmma", "reduce", "wmma"),
           "ffn_fwd": ("ln", "up", "down"),
           "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce"),
           "glu_in_fwd": ("ln", "up"),
@@ -557,7 +562,11 @@ def phase_backward_kernels(gen, rec):
                      conv_module.bn_out_backward(c, x, mask, *bnp, do, **kw),
                      conv_module.bn_out_backward_reference(c, x, mask, *bnp,
                                                            do, **kw))
+        before = attention.relpos_attention_backward.routes["wgmma"]
         got = attention.relpos_attention_backward(*att, out, lse, dao, **kw)
+        if attention.relpos_attention_backward.routes["wgmma"] != before + 1:
+            fail("relpos_attention_bwd: Dh = 64 did not take the wgmma "
+                 "route")
         want = attention.relpos_attention_backward_reference(
             *att, out, lse, dao, **kw)
         e_att = max(compare(f"relpos_attention_bwd {tag} d{i}", a, b)
@@ -571,6 +580,10 @@ def phase_backward_kernels(gen, rec):
             f"attention {e_att:.4g} (max abs err over all outputs)")
         del got, want
         torch.cuda.empty_cache()
+        split_and_repro("relpos_attention_bwd",
+                        lambda: attention.relpos_attention_backward(
+                            *att, out, lse, dao, **kw),
+                        f"training batch, {tag}")
         if rate == 0.0:
             continue
         # the JSON records: the training batch at rate 0.1, as in training;
@@ -666,7 +679,8 @@ def phase_backward_kernels(gen, rec):
                     *att, out, lse, dao, **kw), 3, 1),
                 16 * sq * Dh * H,
                 7 * Rv * D * 2 + (2 * T - 1) * D * (2 + 4) + 2 * Rv * H * 4,
-                f"N={N} T'={T} H={H} Dh={Dh}")
+                f"N={N} T'={T} H={H} Dh={Dh} rate 0.1, "
+                f"{attention.bwd_route(Dh)} route")
     torch.cuda.empty_cache()
 
 

@@ -351,6 +351,39 @@ def test_attention_forward_routes(gen):
         assert fwd.routes == {**before, route: before[route] + 1}
 
 
+def test_attention_backward_routes(gen):
+    """Dh = 64 takes the wgmma route (the dq pass, the reduce and the wmma
+    dK/dV kernel), 16, 32 and 128 the wmma kernel alone; each call counts
+    once on `launches` and on its route."""
+    bwd = attention.relpos_attention_backward
+    for Dh in (16, 32, 64, 128):
+        route = "wgmma" if Dh == 64 else "wmma"
+        assert attention.bwd_route(Dh) == route
+        args = _attention_inputs(gen, 2, 65, 2, Dh)
+        out, lse = attention.relpos_attention_forward(*args)
+        do = _rnd(gen, *out.shape, dtype=torch.bfloat16)
+        before, total = dict(bwd.routes), bwd.launches
+        bwd(*args, out, lse, do)
+        assert bwd.launches == total + 1
+        assert bwd.routes == {**before, route: before[route] + 1}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", [129, 599])
+def test_attention_backward_is_reproducible(gen, T, rate):
+    """The Dh = 64 backward has no atomics: two calls give all six
+    outputs bit for bit."""
+    args = _attention_inputs(gen, 3, T, 8, 64)
+    kw = dict(rate=rate, seed=SEED)
+    out, lse = attention.relpos_attention_forward(*args, **kw)
+    valid = length_mask(args[-1], T)
+    do = (_rnd(gen, 3, T, 8, 64) * valid[..., None, None]).to(torch.bfloat16)
+    first = attention.relpos_attention_backward(*args, out, lse, do, **kw)
+    second = attention.relpos_attention_backward(*args, out, lse, do, **kw)
+    for name, a, b in zip("dq dk dv dp du dv_bias".split(), first, second):
+        assert torch.equal(a, b), name
+
+
 def _special_rows(t):
     """t (N, T, ...) with rows 11..39 of every utterance equal to row 10,
     rows 40..49 constant across their values and rows 50..54 zero."""

@@ -1,9 +1,11 @@
-"""Time the rel-pos attention forward, and the paths that run it, of several checkouts of this repo on one card.
+"""Time the rel-pos attention forward and backward, and the paths that run them, of several checkouts of this repo on one card.
 
 `cat_tpu_torch.ops.attention.relpos_attention_forward` (PERF.md §6 row 2)
 at chip_smoke.py's crf-v1 training batch (N = 32, T' = 299..493, H = 8,
 Dh = 64, dropout 0.1) and serving batch (N = 8, T' = 97..599, rate 0),
-bf16, CUDA events over 20 calls after 3 warm-up calls; then, through
+and `relpos_attention_backward` (row 3) at the training batch, rate 0.1
+(dO random, zero on padded rows), bf16, CUDA events over 20 calls after
+3 warm-up calls; then, through
 that checkout's own chip_smoke.py, the crf-v1 serving forward
 (`phase_serving`'s model and batch, CUDA events over 20 forwards after
 3) and the crf-v1 train step (`phase_training`: 5 timed steps after 2
@@ -50,7 +52,8 @@ SERVE = [_subsampled(f) for f in (2400, 1600, 1400, 1200, 1000, 800, 600,
                                   400)]
 # case: (lengths, dropout rate)
 KERNEL_CASES = {"relpos_attention_forward train": (TRAIN, 0.1),
-                "relpos_attention_forward serve": (SERVE, 0.0)}
+                "relpos_attention_forward serve": (SERVE, 0.0),
+                "relpos_attention_backward train": (TRAIN, 0.1)}
 SEED = (0x0BADF00D, 0x5EED1234)
 
 
@@ -78,11 +81,21 @@ def _kernels(attention, out):
 
     for case, (lengths, rate) in KERNEL_CASES.items():
         N, T = len(lengths), max(lengths)
+        lt = torch.tensor(lengths, device="cuda")
         args = (rnd(N, T, H, DH), rnd(N, T, H, DH), rnd(N, T, H, DH),
                 rnd(2 * T - 1, H, DH, s=0.5), rnd(H, DH, s=0.1),
-                rnd(H, DH, s=0.1), torch.tensor(lengths, device="cuda"))
-        out[case] = {"ms": _time(lambda: attention.relpos_attention_forward(
-            *args, rate=rate, seed=SEED))}
+                rnd(H, DH, s=0.1), lt)
+        kw = dict(rate=rate, seed=SEED)
+        if "backward" in case:
+            o, lse = attention.relpos_attention_forward(*args, **kw)
+            valid = torch.arange(T, device="cuda")[None, :] < lt[:, None]
+            do = rnd(N, T, H, DH) * valid[..., None, None]
+            call = lambda: attention.relpos_attention_backward(  # noqa: E731
+                *args, o, lse, do, **kw)
+        else:
+            call = lambda: attention.relpos_attention_forward(  # noqa: E731
+                *args, **kw)
+        out[case] = {"ms": _time(call)}
 
 
 def _host(attention, out):
