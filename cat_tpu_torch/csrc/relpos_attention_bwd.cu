@@ -55,21 +55,36 @@
 //    (tests/test_torch_attn_bwd_plan.py).
 // 2. `d64::relpos_attention_bwd_reduce`: dp, du and dv_bias, the slots'
 //    partials summed in a fixed order (utterance, then sub-tile).
-// 3. `relpos_attention_bwd_wmma<64, false>`: dK and dV, below.
+// 3. `d64::relpos_attention_bwd_dkdv_wgmma`: dK and dV, key-major. One
+//    block of 384 threads per (128-key tile, head, utterance): warp 0
+//    loads the block's K and V once and, per 64-query tile, Q, dO and
+//    the 192-row position window through a ring of two TMA stages;
+//    consumer warpgroup w owns keys 64w .. 64w + 63 and keeps dK and dV
+//    (m64n64 f32, 64 registers) in registers for the whole walk over the
+//    query tiles, so each block writes its own rows once. Per query tile
+//    it works in the dq pass's (query-major) orientation, with its code:
+//    it forms qu and qv from the stage's Q into its own buffers, issues
+//    QP = qv·Pwinᵀ and reads the band back through its scratch, issues
+//    S = qu·Kᵀ and dP = dO·Vᵀ, and forms P (the forward's bits), Pd =
+//    P·keep/(1-r) and dS on the fragments. Only the two bf16 tiles Pd and
+//    dS, [query][key] in the 128-byte swizzled layout, change
+//    orientation: through shared memory, read MN-major as the A operand
+//    of dV += Pdᵀ·dO and dK += dSᵀ·qu (dO and qu MN-major B operands).
+//    Query t0 + r and key s0 + 64w + c read table row T-64-t0+s0 + 64w +
+//    c - r + 63, column c - r + 63 of the consumer's 128-row window
+//    (`bwd_kv_plan`, pinned by the same emulation).
 //
-// Dh = 16, 32, 128 (and the dK/dV part at 64): `relpos_attention_bwd_wmma`.
-// One block of 4 warps per (64-key tile, head, utterance) walks the
-// query tiles up to the utterance's length; key tiles past the length
-// only write zeros. dK and dV stay in registers (each warp 16 keys x Dh)
-// for the whole walk, so they need no atomics. For a (query tile, key
-// tile) pair each warp rebuilds its 16 x 64 scores as the forward does
-// (content scores, and position scores over the 80 rows of the 127-row p
-// window its queries need, the band read by index), then the block forms
-// dS. With FULL (Dh 16, 32, 128) it also forms the bf16 window gradient
-// dQP (64 x 128) in shared memory and adds dq (f32), dp (f32, (2T-1, H,
-// Dh)), du and dv_bias, sums over blocks that overlap, with f32 atomics
-// into buffers the wrapper zeroed; the order of those sums varies from
-// run to run. Without FULL (Dh = 64) those parts compile out.
+// Dh = 16, 32, 128: `relpos_attention_bwd_wmma`. One block of 4 warps
+// per (64-key tile, head, utterance) walks the query tiles up to the
+// utterance's length; key tiles past the length only write zeros. dK and
+// dV stay in registers (each warp 16 keys x Dh) for the whole walk. For a
+// (query tile, key tile) pair each warp rebuilds its 16 x 64 scores as
+// the forward does (content scores, and position scores over the 80 rows
+// of the 127-row p window its queries need, the band read by index), then
+// the block forms dS and the bf16 window gradient dQP (64 x 128) in
+// shared memory and adds dq (f32), dp (f32, (2T-1, H, Dh)), du and
+// dv_bias, sums over blocks that overlap, with f32 atomics into buffers
+// the wrapper zeroed; the order of those sums varies from run to run.
 #include "common.cuh"
 #include "hopper_gemm.cuh"
 
@@ -86,9 +101,8 @@ constexpr int LDS = BK + 4;    // f32 per-warp scores
 constexpr int LDQP = QPW + 4;  // f32 per-warp position scores
 constexpr int LDP = BK + 8;    // bf16 dropped probabilities, dS
 constexpr int LDW = WIN + 8;   // bf16 window gradient dQP
-// Shared memory of the wmma kernel; without FULL (dK and dV only) no
-// window gradient.
-template <int DH, bool FULL>
+// Shared memory of the wmma kernel.
+template <int DH>
 struct BwdSmem {
   static constexpr int LDT = DH + 8;
   static constexpr int TILE = align128(BQ * LDT * 2);
@@ -101,8 +115,7 @@ struct BwdSmem {
   static constexpr int OFF_PD = OFF_P + align128(WIN * LDT * 2);
   static constexpr int OFF_DS = OFF_PD + align128(BQ * LDP * 2);
   static constexpr int OFF_DQP = OFF_DS + align128(BQ * LDP * 2);
-  static constexpr int OFF_ROW =
-      OFF_DQP + (FULL ? align128(BQ * LDW * 2) : 0);
+  static constexpr int OFF_ROW = OFF_DQP + align128(BQ * LDW * 2);
   static constexpr int OFF_WARP = OFF_ROW + align128(2 * BQ * 4);
   static constexpr int W_S = 0;
   static constexpr int W_QP = W_S + align128(16 * LDS * 4);
@@ -128,9 +141,8 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
-// FULL: dq, dp, du and dv_bias as well, added with atomics; otherwise
-// only dK and dV (the launch passes null for dq, dp, dub and dvb).
-template <int DH, bool FULL>
+// dK and dV from registers; dq, dp, du and dv_bias added with atomics.
+template <int DH>
 __global__ void __launch_bounds__(NW * 32)
     relpos_attention_bwd_wmma(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
@@ -146,7 +158,7 @@ __global__ void __launch_bounds__(NW * 32)
                            bf16* __restrict__ dv, float* __restrict__ dp,
                            float* __restrict__ dub, float* __restrict__ dvb,
                            int T, int H, float scale, Drop dr) {
-  using S = BwdSmem<DH, FULL>;
+  using S = BwdSmem<DH>;
   constexpr int LDT = S::LDT;
   constexpr int NJ = DH / 16;
   constexpr int C8 = DH / 8;
@@ -310,66 +322,64 @@ __global__ void __launch_bounds__(NW * 32)
     }
     __syncthreads();
 
-    if constexpr (FULL) {
-      // the window gradient: dQP[rb][m] = dS[rb][m - (BQ-1) + rb]
-      for (int i = threadIdx.x; i < BQ * WIN; i += NW * 32) {
-        const int rb = i / WIN, m = i % WIN, c = m - (BQ - 1) + rb;
-        dqp[rb * LDW + m] =
-            (c >= 0 && c < BK) ? dss[rb * LDP + c] : __float2bfloat16(0.f);
-      }
-      __syncthreads();
+    // the window gradient: dQP[rb][m] = dS[rb][m - (BQ-1) + rb]
+    for (int i = threadIdx.x; i < BQ * WIN; i += NW * 32) {
+      const int rb = i / WIN, m = i % WIN, c = m - (BQ - 1) + rb;
+      dqp[rb * LDW + m] =
+          (c >= 0 && c < BK) ? dss[rb * LDP + c] : __float2bfloat16(0.f);
+    }
+    __syncthreads();
 
-      // dq rows of this warp: dS . K and dQP . p_window, with du and dv_bias
+    // dq rows of this warp: dS . K and dQP . p_window, with du and dv_bias
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        FragC au, av;
-        wmma::fill_fragment(au, 0.f);
-        wmma::fill_fragment(av, 0.f);
+    for (int j = 0; j < NJ; ++j) {
+      FragC au, av;
+      wmma::fill_fragment(au, 0.f);
+      wmma::fill_fragment(av, 0.f);
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, dss + warp * 16 * LDP + kk, LDP);
-          wmma::load_matrix_sync(b, ks + kk * LDT + j * 16, LDT);
-          wmma::mma_sync(au, a, b, au);
-        }
-#pragma unroll
-        for (int kk = 0; kk < QPW; kk += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, dqp + warp * 16 * LDW + win0 + kk, LDW);
-          wmma::load_matrix_sync(b, pw + (win0 + kk) * LDT + j * 16, LDT);
-          wmma::mma_sync(av, a, b, av);
-        }
-        wmma::store_matrix_sync(scr, au, 16, wmma::mem_row_major);
-        __syncwarp();
-        float uvals[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) uvals[e] = scr[lane + 32 * e];
-        if (lane < 16) {
-          float s = 0.f;
-#pragma unroll
-          for (int rr = 0; rr < 16; ++rr) s += scr[rr * 16 + lane];
-          atomicAdd(dub + hoff + j * 16 + lane, s);
-        }
-        __syncwarp();
-        wmma::store_matrix_sync(scr, av, 16, wmma::mem_row_major);
-        __syncwarp();
-        if (lane < 16) {
-          float s = 0.f;
-#pragma unroll
-          for (int rr = 0; rr < 16; ++rr) s += scr[rr * 16 + lane];
-          atomicAdd(dvb + hoff + j * 16 + lane, s);
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int idx = lane + 32 * e, tq = t0 + 16 * warp + idx / 16;
-          if (tq < len)
-            atomicAdd(dq + base + (size_t)tq * D + hoff + j * 16 + idx % 16,
-                      uvals[e] + scr[idx]);
-        }
-        __syncwarp();
+      for (int kk = 0; kk < BK; kk += 16) {
+        FragA a;
+        FragB b;
+        wmma::load_matrix_sync(a, dss + warp * 16 * LDP + kk, LDP);
+        wmma::load_matrix_sync(b, ks + kk * LDT + j * 16, LDT);
+        wmma::mma_sync(au, a, b, au);
       }
+#pragma unroll
+      for (int kk = 0; kk < QPW; kk += 16) {
+        FragA a;
+        FragB b;
+        wmma::load_matrix_sync(a, dqp + warp * 16 * LDW + win0 + kk, LDW);
+        wmma::load_matrix_sync(b, pw + (win0 + kk) * LDT + j * 16, LDT);
+        wmma::mma_sync(av, a, b, av);
+      }
+      wmma::store_matrix_sync(scr, au, 16, wmma::mem_row_major);
+      __syncwarp();
+      float uvals[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) uvals[e] = scr[lane + 32 * e];
+      if (lane < 16) {
+        float s = 0.f;
+#pragma unroll
+        for (int rr = 0; rr < 16; ++rr) s += scr[rr * 16 + lane];
+        atomicAdd(dub + hoff + j * 16 + lane, s);
+      }
+      __syncwarp();
+      wmma::store_matrix_sync(scr, av, 16, wmma::mem_row_major);
+      __syncwarp();
+      if (lane < 16) {
+        float s = 0.f;
+#pragma unroll
+        for (int rr = 0; rr < 16; ++rr) s += scr[rr * 16 + lane];
+        atomicAdd(dvb + hoff + j * 16 + lane, s);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int idx = lane + 32 * e, tq = t0 + 16 * warp + idx / 16;
+        if (tq < len)
+          atomicAdd(dq + base + (size_t)tq * D + hoff + j * 16 + idx % 16,
+                    uvals[e] + scr[idx]);
+      }
+      __syncwarp();
     }
 
     // dV and dK of this warp's 16 keys, over the 64 queries of the tile
@@ -389,33 +399,31 @@ __global__ void __launch_bounds__(NW * 32)
     }
 
     // dp over this warp's 32 window rows: dQP^T . qv
-    if constexpr (FULL) {
-      const int prow0 = T - 1 - t0 - (BQ - 1) + s0;
+    const int prow0 = T - 1 - t0 - (BQ - 1) + s0;
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int m0 = 32 * warp + 16 * mi;
+    for (int mi = 0; mi < 2; ++mi) {
+      const int m0 = 32 * warp + 16 * mi;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          FragC a;
-          wmma::fill_fragment(a, 0.f);
+      for (int j = 0; j < NJ; ++j) {
+        FragC a;
+        wmma::fill_fragment(a, 0.f);
 #pragma unroll
-          for (int kk = 0; kk < BQ; kk += 16) {
-            FragAT da;
-            FragB b;
-            wmma::load_matrix_sync(da, dqp + kk * LDW + m0, LDW);
-            wmma::load_matrix_sync(b, qv + kk * LDT + j * 16, LDT);
-            wmma::mma_sync(a, da, b, a);
-          }
-          wmma::store_matrix_sync(scr, a, 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int prow = prow0 + m0 + e / 16;
-            const float val = scr[e];
-            if (val != 0.f && prow >= 0 && prow < 2 * T - 1)
-              atomicAdd(dp + (size_t)prow * D + hoff + j * 16 + e % 16, val);
-          }
-          __syncwarp();
+        for (int kk = 0; kk < BQ; kk += 16) {
+          FragAT da;
+          FragB b;
+          wmma::load_matrix_sync(da, dqp + kk * LDW + m0, LDW);
+          wmma::load_matrix_sync(b, qv + kk * LDT + j * 16, LDT);
+          wmma::mma_sync(a, da, b, a);
         }
+        wmma::store_matrix_sync(scr, a, 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int prow = prow0 + m0 + e / 16;
+          const float val = scr[e];
+          if (val != 0.f && prow >= 0 && prow < 2 * T - 1)
+            atomicAdd(dp + (size_t)prow * D + hoff + j * 16 + e % 16, val);
+        }
+        __syncwarp();
       }
     }
   }
@@ -439,7 +447,7 @@ __global__ void __launch_bounds__(NW * 32)
   }
 }
 
-template <int DH, bool FULL>
+template <int DH>
 cudaError_t launch_wmma(const void* q, const void* k, const void* v,
                         const void* p, const void* ub, const void* vb,
                         const void* lengths, const void* lse,
@@ -447,12 +455,12 @@ cudaError_t launch_wmma(const void* q, const void* k, const void* v,
                         void* dk, void* dv, void* dp, void* dub, void* dvb,
                         int N, int T, int H, float scale, Drop dr,
                         cudaStream_t stream) {
-  constexpr int bytes = BwdSmem<DH, FULL>::BYTES;
-  CATK_TRY(cudaFuncSetAttribute(relpos_attention_bwd_wmma<DH, FULL>,
+  constexpr int bytes = BwdSmem<DH>::BYTES;
+  CATK_TRY(cudaFuncSetAttribute(relpos_attention_bwd_wmma<DH>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 bytes));
   dim3 grid((T + BK - 1) / BK, H, N);
-  relpos_attention_bwd_wmma<DH, FULL><<<grid, NW * 32, bytes, stream>>>(
+  relpos_attention_bwd_wmma<DH><<<grid, NW * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(p),
       static_cast<const bf16*>(ub), static_cast<const bf16*>(vb),
@@ -464,8 +472,8 @@ cudaError_t launch_wmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// ---- Dh = 64: the dq pass on TMA + wgmma, and the reduce (see the top
-// of the file)
+// ---- Dh = 64: the dq pass and the dK/dV pass on TMA + wgmma, and the
+// reduce (see the top of the file)
 namespace d64 {
 
 constexpr int DH = 64;
@@ -497,15 +505,56 @@ constexpr int OFF_BAR = OFF_CARRY + 2 * 128 * 32 * 4;
 // stage
 constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
 
-// Zeros in dq for query rows [ta, tb) of the head slice.
-__device__ __forceinline__ void zero_dq(bf16* dq, size_t row0, int D,
-                                        int hoff, int ta, int tb, int tid,
-                                        int nthreads) {
+// The dK/dV pass's shared memory, from the same 1 KB-aligned base.
+namespace kv {
+constexpr int OFF_K = 0;                // the block's 128 keys: two boxes
+constexpr int OFF_V = OFF_K + 2 * BOX;  // and their values
+// a stage: Q, dO, then the p window of 3 boxes (192 rows), STAGE bytes
+constexpr int OFF_STAGE = OFF_V + 2 * BOX;
+// per consumer: qu and qv (64 query rows each), then the Pd and dS tiles
+// (64 query rows x 64 keys), each one box in the 128-byte swizzled layout
+constexpr int OFF_QUV = OFF_STAGE + STAGES * STAGE;
+constexpr int OFF_PDS = OFF_QUV + 4 * BOX;
+// per consumer: its four warps' band scratch, as the dq pass's
+constexpr int OFF_SCRATCH = OFF_PDS + 4 * BOX;
+constexpr int OFF_BAR = OFF_SCRATCH + 2 * SCRATCH;
+// barriers: K and V, then full and empty per stage
+constexpr int SMEM = 1024 + OFF_BAR + 8 * (1 + 2 * STAGES);
+static_assert(SMEM <= 232448, "the dK/dV pass exceeds a block's 227 KB");
+}  // namespace kv
+
+// Zeros in rows [ta, tb) of the head slice of a (N·T, H·Dh) bf16 matrix
+// whose utterance starts at row0.
+__device__ __forceinline__ void zero_rows(bf16* x, size_t row0, int D,
+                                          int hoff, int ta, int tb, int tid,
+                                          int nthreads) {
   for (int i = tid; i < (tb - ta) * (DH / 8); i += nthreads) {
     const int t = ta + i / (DH / 8), c = (i % (DH / 8)) * 8;
-    *reinterpret_cast<uint4*>(dq + (row0 + t) * D + hoff + c) =
+    *reinterpret_cast<uint4*>(x + (row0 + t) * D + hoff + c) =
         make_uint4(0, 0, 0, 0);
   }
+}
+
+// Stores the bf16 pair `pair` at row r, columns c and c + 1 (c even), of
+// a 64 x 64 bf16 tile in the 128-byte swizzled layout that TMA writes:
+// 16-byte chunk j of row r at chunk j ^ (r % 8).
+__device__ __forceinline__ void store_pair(unsigned char* tile, int r, int c,
+                                           uint32_t pair) {
+  *reinterpret_cast<uint32_t*>(tile + r * 128 + (((c >> 3) ^ (r & 7)) << 4) +
+                               (c & 7) * 2) = pair;
+}
+
+// Issues d (64 x 64 f32 fragment) += aᵀ·b, a and b two 64 x 64 bf16 tiles
+// in shared memory (64 rows of the summed index, 128-byte swizzled; a
+// tile whose columns are the M index, b whose columns are the N index),
+// both read MN-major, a k16 slice 16 rows (2 KB) further. The caller
+// fences and commits.
+__device__ __forceinline__ void mn_product(float (&d)[32], uint32_t a,
+                                           uint32_t b) {
+  const uint64_t da = hg::desc(a, 8192, 1024), db = hg::desc(b, 8192, 1024);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    hg::wgmma_n64<1, 1>(d, da + ((k * 2048) >> 4), db + ((k * 2048) >> 4), 1);
 }
 
 // The 64 x 64 f32 fragment `a` (rows of this consumer's warps) to rows
@@ -550,8 +599,8 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
   const int len = lengths[n];
   const size_t row0 = (size_t)n * T, lse0 = ((size_t)n * H + h) * T;
   if (t0 >= len) {  // every query row of the tile is padding
-    zero_dq(dq, row0, D, hoff, t0, min(t0 + BQ, T), threadIdx.x,
-            hg::THREADS);
+    zero_rows(dq, row0, D, hoff, t0, min(t0 + BQ, T), threadIdx.x,
+              hg::THREADS);
     return;
   }
   extern __shared__ unsigned char smem_raw[];
@@ -608,7 +657,7 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
   const int g = lane >> 2, q4 = lane & 3, odd = lane & 1;
   const int r0 = t0 + 64 * w;  // this consumer's first query row
   if (r0 >= len) {
-    zero_dq(dq, row0, D, hoff, r0, min(r0 + 64, T), tid, 128);
+    zero_rows(dq, row0, D, hoff, r0, min(r0 + 64, T), tid, 128);
     return;
   }
   unsigned char* const dqp = sm + OFF_SCRATCH + w * SCRATCH;
@@ -961,6 +1010,323 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// dK and dV (N, T, H·Dh) bf16: block (x, h, n) computes keys s0 = 128x ..
+// s0 + 127 of head h of utterance n, every row it owns written once.
+__global__ void __launch_bounds__(hg::THREADS, 1)
+    relpos_attention_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap mq,
+                                    const __grid_constant__ CUtensorMap mk,
+                                    const __grid_constant__ CUtensorMap mv,
+                                    const __grid_constant__ CUtensorMap mp,
+                                    const __grid_constant__ CUtensorMap mdo,
+                                    const bf16* __restrict__ ub,
+                                    const bf16* __restrict__ vb,
+                                    const int* __restrict__ lengths,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    bf16* __restrict__ dk,
+                                    bf16* __restrict__ dv, int T, int H,
+                                    float scale, Drop dr) {
+  const int D = H * DH;
+  const int s0 = blockIdx.x * 128, h = blockIdx.y, n = blockIdx.z;
+  const int hoff = h * DH;
+  const int len = lengths[n];
+  const size_t row0 = (size_t)n * T, lse0 = ((size_t)n * H + h) * T;
+  if (s0 >= len) {  // every key of the tile is padding: zero gradients
+    zero_rows(dk, row0, D, hoff, s0, min(s0 + 128, T), threadIdx.x,
+              hg::THREADS);
+    zero_rows(dv, row0, D, hoff, s0, min(s0 + 128, T), threadIdx.x,
+              hg::THREADS);
+    return;
+  }
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  const uint32_t kvbar = base + kv::OFF_BAR, full = kvbar + 8,
+                 empty = full + 8 * STAGES;
+  const int nqt = hg::cdiv(len, 64);
+  // consumer 1 has work only where its first key is valid
+  const int nact = s0 + 64 < len ? 2 : 1;
+  if (threadIdx.x == 0) {
+    hg::mbar_init(kvbar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      hg::mbar_init(full + 8 * s, 1);
+      hg::mbar_init(empty + 8 * s, nact);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+
+  if (wg == 0) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      const int krow = (int)row0 + s0;
+      hg::mbar_expect_tx(kvbar, 4 * BOX);
+      hg::tma_load(base + kv::OFF_K, &mk, kvbar, hoff, krow);
+      hg::tma_load(base + kv::OFF_K + BOX, &mk, kvbar, hoff, krow + 64);
+      hg::tma_load(base + kv::OFF_V, &mv, kvbar, hoff, krow);
+      hg::tma_load(base + kv::OFF_V + BOX, &mv, kvbar, hoff, krow + 64);
+      for (int qt = 0; qt < nqt; ++qt) {
+        const int st = qt % STAGES, t0 = 64 * qt;
+        const uint32_t dst = base + kv::OFF_STAGE + st * STAGE;
+        const uint32_t bar = full + 8 * st;
+        hg::mbar_wait(empty + 8 * st, ((qt / STAGES) & 1) ^ 1);
+        hg::mbar_expect_tx(bar, STAGE);
+        hg::tma_load(dst, &mq, bar, hoff, (int)row0 + t0);
+        hg::tma_load(dst + BOX, &mdo, bar, hoff, (int)row0 + t0);
+        // p rows T-64-t0+s0 .. + 191 (negative or past 2T-2: zeros)
+        const int w0 = T - 64 - t0 + s0;
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          hg::tma_load(dst + (2 + b) * BOX, &mp, bar, hoff, w0 + 64 * b);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int w = wg - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q4 = lane & 3, odd = lane & 1;
+  const int k0 = s0 + 64 * w;  // this consumer's first key
+  if (k0 >= len) {
+    zero_rows(dk, row0, D, hoff, k0, min(k0 + 64, T), tid, 128);
+    zero_rows(dv, row0, D, hoff, k0, min(k0 + 64, T), tid, 128);
+    return;
+  }
+  unsigned char* const qu = sm + kv::OFF_QUV + w * 2 * BOX;
+  unsigned char* const qv = qu + BOX;
+  unsigned char* const pd = sm + kv::OFF_PDS + w * 2 * BOX;
+  unsigned char* const ds = pd + BOX;
+  const uint32_t qu_u = base + kv::OFF_QUV + w * 2 * BOX;
+  const uint32_t pd_u = base + kv::OFF_PDS + w * 2 * BOX;
+  // K-major A operands (S, QP) and B operands (S, dP)
+  const uint64_t dqu_a = hg::desc(qu_u, 16, 1024);
+  const uint64_t dqv_a = hg::desc(qu_u + BOX, 16, 1024);
+  const uint64_t dk_b = hg::desc(base + kv::OFF_K + w * BOX, 16, 1024);
+  const uint64_t dv_b = hg::desc(base + kv::OFF_V + w * BOX, 16, 1024);
+  float* const sw =
+      reinterpret_cast<float*>(sm + kv::OFF_SCRATCH + w * SCRATCH) +
+      warp * 16 * LDB;
+  const uint32_t plane = (uint32_t)(n * H + h);
+
+  // dK and dV of this consumer's 64 keys across the walk, in registers
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+  hg::mbar_wait(kvbar, 0);
+
+  for (int qt = 0; qt < nqt; ++qt) {
+    const int st = qt % STAGES, t0 = 64 * qt;
+    const uint32_t stage = base + kv::OFF_STAGE + st * STAGE;
+    // this thread's query rows trow and trow + 8, their lse and Delta,
+    // and the keep bits as the dq pass draws them (the lane pair (2k,
+    // 2k + 1) draws one row each and they swap), before the stage wait
+    const int trow = t0 + 16 * warp + g;
+    bool row_ok[2];
+    float lse_r[2], dl_r[2];
+#pragma unroll
+    for (int ih = 0; ih < 2; ++ih) {
+      const int t = trow + 8 * ih;
+      row_ok[ih] = t < len;
+      lse_r[ih] = row_ok[ih] ? lse[lse0 + t] : 0.f;
+      dl_r[ih] = row_ok[ih] ? delta[lse0 + t] : 0.f;
+    }
+    uint32_t mine = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mine |= keep4(dr, 0, plane, trow + 8 * odd,
+                    (k0 >> 2) + 2 * j + (q4 >> 1)) << (4 * j);
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+    const uint32_t kb[2] = {odd ? other : mine, odd ? mine : other};
+    hg::mbar_wait(full + 8 * st, (qt / STAGES) & 1);
+
+    // qu = bf16(q + u), qv = bf16(q + v) from the stage's 64 Q rows into
+    // this consumer's own boxes, in the swizzled layout, as the forward
+    // and the dq pass form them
+    {
+      const unsigned char* qs = sm + kv::OFF_STAGE + st * STAGE;
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int i = tid + 128 * it, r = i >> 3, j = i & 7;
+        const int c = hoff + 8 * (j ^ (r & 7));
+        const uint4 in = *reinterpret_cast<const uint4*>(qs + i * 16);
+        const uint4 bu = *reinterpret_cast<const uint4*>(ub + c);
+        const uint4 bv = *reinterpret_cast<const uint4*>(vb + c);
+        const bf16* hin = reinterpret_cast<const bf16*>(&in);
+        const bf16* hu = reinterpret_cast<const bf16*>(&bu);
+        const bf16* hv = reinterpret_cast<const bf16*>(&bv);
+        uint4 a, b;
+        bf16* ha = reinterpret_cast<bf16*>(&a);
+        bf16* hb = reinterpret_cast<bf16*>(&b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float qf = __bfloat162float(hin[e]);
+          ha[e] = __float2bfloat16(qf + __bfloat162float(hu[e]));
+          hb[e] = __float2bfloat16(qf + __bfloat162float(hv[e]));
+        }
+        *reinterpret_cast<uint4*>(qu + i * 16) = a;
+        *reinterpret_cast<uint4*>(qv + i * 16) = b;
+      }
+      // the generic-proxy writes, before the warpgroup's wgmma reads them
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
+    }
+
+    // QP = qv·Pwinᵀ over the consumer's window (stage rows 64w ..); each
+    // warp keeps the 80 columns its band reads
+    {
+      float qp[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) qp[i] = 0.f;
+      const uint64_t dp_k = hg::desc(stage + (2 + w) * BOX, 16, 1024);
+      hg::fence_acc(qp);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k)
+        hg::wgmma_n128<0, 0>(qp, dqv_a + 2 * k, dp_k + 2 * k, k);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      hg::fence_acc(qp);
+      const int jlo = 6 - 2 * warp;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (j >= jlo && j < jlo + 10)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<float2*>(sw + (g + 8 * i) * LDB +
+                                       8 * (j - jlo) + 2 * q4) =
+                make_float2(qp[4 * j + 2 * i], qp[4 * j + 2 * i + 1]);
+      __syncwarp();
+    }
+
+    // S = qu·K_wᵀ and dP = dO·V_wᵀ, K-major operands from shared memory
+    float s[32], dpv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dpv[i] = 0.f;
+    {
+      const uint64_t ddo_a = hg::desc(stage + BOX, 16, 1024);
+      hg::fence_acc(s);
+      hg::fence_acc(dpv);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k)
+        hg::wgmma_n64<0, 0>(s, dqu_a + 2 * k, dk_b + 2 * k, k);
+#pragma unroll
+      for (int k = 0; k < DH / 16; ++k)
+        hg::wgmma_n64<0, 0>(dpv, ddo_a + 2 * k, dv_b + 2 * k, k);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      hg::fence_acc(s);
+      hg::fence_acc(dpv);
+    }
+
+    // P = exp(s - lse) with the band, bd[r, c] = QP[r][c - r + 63], read
+    // at column c - gl + 15 of the warp's scratch; Pd and dS in bf16
+    // pairs into their [query][key] tiles
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int ih = (i >> 1) & 1, j = i >> 2, gl = g + 8 * ih;
+      const unsigned bits = kb[ih] >> (4 * j + 2 * odd);
+      float p2[2], d2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * q4 + e;
+        const float bd = sw[gl * LDB + c - gl + 15];
+        const float pr = row_ok[ih] && k0 + c < len
+                             ? __expf((s[i + e] + bd) * scale - lse_r[ih])
+                             : 0.f;
+        const float kf = keep_scale(dr, bits, e);
+        p2[e] = pr * kf;
+        d2[e] = pr * (dpv[i + e] * kf - dl_r[ih]) * scale;
+      }
+      const int r = 16 * warp + gl, c = 8 * j + 2 * q4;
+      store_pair(pd, r, c, hg::pack_bf16(p2[0], p2[1]));
+      store_pair(ds, r, c, hg::pack_bf16(d2[0], d2[1]));
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
+
+    // dV += Pdᵀ·dO and dK += dSᵀ·qu (all four MN-major)
+    hg::fence_acc(dva);
+    hg::fence_acc(dka);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+    mn_product(dva, pd_u, stage + BOX);
+    mn_product(dka, pd_u + BOX, qu_u);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    hg::fence_acc(dva);
+    hg::fence_acc(dka);
+    if (tid == 0) hg::mbar_arrive(empty + 8 * st);  // the stage is free
+    // every warp's products have read qu, Pd and dS before the next query
+    // tile writes them
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + w) : "memory");
+  }
+
+  // dK and dV in bf16; keys past the length are zeros
+#pragma unroll
+  for (int ih = 0; ih < 2; ++ih) {
+    const int key = k0 + 16 * warp + g + 8 * ih;
+    if (key >= T) continue;
+    const bool ok = key < len;
+    const size_t o = (row0 + key) * D + hoff + 2 * q4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * ih;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * j) =
+          ok ? __floats2bfloat162_rn(dka[i], dka[i + 1])
+             : __floats2bfloat162_rn(0.f, 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * j) =
+          ok ? __floats2bfloat162_rn(dva[i], dva[i + 1])
+             : __floats2bfloat162_rn(0.f, 0.f);
+    }
+  }
+}
+
+// One tile of the dK/dV pass's products alone, for a test on the card:
+// out (64 x 64 f32, row-major) = aᵀ·b for a, b (64 x 64 bf16, row-major),
+// a stored by the fragments' pairs as the pass stores Pd and dS, b in
+// 16-byte chunks at the places TMA writes dO, both read as the pass reads
+// them (`mn_product`). One warpgroup.
+__global__ void __launch_bounds__(128)
+    relpos_attention_bwd_tile(const bf16* __restrict__ a,
+                              const bf16* __restrict__ b,
+                              float* __restrict__ out) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + 2 * q4;
+    store_pair(sm, r, c, *reinterpret_cast<const uint32_t*>(a + r * 64 + c));
+  }
+  for (int i = tid; i < 64 * 8; i += 128) {
+    const int r = i >> 3, j = i & 7;
+    *reinterpret_cast<uint4*>(sm + BOX + r * 128 + ((j ^ (r & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(b + r * 64 + 8 * j);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  hg::fence_acc(d);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  mn_product(d, base, base + BOX);
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  hg::fence_acc(d);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    out[hg::frag_row(i) * 64 + hg::frag_col(i)] = d[i];
+}
+
 // The three launches of the Dh = 64 route, each checked.
 cudaError_t launch(const void* q, const void* k, const void* v, const void* p,
                    const void* ub, const void* vb, const void* lengths,
@@ -990,9 +1356,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* p,
       static_cast<float*>(dp), static_cast<float*>(dub),
       static_cast<float*>(dvb), N, T, H);
   CATK_TRY(cudaGetLastError());
-  return launch_wmma<DH, false>(q, k, v, p, ub, vb, lengths, lse, delta, dout,
-                                nullptr, dk, dv, nullptr, nullptr, nullptr, N,
-                                T, H, scale, dr, stream);
+  CATK_TRY(hg::prepare(relpos_attention_bwd_dkdv_wgmma, kv::SMEM, true));
+  relpos_attention_bwd_dkdv_wgmma<<<dim3(hg::cdiv(T, 128), H, N),
+                                    hg::THREADS, kv::SMEM, stream>>>(
+      mq, mk, mv, mp, mdo, static_cast<const bf16*>(ub),
+      static_cast<const bf16*>(vb), static_cast<const int*>(lengths),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, scale, dr);
+  return cudaGetLastError();
 }
 
 }  // namespace d64
@@ -1021,9 +1392,9 @@ extern "C" int relpos_attention_bwd(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   const Drop dr{(uint32_t)seed0, (uint32_t)seed1, (uint32_t)thr, inv};
   if (N <= 0 || T <= 0) return cudaSuccess;
-#define CATK_ATTN_BWD(DD)                                                    \
-  launch_wmma<DD, true>(q, k, v, p, ub, vb, lengths, lse, delta, dout, dq,  \
-                        dk, dv, dp, dub, dvb, N, T, H, scale, dr, s)
+#define CATK_ATTN_BWD(DD)                                               \
+  launch_wmma<DD>(q, k, v, p, ub, vb, lengths, lse, delta, dout, dq, dk, \
+                  dv, dp, dub, dvb, N, T, H, scale, dr, s)
   switch (Dh) {
     case 16: return CATK_ATTN_BWD(16);
     case 32: return CATK_ATTN_BWD(32);
@@ -1035,4 +1406,16 @@ extern "C" int relpos_attention_bwd(const void* q, const void* k,
     default: return cudaErrorInvalidValue;
   }
 #undef CATK_ATTN_BWD
+}
+
+// aᵀ·b of two 64 x 64 bf16 matrices into out (64 x 64 f32) through the
+// dK/dV pass's shared-memory layouts and MN-major products: a check of
+// those on the card, not a part of the backward.
+extern "C" int relpos_attention_bwd_tile(const void* a, const void* b,
+                                         void* out, void* stream) {
+  d64::relpos_attention_bwd_tile<<<1, 128, 1024 + 2 * d64::BOX,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<float*>(out));
+  return cudaGetLastError();
 }

@@ -41,10 +41,12 @@ wmma kernel (64 queries a block). The backward has two routes too
 (query tiles of 128, key tiles of 64, coordinates from `bwd_plan`) that
 writes dq and, as per-slot partials in a workspace, dp, du and dv_bias;
 a reduce kernel that sums the partials in a fixed order (`bwd_slots`);
-and the wmma kernel cut to dK and dV, whose key-major accumulators need
-no atomics: three launches, no atomics, the same bits on every call.
-Dh = 16, 32 and 128: the wmma kernel alone, which adds dq, dp, du and
-dv_bias with f32 atomics into zeroed buffers.
+and a key-major TMA + wgmma pass for dK and dV (key tiles of 128, query
+tiles of 64, coordinates from `bwd_kv_plan`) that recomputes the scores
+as the dq pass does and keeps dK and dV in registers: three launches,
+no atomics, the same bits on every call. Dh = 16, 32 and 128: a wmma
+kernel, which adds dq, dp, du and dv_bias with f32 atomics into zeroed
+buffers.
 """
 from __future__ import annotations
 
@@ -59,16 +61,18 @@ from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 NEG = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
 _FWD = {"relpos_attention_fwd": (9, 7, 2)}
-_BWD = {"relpos_attention_bwd": (19, 7, 2)}
+_BWD = {"relpos_attention_bwd": (19, 7, 2),
+        "relpos_attention_bwd_tile": (3, 0, 0)}
 # the Dh = 64 forward kernel's tiles: queries a block, keys a stage; the
 # Dh = 64 backward's dq pass has the same
 FWD_BQ, FWD_BK = 128, 64
 
 
 class FwdPlan(NamedTuple):
-    """Where the Dh = 64 forward kernel reads for one (query tile, key
-    tile, consumer), in rows of the utterance (q, k, v) or of the (2T-1)
-    table (p); TMA fills rows outside the tensor with zeros."""
+    """Where the Dh = 64 forward kernel (and, by `bwd_kv_plan`, the
+    backward's dK/dV pass) reads for one (query tile, key tile,
+    consumer), in rows of the utterance (q, k, v) or of the (2T-1) table
+    (p); TMA fills rows outside the tensor with zeros."""
     q_row: int          # first of the consumer's 64 query rows
     kv_row: int         # first of the 64 key rows (K and V boxes)
     p_rows: tuple       # first rows of the stage's three 64-row p boxes
@@ -113,8 +117,8 @@ class BwdPlan(NamedTuple):
 
 def bwd_route(Dh: int) -> str:
     """The backward kernels a head dimension takes: "wgmma" (Dh = 64: the
-    dq pass, the reduce and the wmma dK/dV kernel) or "wmma" (16, 32,
-    128: the wmma kernel alone)."""
+    dq pass, the reduce and the dK/dV pass) or "wmma" (16, 32, 128: the
+    wmma kernel alone)."""
     return "wgmma" if Dh == 64 else "wmma"
 
 
@@ -127,6 +131,21 @@ def bwd_plan(T: int, t0: int, s0: int, w: int) -> BwdPlan:
     flush_row = T-64-q_row+s0 ..; slot row = table row - (T-64-q_row)."""
     f = fwd_plan(T, t0, s0, w)
     return BwdPlan(f, f.band, f.q_row // 64, T - 64 - f.q_row + s0, s0)
+
+
+def bwd_kv_plan(T: int, t0: int, s0: int, w: int) -> FwdPlan:
+    """Coordinates of `relpos_attention_bwd_dkdv_wgmma` for the key tile
+    at s0 (a multiple of 128), the query tile at t0 (a multiple of 64)
+    and consumer w (keys s0 + 64w ..), in the fields of `fwd_plan`: the
+    stage holds 64 query rows from q_row and table rows p_rows[0] ..
+    p_rows[0] + 191, p_rows[0] = T-64-t0+s0; query t = q_row + r and key
+    s = kv_row + c read table row T-1-t+s, which is row win + band[r, c]
+    of the stage, column band[r, c] = c - r + 63 of the consumer's
+    128-row window from stage row win = 64w."""
+    w0 = T - 64 - t0 + s0
+    r = torch.arange(64)
+    return FwdPlan(t0, s0 + 64 * w, (w0, w0 + 64, w0 + 128), 64 * w,
+                   r[None, :] - r[:, None] + 63)
 
 
 def bwd_slot_rows(T: int, j: int, length: int) -> tuple:
@@ -349,6 +368,30 @@ def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
     return dq.to(q.dtype), dk, dv, dp, du, dvb
 
 
+def dkdv_tile_product(a, b):
+    """aᵀ·b (64, 64) f32 for a, b (64, 64) bf16: one tile of the Dh = 64
+    dK/dV pass's products (dV += Pdᵀ·dO, dK += dSᵀ·qu), with a stored as
+    that pass stores Pd and dS and b as TMA stores dO, both read MN-major
+    as the pass reads them. A check of those layouts, not a part of the
+    backward. A CPU tensor takes the plain product; a CUDA tensor
+    launches `relpos_attention_bwd_tile` or raises."""
+    if a.device.type == "cpu":
+        return a.float().T @ b.float()
+    if any(t.shape != (64, 64) or t.dtype != torch.bfloat16
+           or t.device != a.device for t in (a, b)):
+        raise ValueError("dkdv_tile_product: takes two (64, 64) bfloat16 "
+                         "tensors on one device")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty(64, 64, dtype=torch.float32, device=a.device)
+    err = _build.load("relpos_attention_bwd", _BWD).relpos_attention_bwd_tile(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(err, "relpos_attention_bwd_tile")
+    dkdv_tile_product.launches += 1
+    return out
+
+
+dkdv_tile_product.launches = 0
 relpos_attention_forward.launches = 0
 # launches by route (`fwd_route`); `launches` counts both
 relpos_attention_forward.routes = {"wgmma": 0, "wmma": 0}

@@ -20,9 +20,10 @@ Phases, any failure exits non-zero:
    both batches, the FF forward beside its two products alone by
    `torch.matmul`) and two calls of each, and of the attention forward
    (both batches), bit for bit; the attention backward through its
-   Dh = 64 wgmma route (the dq pass, the reduce and the wmma dK/dV
-   kernel: the three launches' device split, and all six outputs of two
-   calls bit for bit, at both rates); then the loss path's kernels at
+   Dh = 64 wgmma route (the dq pass, the reduce and the dK/dV pass: the
+   three launches' device split, which must show each of them and no
+   wmma backward kernel, and all six outputs of two calls bit for bit,
+   at both rates); then the loss path's kernels at
    the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
    3-gram denominator of `make_den`): the standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
@@ -409,7 +410,7 @@ def special_rows(t):
 # ffn_bwd.cu, glu_in.cu), and of the attention forward's and backward's
 # Dh = 64 routes
 STAGES = {"relpos_attention_fwd": ("wgmma",),
-          "relpos_attention_bwd": ("dq_wgmma", "reduce", "wmma"),
+          "relpos_attention_bwd": ("dq_wgmma", "reduce", "dkdv_wgmma"),
           "ffn_fwd": ("ln", "up", "down"),
           "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce"),
           "glu_in_fwd": ("ln", "up"),
@@ -418,9 +419,10 @@ STAGES = {"relpos_attention_fwd": ("wgmma",),
 
 def split_and_repro(name, call, what, calls=5):
     """The launches inside one call of a staged kernel (`STAGES`), device
-    ms by kernel name from torch.profiler over `calls` calls; and two
-    calls on the same inputs, which must give the same bits (no
-    atomics)."""
+    ms by kernel name from torch.profiler over `calls` calls, where each
+    stage must show device time and no other kernel of its own (named
+    `name`_...) may run; and two calls on the same inputs, which must
+    give the same bits (no atomics)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -432,6 +434,7 @@ def split_and_repro(name, call, what, calls=5):
             call()
         torch.cuda.synchronize()
     split, other = dict.fromkeys(STAGES[name], 0.0), 0.0
+    strays = set()
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -440,6 +443,8 @@ def split_and_repro(name, call, what, calls=5):
                       or f"{name}_{st}<" in e.name), None)
         if stage is None:
             other += us
+            if f"{name}_" in e.name:
+                strays.add(e.name[:100])
         else:
             split[stage] += us
     if sum(split.values()) == 0:
@@ -451,6 +456,10 @@ def split_and_repro(name, call, what, calls=5):
                 f"{k} {v / calls / 1e3:.4f}" for k, v in split.items())
             + f"; other {other / calls / 1e3:.4f}; sum "
             f"{(sum(split.values()) + other) / calls / 1e3:.4f}")
+        missing = [st for st, us in split.items() if us == 0]
+        if missing or strays:
+            fail(f"{name} ({what}): stages without device time {missing}, "
+                 f"other kernels of its own {sorted(strays)}")
     first, second = call(), call()
     if isinstance(first, torch.Tensor):
         first, second = (first,), (second,)

@@ -13,18 +13,24 @@ At Dh = 64 `relpos_attention_backward` launches three kernels of
   dqv (du and dv_bias partials);
 - `relpos_attention_bwd_reduce`, which sums the slots' dp rows and the
   du and dv_bias partials in a fixed order (utterance, then sub-tile);
-- the wmma kernel cut to dK and dV (key-major, 64 keys a block, walking
-  the query tiles of 64).
+- `relpos_attention_bwd_dkdv_wgmma`, a key-major pass (128 keys a
+  block, two consumers of 64, query tiles of 64 up to the utterance's
+  length, the window of `bwd_kv_plan`). A consumer keeps dK and dV in
+  registers, forms its own qu and qv from each query tile, recomputes
+  the scores with the band as the dq pass does, and adds Pdᵀ·dO and
+  dSᵀ·qu.
 No card and no nvcc here, so this file holds:
-- `bwd_plan` and the slot helpers of ops/attention.py, for T in {1, 63,
-  64, 65, 127, 128, 129, 300, 599}: every (query, key) pair scatters to
-  table row T-1-t+s, the slots' ranges cover every row a valid pair
-  writes, and no two flushes of one slot write the same row;
+- `bwd_plan`, `bwd_kv_plan` and the slot helpers of ops/attention.py,
+  for T in {1, 63, 64, 65, 127, 128, 129, 300, 599}: every (query, key)
+  pair scatters to, or reads, table row T-1-t+s, the slots' ranges cover
+  every row a valid pair writes, and no two flushes of one slot write
+  the same row;
 - a blocked emulation of the three kernels in f32 with those
   coordinates (query, key and dO boxes read from the utterances' rows
   stacked as one (N·T, D) matrix with zeros past its end, as the tensor
-  maps do; zero-filled table rows; the workspace filled with NaN first,
-  so that a slot row the schedule does not write shows). All six
+  maps do; zero-filled table rows; the workspace, dK, dV and the
+  consumers' qu and qv filled with NaN first, so that a row the schedule
+  does not write, or reads before it writes, shows). All six
   outputs are held against `relpos_attention_backward_reference` to
   1e-5 (absolute and relative) at dropout rates 0 and 0.1 on ragged
   lengths (1, mid-tile and T), and at rate 0 against `jax.grad` of the
@@ -39,8 +45,8 @@ import jax.numpy as jnp
 
 from cat_tpu.ops.attention_pallas import relpos_attention_reference
 from cat_tpu_torch.ops import attention
-from cat_tpu_torch.ops.attention import (FWD_BK, FWD_BQ, bwd_plan,
-                                         bwd_slot_rows, bwd_slots,
+from cat_tpu_torch.ops.attention import (FWD_BK, FWD_BQ, bwd_kv_plan,
+                                         bwd_plan, bwd_slot_rows, bwd_slots,
                                          bwd_workspace_rows)
 from cat_tpu_torch.ops.dropout import dropout_scale
 
@@ -148,39 +154,66 @@ def emulate_reduce(ws, wdu, wdv, lengths, T):
     return dp, du, dvb
 
 
-def emulate_dkdv(q, k, v, p, u, vb, lengths, lse, delta, dout, drop, scale):
-    """The wmma kernel cut to dK and dV: a block per 64-key tile walks the
-    query tiles of 64 with the 128-row window from T-1-t0-63+s0."""
+def emulate_dkdv_pass(q, k, v, p, u, vb, lengths, lse, delta, dout, drop,
+                      scale):
+    """`relpos_attention_bwd_dkdv_wgmma`: (dk, dv). A block per 128-key
+    tile, a consumer per 64 keys, walking the query tiles of 64 with the
+    window of `bwd_kv_plan`; dK, dV and the consumer's qu and qv start as
+    NaN."""
     N, T, H, Dh = q.shape
-    dk, dv = torch.zeros(N, T, H, Dh), torch.zeros(N, T, H, Dh)
+    qf, kf, vf, gf = (x.reshape(N * T, H, Dh) for x in (q, k, v, dout))
+    dk = torch.full((N, T, H, Dh), float("nan"))
+    dv = torch.full((N, T, H, Dh), float("nan"))
     r = torch.arange(64)
-    band = r[None, :] - r[:, None] + 63
     for n in range(N):
         L = int(lengths[n])
         for h in range(H):
-            for s0 in range(0, L, 64):
-                K = _rows(k[n, :, h], s0, 64)
-                V = _rows(v[n, :, h], s0, 64)
-                aK, aV = torch.zeros(64, Dh), torch.zeros(64, Dh)
-                for t0 in range(0, L, 64):
-                    Q = _rows(q[n, :, h], t0, 64)
-                    qu, qv = Q + u[h], Q + vb[h]
-                    dO = _rows(dout[n, :, h], t0, 64)
-                    win = _rows(p[:, h], T - 1 - t0 - 63 + s0, 128)
-                    S = (qu @ K.T + (qv @ win.T).gather(1, band)) * scale
-                    ok = (t0 + r < L)[:, None] & (s0 + r < L)[None, :]
-                    P = torch.where(
-                        ok, torch.exp(S - _rows(lse[n, h], t0, 64)[:, None]),
-                        0.0)
-                    keep = drop[n, h, t0:t0 + 64, s0:s0 + 64]
-                    dS = (P * ((dO @ V.T) * keep
-                               - _rows(delta[n, h], t0, 64)[:, None])
-                          * scale).to(q.dtype).float()
-                    aV += (P * keep).to(q.dtype).float().T @ dO
-                    aK += dS.T @ qu
-                rows = s0 + r[s0 + r < T]
-                dk[n, rows, h] = aK[:len(rows)]
-                dv[n, rows, h] = aV[:len(rows)]
+            for s0 in range(0, T, 128):
+                for w in (0, 1):
+                    k0 = bwd_kv_plan(T, 0, s0, w).kv_row
+                    rows = k0 + r[k0 + r < T]
+                    if k0 >= L:  # no valid key: zeros
+                        dk[n, rows, h] = 0.0
+                        dv[n, rows, h] = 0.0
+                        continue
+                    K = _rows(kf[:, h], n * T + k0, 64)
+                    V = _rows(vf[:, h], n * T + k0, 64)
+                    key_ok = k0 + r < L
+                    aK, aV = torch.zeros(64, Dh), torch.zeros(64, Dh)
+                    qu = torch.full((64, Dh), float("nan"))
+                    qv = torch.full((64, Dh), float("nan"))
+                    for t0 in range(0, L, 64):
+                        f = bwd_kv_plan(T, t0, s0, w)
+                        Q = _rows(qf[:, h], n * T + f.q_row, 64)
+                        qu[:], qv[:] = Q + u[h], Q + vb[h]
+                        dO = _rows(gf[:, h], n * T + f.q_row, 64)
+                        stage = torch.cat([_rows(p[:, h], x, 64)
+                                           for x in f.p_rows])
+                        win = stage[f.win:f.win + 128]
+                        bd = (qv @ win.T).gather(1, f.band)
+                        S = (qu @ K.T + bd) * scale
+                        row_ok = f.q_row + r < L
+                        lse_r = torch.where(row_ok,
+                                            _rows(lse[n, h], f.q_row, 64),
+                                            0.0)
+                        dl_r = torch.where(row_ok,
+                                           _rows(delta[n, h], f.q_row, 64),
+                                           0.0)
+                        ok = row_ok[:, None] & key_ok[None, :]
+                        P = torch.where(ok, torch.exp(S - lse_r[:, None]),
+                                        0.0)
+                        keep = drop[n, h, f.q_row:f.q_row + 64,
+                                    k0:k0 + 64]
+                        Pd = (P * keep).to(q.dtype).float()
+                        dS = (P * ((dO @ V.T) * keep - dl_r[:, None])
+                              * scale).to(q.dtype).float()
+                        aV += Pd.T @ dO
+                        aK += dS.T @ qu
+                    n_rows = len(rows)
+                    dk[n, rows, h] = torch.where(key_ok[:, None], aK,
+                                                 0.0)[:n_rows]
+                    dv[n, rows, h] = torch.where(key_ok[:, None], aV,
+                                                 0.0)[:n_rows]
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -195,8 +228,8 @@ def emulate(q, k, v, p, u, vb, lengths, out, lse, dout, scale, rate=0.0,
     dq, ws, wdu, wdv = emulate_dq_pass(q, k, v, p, u, vb, lengths, lse,
                                        delta, dout, drop, scale)
     dp, du, dvb = emulate_reduce(ws, wdu, wdv, lengths, T)
-    dk, dv = emulate_dkdv(q, k, v, p, u, vb, lengths, lse, delta, dout,
-                          drop, scale)
+    dk, dv = emulate_dkdv_pass(q, k, v, p, u, vb, lengths, lse, delta,
+                               dout, drop, scale)
     return dq, dk, dv, dp, du, dvb
 
 
@@ -257,6 +290,35 @@ def test_bwd_plan_scatters_the_band(T):
             assert len(rows_seen) == len(set(rows_seen))
             assert sorted(rows_seen) == list(range(rows))
             assert rows <= bwd_workspace_rows(T)
+
+
+@pytest.mark.parametrize("T", TS)
+def test_bwd_kv_plan_reads_the_band(T):
+    r = torch.arange(64)
+    for s0 in range(0, T, 128):
+        for w in (0, 1):
+            for t0 in range(0, T, 64):
+                f = bwd_kv_plan(T, t0, s0, w)
+                assert (f.q_row, f.kv_row) == (t0, s0 + 64 * w)
+                # three contiguous boxes, the first from T-64-t0+s0, and
+                # the consumer's 128-row window inside them
+                assert f.p_rows == tuple(T - 64 - t0 + s0 + 64 * b
+                                         for b in range(3))
+                assert f.win == 64 * w and f.win + 128 <= 192
+                assert ((f.band >= 0) & (f.band < 127)).all()
+                t = f.q_row + r[:, None]
+                s = f.kv_row + r[None, :]
+                # every pair reads its table row T-1-t+s
+                assert torch.equal(f.p_rows[0] + f.win + f.band,
+                                   T - 1 - t + s)
+                # the rows a valid pair reads lie in the table
+                row = f.p_rows[0] + f.win + f.band
+                valid = (t < T) & (s < T)
+                assert ((row[valid] >= 0) & (row[valid] < 2 * T - 1)).all()
+                # the band is the forward's: the same window column for
+                # the same (query, key) offsets
+                assert torch.equal(f.band,
+                                   attention.fwd_plan(T, 0, 0, 0).band)
 
 
 @pytest.mark.parametrize("T", TS)

@@ -352,8 +352,8 @@ def test_attention_forward_routes(gen):
 
 
 def test_attention_backward_routes(gen):
-    """Dh = 64 takes the wgmma route (the dq pass, the reduce and the wmma
-    dK/dV kernel), 16, 32 and 128 the wmma kernel alone; each call counts
+    """Dh = 64 takes the wgmma route (the dq pass, the reduce and the
+    dK/dV pass), 16, 32 and 128 the wmma kernel alone; each call counts
     once on `launches` and on its route."""
     bwd = attention.relpos_attention_backward
     for Dh in (16, 32, 64, 128):
@@ -366,6 +366,53 @@ def test_attention_backward_routes(gen):
         bwd(*args, out, lse, do)
         assert bwd.launches == total + 1
         assert bwd.routes == {**before, route: before[route] + 1}
+
+
+def test_dkdv_tile_product(gen):
+    """One tile of the Dh = 64 dK/dV pass's products, aᵀ·b through its
+    shared-memory layouts and MN-major descriptors, against torch.matmul
+    in f32 (the same bf16 products, summed in another order)."""
+    a = _rnd(gen, 64, 64, dtype=torch.bfloat16)
+    b = _rnd(gen, 64, 64, dtype=torch.bfloat16)
+    before = attention.dkdv_tile_product.launches
+    got = attention.dkdv_tile_product(a, b)
+    assert attention.dkdv_tile_product.launches == before + 1
+    torch.testing.assert_close(got, torch.matmul(a.float().T, b.float()),
+                               atol=1e-3, rtol=1e-3)
+
+
+# lengths (N = 3 or 4) with the dK/dV pass's edges: consumer 1 idle (a
+# block's first 64 keys hold the last valid one: 40, 64, 130), key blocks
+# wholly past the length, a last query tile that straddles the length
+# (91, 263, 299) or T
+DKDV_LENGTHS = {65: [65, 40, 1], 128: [128, 91, 64, 1],
+                129: [129, 128, 65, 3], 300: [300, 263, 130, 40],
+                493: [493, 299, 200, 64]}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T", sorted(DKDV_LENGTHS))
+def test_attention_backward_dkdv(gen, T, rate):
+    """dK and dV of the Dh = 64 route against the plain backward; keys
+    past the length are zeros."""
+    bf, H, Dh = torch.bfloat16, 8, 64
+    lengths = torch.tensor(DKDV_LENGTHS[T], device="cuda")
+    N = len(lengths)
+    q, k, v = (_rnd(gen, N, T, H, Dh, dtype=bf) for _ in range(3))
+    p = _rnd(gen, 2 * T - 1, H, Dh, s=0.5, dtype=bf)
+    u, vb = _rnd(gen, H, Dh, s=0.1, dtype=bf), _rnd(gen, H, Dh, s=0.1,
+                                                      dtype=bf)
+    valid = length_mask(lengths, T)
+    do = (_rnd(gen, N, T, H, Dh) * valid[..., None, None]).to(bf)
+    args = (q, k, v, p, u, vb, lengths)
+    kw = dict(rate=rate, seed=SEED)
+    out, lse = attention.relpos_attention_forward(*args, **kw)
+    got = attention.relpos_attention_backward(*args, out, lse, do, **kw)
+    want = attention.relpos_attention_backward_reference(*args, out, lse, do,
+                                                         **kw)
+    for name, a, b in zip(("dk", "dv"), got[1:3], want[1:3]):
+        _close(a, b)
+        assert (a[~valid] == 0).all(), name
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
