@@ -83,15 +83,19 @@ __device__ __forceinline__ void row_stats(const float (&v)[V][4], float eps,
   rstd = rsqrtf(warp_sum(ss) / D + eps);
 }
 
-// Four consecutive bf16 values as f32, and back (8-byte aligned).
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
+// Four consecutive bf16 values, as one uint2 holds them, as f32.
+__device__ __forceinline__ void unpack4(uint2 u, float (&v)[4]) {
   const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   v[0] = __low2float(a);
   v[1] = __high2float(a);
   v[2] = __low2float(b);
   v[3] = __high2float(b);
+}
+
+// Four consecutive bf16 values as f32, and back (8-byte aligned).
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  unpack4(*reinterpret_cast<const uint2*>(p), v);
 }
 
 __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {

@@ -83,36 +83,6 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
   }
 }
 
-// Dropout keep bits of a consumer thread's share of a 64 x 128 fragment:
-// rows row0 and row0 + 8, column pairs c0 + 8n, + 1 (n < 16, c0 even).
-// Each pair lies in one Philox group, which the thread shares with lane ^
-// 1: each of the two draws the groups of one row and they swap them, two
-// words at once. The 16 draws are independent, so their Philox rounds
-// interleave. Bits 4n .. 4n + 3 of kb[i][n / 8] (after a shift by
-// 4·(n % 8)) are the group of pair n in row row0 + 8i; the thread's two
-// columns are bits 2·(lane & 1) and + 1 of it (`keep_bits`).
-__device__ __forceinline__ void keep_tile(const Drop& dr, uint32_t stream,
-                                          int row0, int c0,
-                                          uint32_t (&kb)[2][2]) {
-  const int odd = threadIdx.x & 1;
-  uint32_t mine[2] = {0u, 0u};
-#pragma unroll
-  for (int n = 0; n < hg::BN / 8; ++n)
-    mine[n >> 3] |= keep4(dr, stream, 0, row0 + 8 * odd, (c0 + 8 * n) >> 2)
-                    << (4 * (n & 7));
-#pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine[w], 1);
-    kb[0][w] = odd ? other : mine[w];
-    kb[1][w] = odd ? mine[w] : other;
-  }
-}
-
-__device__ __forceinline__ unsigned keep_bits(const uint32_t (&kb)[2][2],
-                                              int i, int n) {
-  return (kb[i][n >> 3] >> (4 * (n & 7))) & 0xFu;
-}
-
 // ---- 2. up: a1 = drop0(SiLU(h . W1 + b1)) on tiles of 64 (PP) or 128
 // rows x 128 columns of (R, F), tile t at rows ROWS·(t / nf), columns
 // 128·(t % nf). Each consumer warp stages its 16 rows of a1 in shared
@@ -148,7 +118,7 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
         const int wrow = tl.m0 + ctx.rows + ((threadIdx.x & 127) >> 5) * 16;
         const int q = lane >> 2;
         uint32_t kb[2][2];
-        keep_tile(dr, 0, wrow + q, tl.n0 + hg::frag_col(0), kb);
+        hg::keep_tile(dr, 0, wrow + q, tl.n0 + hg::frag_col(0), kb);
 #pragma unroll
         for (int n = 0; n < hg::BN / 8; ++n) {
           const int cl = hg::frag_col(4 * n), c = tl.n0 + cl;
@@ -157,7 +127,7 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int r = q + 8 * i;
-            const unsigned bits = keep_bits(kb, i, n);
+            const unsigned bits = hg::keep_bits(kb, i, n);
             float av[2];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
@@ -212,7 +182,7 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
         const int odd = threadIdx.x & 1;
         const int row0 = tl.m0 + ctx.rows + hg::frag_row(0);  // and row0 + 8
         uint32_t kb[2][2];
-        keep_tile(dr, 1, row0, tl.n0 + hg::frag_col(0), kb);
+        hg::keep_tile(dr, 1, row0, tl.n0 + hg::frag_col(0), kb);
 #pragma unroll
         for (int n = 0; n < hg::BN / 8; ++n) {
           const int c = tl.n0 + hg::frag_col(4 * n);
@@ -224,7 +194,7 @@ __global__ void __launch_bounds__(hg::THREADS, 1)
             const size_t o = (size_t)row * D + c;
             const float2 xv = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(x + o));
-            const unsigned bits = keep_bits(kb, i, n);
+            const unsigned bits = hg::keep_bits(kb, i, n);
             float ov[2];
 #pragma unroll
             for (int j = 0; j < 2; ++j)

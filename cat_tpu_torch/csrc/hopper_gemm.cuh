@@ -6,7 +6,8 @@
 // (cat_tpu/ops/ffn_pallas.py:104). Its barriers, TMA loads, wgmma
 // wrappers (m64n128 and m64n64, A from shared memory or registers) and
 // host side also serve relpos_attention_fwd.cu's flash kernel, which runs
-// a loop of its own.
+// a loop of its own. `keep_tile` draws the dropout keep bits of a
+// fragment for the epilogues of ffn_fwd.cu and bn_out.cu.
 //
 // What bounds a product on the H100: 2·M·N·K operations at 989 TFLOP/s
 // bf16 against each operand read once at 3.35 TB/s; the FF backward's
@@ -53,6 +54,8 @@
 #include <stdint.h>
 
 #include <mutex>
+
+#include "common_math.cuh"
 
 // Returns from the enclosing host function with the CUDA error of `expr`
 // unless it is cudaSuccess.
@@ -276,6 +279,38 @@ __device__ __forceinline__ int frag_row(int r) {
 
 __device__ __forceinline__ int frag_col(int r) {
   return (r >> 2) * 8 + (threadIdx.x & 3) * 2 + (r & 1);
+}
+
+// ---- dropout in an epilogue (the Philox mask of common_math.cuh)
+// Dropout keep bits of a consumer thread's share of a 64 x 128 fragment:
+// rows row0 and row0 + 8, column pairs c0 + 8n, + 1 (n < 16, c0 even).
+// Each pair lies in one Philox group, which the thread shares with lane ^
+// 1: each of the two draws the groups of one row and they swap them, two
+// words at once. The 16 draws are independent, so their Philox rounds
+// interleave. Bits 4n .. 4n + 3 of kb[i][n / 8] (after a shift by
+// 4·(n % 8)) are the group of pair n in row row0 + 8i; the thread's two
+// columns are bits 2·(lane & 1) and + 1 of it (`keep_bits`).
+__device__ __forceinline__ void keep_tile(const catk::Drop& dr,
+                                          uint32_t stream, int row0, int c0,
+                                          uint32_t (&kb)[2][2]) {
+  const int odd = threadIdx.x & 1;
+  uint32_t mine[2] = {0u, 0u};
+#pragma unroll
+  for (int n = 0; n < BN / 8; ++n)
+    mine[n >> 3] |=
+        catk::keep4(dr, stream, 0, row0 + 8 * odd, (c0 + 8 * n) >> 2)
+        << (4 * (n & 7));
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine[w], 1);
+    kb[0][w] = odd ? other : mine[w];
+    kb[1][w] = odd ? mine[w] : other;
+  }
+}
+
+__device__ __forceinline__ unsigned keep_bits(const uint32_t (&kb)[2][2],
+                                              int i, int n) {
+  return (kb[i][n >> 3] >> (4 * (n & 7))) & 0xFu;
 }
 
 // The mainloop. Every thread of a block of THREADS calls it once, with

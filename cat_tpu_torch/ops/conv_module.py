@@ -16,34 +16,40 @@ Replaces the TPU kernels `_glu_in_fwd_kernel`, `_glu_in_bwd_kernel`,
 and `_bn_out_core`). `fused_glu_in` and `fused_bn_out` are
 `torch.autograd.Function`s; their forwards call `glu_in_forward` and
 `bn_out_forward` and their backwards `glu_in_backward` and
-`bn_out_backward`: CUDA kernels in `cat_tpu_torch/csrc/glu_in.cu` (both
-glu_in directions) and `conv_module_fwd.cu` / `conv_module_bwd.cu`
-(bn_out). On a CPU tensor each takes its plain version
-(`glu_in_reference`, `glu_in_backward_reference`, `bn_out_reference`,
-`bn_out_backward_reference`); each counts its kernel launches. The
-bn_out backward also returns d(mean) and d(var), so that autograd
-completes the batch statistics -> conv output chain outside the kernel,
-as the TPU kernel does; dx of bn_out is dO itself (the residual).
+`bn_out_backward`: CUDA kernels in `cat_tpu_torch/csrc/glu_in.cu` and
+`bn_out.cu` (both directions each). On a CPU tensor each takes its plain
+version (`glu_in_reference`, `glu_in_backward_reference`,
+`bn_out_reference`, `bn_out_backward_reference`); each counts its kernel
+launches. The bn_out backward also returns d(mean) and d(var), so that
+autograd completes the batch statistics -> conv output chain outside the
+kernel, as the TPU kernel does; dx of bn_out is dO itself (the residual).
 
 What bounds them on the H100, at the training batch's R = 15,776 rows
 (12,664 valid) and D = 512: the glu_in forward does 4·R·D² operations
 (0.0134 ms over the valid rows at 989 TFLOP/s), its backward 12·R·D²
-(0.040 ms). Both run as stages inside one C call, the products on the
-Hopper GEMM mainloop of `csrc/hopper_gemm.cuh` (TMA and wgmma) with the
-GLU and its backward fused into the epilogues, and sum in a fixed order
-without atomics, so two calls on the same inputs give the same bits and
-every gradient output is written whole (see glu_in.cu): the forward is a
+(0.040 ms); bn_out 2·R·D² forward (bound by its 39 MB of rows, 0.0118
+ms) and 4·R·D² backward (0.0134 ms). All four run as stages inside one C
+call each, the products on the Hopper GEMM mainloop of
+`csrc/hopper_gemm.cuh` (TMA and wgmma) with the elementwise work fused
+into the epilogues, and sum in a fixed order without atomics, so two
+calls on the same inputs give the same bits and every gradient output is
+written whole (see glu_in.cu and bn_out.cu). glu_in: the forward is a
 LayerNorm row pass to bf16 scratch h, then the product h . W with bias,
 GLU and mask in its epilogue; the backward recomputes h and the product,
 whose epilogue writes dh2 = [du | dg] as bf16 scratch, then dh = dh2 .
 W^T, the LayerNorm backward, dW = h^T . dh2 split over rows into an f32
 workspace (`glu_in_bwd_workspace`), and a pass that sums every partial.
-bn_out does 2·R·D² operations forward and 4·R·D² backward; its kernels
-keep the activated rows of a 32-row block in shared memory as bf16 while
-the output is produced 64 columns at a time (legacy wmma), and add the
-backward's sums with f32 atomics.
+bn_out: the forward is a BN + SiLU row pass to bf16 scratch y, then the
+product y . W with bias, dropout, mask and residual in its epilogue; the
+backward is a row pass (y, dh = drop(dO · mask) and the db partials),
+dy = dh . W^T with the SiLU and BN backward and the dscale and dbias
+partials in its epilogue, dW = y^T . dh split over rows into an f32
+workspace, and a pass that sums every partial; `bn_out_plan` chooses the
+split and sizes the workspace.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,12 +60,43 @@ from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 LN_EPS = 1e-6
 BN_EPS = 1e-5
 _DIMS = (128, 256, 384, 512)
-# the C entries of csrc/glu_in.cu, conv_module_fwd.cu and conv_module_bwd.cu:
-# (pointers, ints, floats)
+# the C entries of csrc/glu_in.cu and bn_out.cu: (pointers, ints, floats)
 _GLU = {"glu_in_fwd": (8, 2, 0), "glu_in_bwd": (15, 3, 0),
         "glu_in_bwd_workspace": (0, 2, 0)}
-_FWD = {"bn_out_fwd": (10, 5, 1)}
-_BWD = {"bn_out_bwd": (17, 5, 1)}
+_BN = {"bn_out_fwd": (11, 5, 1), "bn_out_bwd": (18, 8, 1)}
+# rows of a column-partial block of the bn_out backward (its row pass's
+# blocks and its down product's tiles) and of a block of K in its wgrad
+# product; at most this many splits of R in that product, which are
+# chosen to fill the 132 SMs of an H100 SXM once
+BN_ROWS = 64
+BN_MAX_SPLITS = 16
+SMS = 132
+
+
+class BnOutPlan(NamedTuple):
+    """The bn_out backward's launch plan for R rows of width D."""
+    blocks: int     # 64-row blocks of R: column partials and wgrad's K
+    splits: int     # splits of R in the wgrad product
+    per: int        # blocks a split (the last may have fewer)
+    ws_floats: int  # f32 workspace: 3 column partials, weight partials
+
+
+def bn_out_plan(R: int, D: int) -> BnOutPlan:
+    """The wgrad split: as many splits as fill the SMs once with the
+    (D/128)² output tiles of 128 x 128, at most BN_MAX_SPLITS, none
+    empty; the workspace holds the db, sum dy0 and sum dy0·xn partials of
+    every block, then one (D, D) partial a split when R is split.
+    `csrc/bn_out.cu` refuses a plan whose splits do not cover every block
+    exactly once or whose workspace is short."""
+    blocks = -(-R // BN_ROWS)
+    tiles = (D // 128) ** 2
+    splits = 1
+    if blocks > 1:
+        s = max(1, min(BN_MAX_SPLITS, SMS // tiles, blocks))
+        splits = -(-blocks // -(-blocks // s))
+    per = -(-blocks // splits)
+    ws = 3 * blocks * D + (splits * D * D if splits > 1 else 0)
+    return BnOutPlan(blocks, splits, per, ws)
 
 
 def glu_in_reference(x, mask, gamma, beta, w, b):
@@ -259,9 +296,9 @@ def bn_out_forward(conv, x, mask, mean, var, scale, bias, w, b, rate=0.0,
                                 rate, seed)
     args, R, D = _bn_operands(conv, x, mask, mean, var, scale, bias, w, b)
     drop, inv = kernel_args(rate, seed)
-    out = torch.empty_like(args[1])
-    err = _build.load("conv_module_fwd", _FWD).bn_out_fwd(
-        *(t.data_ptr() for t in args), out.data_ptr(), R, D, *drop, inv,
+    out, y = torch.empty_like(args[1]), torch.empty_like(args[1])
+    err = _build.load("bn_out", _BN).bn_out_fwd(
+        *(t.data_ptr() for t in (*args, out, y)), R, D, *drop, inv,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bn_out_fwd")
     bn_out_forward.launches += 1
@@ -272,7 +309,9 @@ def bn_out_backward(conv, x, mask, mean, var, scale, bias, w, b, dout,
                     rate=0.0, seed=None):
     """(dconv, dmean, dvar, dscale, dbias, dw, db) of `fused_bn_out`. A
     CPU tensor takes `bn_out_backward_reference`; a CUDA tensor launches
-    `conv_module_bwd.cu` (the shapes of `bn_out_forward`) or raises."""
+    `bn_out.cu` (the shapes of `bn_out_forward`, the plan of
+    `bn_out_plan`) or raises. Every output is written whole by the
+    kernels."""
     if x.device.type == "cpu":
         return bn_out_backward_reference(conv, x, mask, mean, var, scale,
                                          bias, w, b, dout, rate, seed)
@@ -280,15 +319,20 @@ def bn_out_backward(conv, x, mask, mean, var, scale, bias, w, b, dout,
     drop, inv = kernel_args(rate, seed)
     c, _, m, mu, vr, sc, bi, wb, _ = args
     do = dout.reshape(R, D).to(torch.bfloat16).contiguous()
-    new = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=x.device)
-    zeros = lambda *s: torch.zeros(*s, dtype=torch.float32, device=x.device)
+    _check_operands("fused_bn_out", x, [do])
+    plan = bn_out_plan(R, D)
+    bf, f32 = torch.bfloat16, torch.float32
+    new = lambda *s, dt=bf: torch.empty(*s, dtype=dt, device=x.device)
     dc, y, dh = new(R, D), new(R, D), new(R, D)
-    dmu, dvar, dsc, dbi, dw, db = (zeros(D), zeros(D), zeros(D), zeros(D),
-                                   zeros(D, D), zeros(D))
-    err = _build.load("conv_module_bwd", _BWD).bn_out_bwd(
+    dmu, dvar, dsc, dbi, dw, db = (new(D, dt=f32), new(D, dt=f32),
+                                   new(D, dt=f32), new(D, dt=f32),
+                                   new(D, D, dt=f32), new(D, dt=f32))
+    ws = new(plan.ws_floats, dt=f32)
+    err = _build.load("bn_out", _BN).bn_out_bwd(
         *(t.data_ptr() for t in (c, m, mu, vr, sc, bi, wb, do)),
-        *(t.data_ptr() for t in (dc, y, dh, dmu, dvar, dsc, dbi, dw, db)),
-        R, D, *drop, inv, torch.cuda.current_stream(x.device).cuda_stream)
+        *(t.data_ptr() for t in (dc, y, dh, dmu, dvar, dsc, dbi, dw, db, ws)),
+        R, D, plan.splits, plan.per, plan.ws_floats // 64, *drop, inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bn_out_bwd")
     bn_out_backward.launches += 1
     return dc.view(x.shape), dmu, dvar, dsc, dbi, dw, db

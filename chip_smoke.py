@@ -15,17 +15,18 @@ Phases, any failure exits non-zero:
    utterance identical (as SpecAugment's time masks leave them after
    subsampling), constant or zero; the JSON records time the training
    batch at rate 0.1; no single PyTorch call computes any of these
-   functions, so `library_ms` is null; the FF and glu_in forwards' and
-   backwards' launches inside one call (torch.profiler; the forwards at
-   both batches, the FF forward beside its two products alone by
-   `torch.matmul`) and two calls of each, and of the attention forward
-   (both batches), bit for bit; the attention backward through its
-   Dh = 64 wgmma route (the dq pass, the reduce and the dK/dV pass: the
-   three launches' device split, which must show each of them and no
-   wmma backward kernel, and all six outputs of two calls bit for bit,
-   at both rates); then the loss path's kernels at
-   the training batch (N = 32, T' = 299..493, U = 74..123, V = 72, the
-   3-gram denominator of `make_den`): the standalone dropout bit for bit
+   functions, so `library_ms` is null; the FF, glu_in and bn_out
+   forwards' and backwards' launches inside one call (torch.profiler;
+   the forwards at both batches, bn_out's backward too, the FF forward
+   beside its two products alone by `torch.matmul`) and two calls of
+   each, and of the attention forward (both batches), bit for bit; the
+   attention backward through its Dh = 64 wgmma route (the dq pass, the
+   reduce and the dK/dV pass: the three launches' device split, which
+   must show each of them and no wmma backward kernel, and all six
+   outputs of two calls bit for bit, at both rates); then the loss
+   path's kernels at the training batch (N = 32, T' = 299..493, U =
+   74..123, V = 72, the 3-gram denominator of `make_den`): the
+   standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
    betas on live states within 1e-3 + 2e-6·|plain| and the rest floored
    on both sides, the CTC log-likelihood and the den logZ to 1e-5
@@ -90,6 +91,9 @@ Phases, any failure exits non-zero:
 With --profile, one serving forward and the two train steps also run
 under torch.profiler; the device time by kernel is printed and written to
 chiprun_out/profile.txt, profile_train.txt and profile_rnnt_train.txt.
+Annotation ranges on the device's timeline, such as the optimizer step's,
+are printed on a line of their own, outside the device time and the busy
+share.
 
 The last two lines are the per-kernel JSON record and the result line
 {"ok": true, "device": {...}}. Needs CUDA; imports nothing of JAX.
@@ -353,6 +357,15 @@ def phase_kernels(gen):
     errs["bn_out_fwd"] = compare(
         "bn_out_fwd", conv_module.bn_out_forward(c, x, mask, *bnp),
         conv_module.bn_out_reference(c, x, mask, *bnp))
+    split_and_repro("bn_out_fwd",
+                    lambda: conv_module.bn_out_forward(c, x, mask, *bnp),
+                    f"serving batch, R={N * T}, rate 0")
+    do = _rnd(gen, N, T, D, dtype=bf)
+    split_and_repro("bn_out_bwd",
+                    lambda: conv_module.bn_out_backward(
+                        c, x, mask, *bnp, do, rate=0.1, seed=SEED),
+                    f"serving batch, R={N * T}, rate 0.1, "
+                    f"{conv_module.bn_out_plan(N * T, D).splits} wgrad splits")
 
     # rel-pos attention: the serving batch (T' > 512) and, without its
     # longest utterance, a batch of at most 512 frames; out and lse at
@@ -407,14 +420,16 @@ def special_rows(t):
 
 
 # the launches inside one call of each staged kernel (csrc/ffn_fwd.cu,
-# ffn_bwd.cu, glu_in.cu), and of the attention forward's and backward's
-# Dh = 64 routes
+# ffn_bwd.cu, glu_in.cu, bn_out.cu), and of the attention forward's and
+# backward's Dh = 64 routes
 STAGES = {"relpos_attention_fwd": ("wgmma",),
           "relpos_attention_bwd": ("dq_wgmma", "reduce", "dkdv_wgmma"),
           "ffn_fwd": ("ln", "up", "down"),
           "ffn_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce"),
           "glu_in_fwd": ("ln", "up"),
-          "glu_in_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce")}
+          "glu_in_bwd": ("prep", "up", "down", "ln", "wgrad", "reduce"),
+          "bn_out_fwd": ("rows", "product"),
+          "bn_out_bwd": ("prep", "down", "wgrad", "reduce")}
 
 
 def split_and_repro(name, call, what, calls=5):
@@ -615,7 +630,7 @@ def phase_backward_kernels(gen, rec):
                       1),
                 4 * Rv * D * D, 2 * Rv * D * 2 + Rv * 4 + 2 * D * D * 2 + 4 * D * 4,
                 what + " (no dropout)")
-        rec.add("bn_out_fwd", "cat_tpu_torch/csrc/conv_module_fwd.cu",
+        rec.add("bn_out_fwd", "cat_tpu_torch/csrc/bn_out.cu",
                 "cat_tpu/ops/conv_module_pallas.py:237",
                 compare("bn_out_fwd",
                         conv_module.bn_out_forward(c, x, mask, *bnp, **kw),
@@ -667,7 +682,7 @@ def phase_backward_kernels(gen, rec):
         split_and_repro("glu_in_fwd",
                         lambda: conv_module.glu_in_forward(x, mask, *glp),
                         "training batch")
-        rec.add("bn_out_bwd", "cat_tpu_torch/csrc/conv_module_bwd.cu",
+        rec.add("bn_out_bwd", "cat_tpu_torch/csrc/bn_out.cu",
                 "cat_tpu/ops/conv_module_pallas.py:261", e_bn,
                 timed(lambda: conv_module.bn_out_backward(c, x, mask, *bnp, do,
                                                           **kw), 10, 2),
@@ -675,6 +690,16 @@ def phase_backward_kernels(gen, rec):
                     c, x, mask, *bnp, do, **kw), 3, 1),
                 4 * Rv * D * D,
                 3 * Rv * D * 2 + Rv * 4 + D * D * (2 + 4) + 10 * D * 4, what)
+        split_and_repro("bn_out_bwd",
+                        lambda: conv_module.bn_out_backward(c, x, mask, *bnp,
+                                                            do, **kw),
+                        f"training batch, rate {rate}, "
+                        f"{conv_module.bn_out_plan(R, D).splits} wgrad "
+                        f"splits")
+        split_and_repro("bn_out_fwd",
+                        lambda: conv_module.bn_out_forward(c, x, mask, *bnp,
+                                                           **kw),
+                        f"training batch, rate {rate}")
         # eight L x L x Dh products per utterance and head (scores and
         # position scores recomputed, dO.V^T, dV, dK, dq's two, dp); q, k,
         # v, dO read and dq, dk, dv written for the valid rows, p read and
@@ -1655,7 +1680,10 @@ def phase_rnnt_training(cfg, profile):
 def phase_profile(fn, what, path):
     """Device time of fn() by kernel (torch.profiler), and the device's
     busy share over the span from its first kernel's start to its last
-    kernel's end."""
+    kernel's end. User annotation ranges on the device's timeline (the
+    `Optimizer.step#...` range around Adam's launches) are no kernels:
+    they are left out of the device time, the span and the busy share and
+    printed on a line of their own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1666,7 +1694,17 @@ def phase_profile(fn, what, path):
     with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels, ranges = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        annotation = getattr(e, "is_user_annotation", False) \
+            or e.name.startswith("Optimizer.")
+        (ranges if annotation else kernels).append(e)
+    if ranges:
+        log(f"[profile] {what}: annotation ranges left out: " + ", ".join(
+            f"{e.name} {(e.time_range.end - e.time_range.start) / 1e3:.3f} "
+            f"ms" for e in ranges))
     if not kernels:
         log("[profile] the profiler recorded no device time: not measured")
         return

@@ -14,12 +14,13 @@ Tolerance (`cat_tpu_torch.utils.tolerance`): bf16 outputs |kernel - plain|
 <= 0.02 + 0.02·|plain|; f32 gradients that are sums over many rows
 (weight, bias, norm, position and statistics gradients) ||kernel - plain||
 / ||plain|| <= 1e-2, because their bf16 operands are summed in another
-order, partly by atomics. The loss kernels (f32), as chip_smoke.py holds
-them: dropout bit for bit; CTC states live in the plain version (above
-LOG_EPS / 2) within 1e-3 + 2e-6·|plain|, den snapshots there within 1e-5
-relative, the other states at or below LOG_EPS / 2 in both; den logZ to
-1e-5 relative; gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|;
-RNN-T states as the CTC ones.
+order (by atomics in the attention backward at Dh 16, 32 and 128).
+The loss kernels (f32), as chip_smoke.py holds them: dropout bit for
+bit; CTC states live in the plain version (above LOG_EPS / 2) within
+1e-3 + 2e-6·|plain|, den snapshots there within 1e-5 relative, the other
+states at or below LOG_EPS / 2 in both; den logZ to 1e-5 relative;
+gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|; RNN-T states as
+the CTC ones.
 """
 import numpy as np
 import pytest
@@ -262,6 +263,70 @@ def test_glu_in_kernels_are_reproducible(gen, D, R):
     second = conv_module.glu_in_backward(x, m, *g, do)
     for name, a, b in zip("x gamma beta w b".split(), first, second):
         assert torch.equal(a, b), name
+
+
+def _bn_inputs(gen, D, R, mask="ragged"):
+    """conv, x, dO (1, R, D) bf16 with identical, constant and zero rows
+    where R allows; mask (1, R) as `_glu_inputs`; the bn_out parameters
+    (mean, var, scale, bias, W (D, D), b)."""
+    bf = torch.bfloat16
+    c = _special_rows(_rnd(gen, 1, R, D, dtype=bf))
+    x = _rnd(gen, 1, R, D, dtype=bf)
+    do = _special_rows(_rnd(gen, 1, R, D, dtype=bf))
+    m = torch.rand(1, R, generator=gen, device="cuda") > 0.2
+    m = {"ragged": m, "zero": torch.zeros_like(m), "one": torch.ones_like(m)}
+    b = (_rnd(gen, D, s=0.1), 1 + _rnd(gen, D, s=0.2).abs(),
+         1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+         _rnd(gen, D, D, s=D ** -0.5), _rnd(gen, D, s=0.1))
+    return c, x, do, m[mask], b
+
+
+# every width; row counts R of 0, below 64, around the 64-row blocks of
+# the backward's prep pass and the 64-row tiles of both directions'
+# row-wise products, around the 128-row tiles of wgrad's output, and
+# 4,097 (wgrad split over R into the workspace); masks ragged, all off and
+# all on; rates 0 and 0.1
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mask", ["ragged", "zero", "one"])
+@pytest.mark.parametrize("D,R", GLU_SHAPES)
+def test_bn_out_kernels(gen, D, R, mask, rate):
+    c, x, do, m, b = _bn_inputs(gen, D, R, mask)
+    kw = dict(rate=rate, seed=SEED)
+    before = (conv_module.bn_out_forward.launches,
+              conv_module.bn_out_backward.launches)
+    out = conv_module.bn_out_forward(c, x, m, *b, **kw)
+    _close(out, conv_module.bn_out_reference(c, x, m, *b, **kw))
+    assert torch.equal(out[~m], x[~m])  # masked rows are x itself
+    got = conv_module.bn_out_backward(c, x, m, *b, do, **kw)
+    assert (conv_module.bn_out_forward.launches,
+            conv_module.bn_out_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = conv_module.bn_out_backward_reference(c, x, m, *b, do, **kw)
+    _close(got[0], want[0])
+    names = "conv mean var scale bias w b".split()
+    for name, a, b_ in zip(names[1:], got[1:], want[1:]):
+        assert a.shape == b_.shape, name
+        _rel(a, b_, "bn_out " + name)
+    if mask == "zero" or R == 0:  # no row passes a gradient
+        for name, a in zip(names, got):
+            assert not a.any(), name
+
+
+# the training (R = 15,776) and serving (R = 4,792) batches at D = 512;
+# the backward's weight gradient split over R (summed by the reduce pass)
+# there and at 4,097, unsplit at R = 37; both directions at rate 0.1
+@pytest.mark.parametrize("D,R", [(512, 15776), (512, 4792), (128, 4097),
+                                 (384, 37)])
+def test_bn_out_kernels_are_reproducible(gen, D, R):
+    c, x, do, m, b = _bn_inputs(gen, D, R)
+    kw = dict(rate=0.1, seed=SEED)
+    assert torch.equal(conv_module.bn_out_forward(c, x, m, *b, **kw),
+                       conv_module.bn_out_forward(c, x, m, *b, **kw))
+    first = conv_module.bn_out_backward(c, x, m, *b, do, **kw)
+    second = conv_module.bn_out_backward(c, x, m, *b, do, **kw)
+    for name, a, b_ in zip("conv mean var scale bias w b".split(), first,
+                           second):
+        assert torch.equal(a, b_), name
 
 
 # Dh = 64 takes the TMA + wgmma kernel (128-query tiles, 64-key stages):

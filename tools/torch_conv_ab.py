@@ -1,10 +1,13 @@
-"""Time the conv module's glu_in kernels of several checkouts of this repo on one card.
+"""Time the conv module's kernels of several checkouts of this repo on one card.
 
-`cat_tpu_torch.ops.conv_module.glu_in_backward` (PERF.md §6 row 15) and
-`glu_in_forward` (row 14) at chip_smoke.py's crf-v1 training batch
+`cat_tpu_torch.ops.conv_module.glu_in_backward` (PERF.md §6 row 15),
+`glu_in_forward` (row 14), `bn_out_backward` (row 17) and
+`bn_out_forward` (row 16) at chip_smoke.py's crf-v1 training batch
 (R = 32 x 493 = 15,776 rows, D = 512) and serving batch (R = 8 x 599 =
 4,792 rows), bf16, with the valid-frame mask of each batch's utterance
-lengths; CUDA events over 20 calls after 3 warm-up calls. Each checkout
+lengths; bn_out at dropout 0.1 as in training, its forward at the
+serving batch at 0 as in serving, and on 64 rows (the host cost of a
+call); CUDA events over 20 calls after 3 warm-up calls. Each checkout
 runs in its own process, which builds that checkout's kernels into its
 own `build/kernels/`. The checkouts run in the order given and then in
 reverse (A, B, B, A for two), so that drift of the card's clocks shows as
@@ -35,11 +38,19 @@ def _subsampled(frames):
 TRAIN = [_subsampled(1200 + 25 * k) for k in range(32)]
 SERVE = [_subsampled(f) for f in (2400, 1600, 1400, 1200, 1000, 800, 600,
                                   400)]
-# case: (function, lengths)
-CASES = {"glu_in_backward train": ("glu_in_backward", TRAIN),
-         "glu_in_forward train": ("glu_in_forward", TRAIN),
-         "glu_in_backward serve": ("glu_in_backward", SERVE),
-         "glu_in_forward serve": ("glu_in_forward", SERVE)}
+SEED = (0x2468ACE0, 0x13579BDF)
+# case: (function, lengths, dropout rate)
+CASES = {"glu_in_backward train": ("glu_in_backward", TRAIN, 0.0),
+         "glu_in_forward train": ("glu_in_forward", TRAIN, 0.0),
+         "glu_in_backward serve": ("glu_in_backward", SERVE, 0.0),
+         "glu_in_forward serve": ("glu_in_forward", SERVE, 0.0),
+         "bn_out_backward train": ("bn_out_backward", TRAIN, 0.1),
+         "bn_out_forward train": ("bn_out_forward", TRAIN, 0.1),
+         "bn_out_backward serve": ("bn_out_backward", SERVE, 0.1),
+         "bn_out_forward serve": ("bn_out_forward", SERVE, 0.0),
+         # 64 rows: the device work is a few microseconds, the rest is the
+         # host cost of a call (wrapper, tensor maps, launches)
+         "bn_out_forward 64 rows": ("bn_out_forward", [64], 0.1)}
 
 
 def child(tree: str) -> None:
@@ -59,17 +70,27 @@ def child(tree: str) -> None:
 
     p = (1 + rnd(D, s=0.1), rnd(D, s=0.1),
          rnd(D, 2 * D, s=D ** -0.5, dtype=torch.bfloat16), rnd(2 * D, s=0.1))
+    bn = (rnd(D, s=0.1), 1 + rnd(D, s=0.2).abs(), 1 + rnd(D, s=0.1),
+          rnd(D, s=0.1), rnd(D, D, s=D ** -0.5, dtype=torch.bfloat16),
+          rnd(D, s=0.1))
     out = {}
-    for case, (fn, lengths) in CASES.items():
+    for case, (fn, lengths, rate) in CASES.items():
         N, T = len(lengths), max(lengths)
         x = rnd(N, T, D, dtype=torch.bfloat16)
+        c = rnd(N, T, D, dtype=torch.bfloat16)
         do = rnd(N, T, D, dtype=torch.bfloat16)
         mask = (torch.arange(T, device="cuda")[None, :]
                 < torch.tensor(lengths, device="cuda")[:, None])
-        if fn == "glu_in_backward":
-            call = lambda: conv_module.glu_in_backward(x, mask, *p, do)  # noqa: E731
-        else:
-            call = lambda: conv_module.glu_in_forward(x, mask, *p)  # noqa: E731
+        kw = dict(rate=rate, seed=SEED)
+        call = {
+            "glu_in_backward":
+                lambda: conv_module.glu_in_backward(x, mask, *p, do),
+            "glu_in_forward": lambda: conv_module.glu_in_forward(x, mask, *p),
+            "bn_out_backward":
+                lambda: conv_module.bn_out_backward(c, x, mask, *bn, do, **kw),
+            "bn_out_forward":
+                lambda: conv_module.bn_out_forward(c, x, mask, *bn, **kw),
+        }[fn]
         for _ in range(3):
             call()
         start = torch.cuda.Event(enable_timing=True)
@@ -105,10 +126,10 @@ def main() -> None:
             raise SystemExit(f"{tree}: exit {out.returncode}\n"
                              f"{out.stderr[-4000:]}")
         for case, ms in json.loads(out.stdout.strip().splitlines()[-1]).items():
-            fn, lengths = CASES[case]
+            fn, lengths, rate = CASES[case]
             runs.append({"tree": tree, "case": case, "ms": ms})
             print(f"{fn} {tree}: {ms:.4f} ms (R={len(lengths) * max(lengths)},"
-                  f" {sum(lengths)} valid, D={D})", flush=True)
+                  f" {sum(lengths)} valid, D={D}, rate {rate})", flush=True)
     print(json.dumps({"device": smi, "runs": runs}))
 
 

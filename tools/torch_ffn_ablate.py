@@ -37,8 +37,10 @@ sys.path.insert(0, REPO)
 D, F = 512, 2048
 TRAIN, SERVE = 32 * 493, 8 * 599
 KEEP = "const unsigned mine = keep4(dr, 0, 0, row0 + 8 * odd, c >> 2);"
-FWD_KEEP = "mine[n >> 3] |= keep4(dr, stream, 0, row0 + 8 * odd, (c0 + 8 * n) >> 2)"
-FWD_NO_KEEP = "mine[n >> 3] |= 0xFu"
+# the forward's epilogues draw their keep bits with hg::keep_tile; a
+# threshold of 0 keeps every value without Philox
+FWD_KEEP = "hg::keep_tile(dr, "
+FWD_NO_KEEP = "hg::keep_tile(Drop{0u, 0u, 0u, 1.f}, "
 NO_KEEP = "const unsigned mine = 0xFu;"
 SIGMOID = "const float sg = __fdividef(1.f, 1.f + __expf(-v));"
 FWD_STORE = "          if (row < R && c < F)"
