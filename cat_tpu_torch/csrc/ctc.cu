@@ -128,6 +128,22 @@ cudaError_t prepare(K kernel, int S, dim3& threads, size_t& smem) {
   return cudaSuccess;
 }
 
+// `ops/ctc.py` `chain_floor`: `steps` dependent steps of the recursion
+// (`lae3` of a state and its two neighbours, two shuffles, an added weight
+// and its floor) with no loads, one warp a block; out (N, 32) f32 keeps
+// the states live.
+__global__ void __launch_bounds__(32)
+    chain_floor_kernel(float* __restrict__ out, int steps, float w) {
+  const int lane = threadIdx.x;
+  float v = -0.25f * lane;
+  for (int k = 0; k < steps; ++k) {
+    const float x1 = __shfl_up_sync(0xffffffffu, v, 1);
+    const float x2 = __shfl_up_sync(0xffffffffu, v, 2);
+    v = fmaxf(w + lae3(v, x1, x2), LOG_EPS);
+  }
+  out[blockIdx.x * 32 + lane] = v;
+}
+
 }  // namespace
 
 extern "C" int ctc_alpha(const void* em, const void* allow2, void* out, int T,
@@ -155,5 +171,15 @@ extern "C" int ctc_beta(const void* em, const void* allow2_dst,
       static_cast<const float*>(em),
       static_cast<const unsigned char*>(allow2_dst),
       static_cast<const float*>(beta_last), static_cast<float*>(out), T, N, S);
+  return cudaGetLastError();
+}
+
+// `steps` dependent steps of the recursion with no loads on N blocks of
+// one warp; out (N, 32) f32; w a weight the compiler cannot fold.
+extern "C" int ctc_chain_floor(void* out, int N, int steps, float w,
+                               void* stream) {
+  if (N <= 0) return cudaSuccess;
+  chain_floor_kernel<<<N, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), steps, w);
   return cudaGetLastError();
 }

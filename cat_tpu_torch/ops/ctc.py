@@ -164,7 +164,24 @@ def backward_betas(em, allow2_dst, beta_last):
     return out
 
 
-_ENTRIES = {"ctc_alpha": (3, 3, 0), "ctc_beta": (4, 3, 0)}
+def chain_floor(out, steps, weight=-0.5):
+    """Measurement only, for the recursions' bound: launches `steps`
+    dependent steps of the recursion (`lae3` of a state and its two
+    neighbours, two shuffles, an added weight and its floor) with no loads
+    on out.shape[0] blocks of one warp; out (N, 32) f32 on the card takes
+    the last states."""
+    if not (out.is_cuda and out.dtype == torch.float32
+            and out.is_contiguous() and out.shape[1:] == (32,)):
+        raise ValueError("chain_floor: out is a contiguous f32 (N, 32) CUDA "
+                         "tensor")
+    err = _build.load("ctc", _ENTRIES).ctc_chain_floor(
+        out.data_ptr(), out.shape[0], int(steps), float(weight),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "ctc_chain_floor")
+
+
+_ENTRIES = {"ctc_alpha": (3, 3, 0), "ctc_beta": (4, 3, 0),
+            "ctc_chain_floor": (1, 2, 1)}
 forward_alphas.launches = 0
 backward_betas.launches = 0
 

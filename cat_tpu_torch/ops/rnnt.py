@@ -12,13 +12,16 @@ the blank and label indices (no one-hot products).
 The two recursions are `forward_alphas` and `backward_betas`, which
 replace the TPU kernels `_alpha_kernel` and `_beta_kernel` of
 `cat_tpu/ops/rnnt_pallas.py`: on a CUDA tensor each launches its kernel
-in `cat_tpu_torch/csrc/rnnt.cu` (one launch for all frames) and counts
-it, on a CPU tensor it takes its plain version (`forward_alphas_
-reference`, `backward_betas_reference`: a loop over frames with a
-log-depth scan along u, as `_log_linrec` solves each row). The tables
-and the posteriors are vectorised PyTorch, a few launches per step.
+in `cat_tpu_torch/csrc/rnnt.cu` (one launch for all frames, on the route
+`rnnt_plan` picks from U+1) and counts it, on a CPU tensor it takes its
+plain version (`forward_alphas_reference`, `backward_betas_reference`: a
+loop over frames with a log-depth scan along u, as `_log_linrec` solves
+each row). The tables and the posteriors are vectorised PyTorch, a few
+launches per step.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -26,9 +29,41 @@ import torch.nn.functional as F
 from cat_tpu_torch import _build
 from cat_tpu_torch.ops.semiring import LOG_EPS, safe_logaddexp
 
-# the kernels keep one row of U+1 f32 states, 32 warp totals twice and two
-# carries in shared memory, at most 227 KB
+# the row-scan kernels keep one row of U+1 f32 states, 32 warp totals twice
+# and two carries in shared memory, at most 227 KB
 MAX_U1 = 227 * 1024 // 4 - 130
+# the wavefront kernels run one block of at most WAVE_MAX_WARPS warps an
+# utterance, one state a thread, and load the tables WAVE_PREFETCH steps
+# ahead (`WAVE_MAX_WARPS`, `PREFETCH` of `csrc/rnnt.cu`)
+WAVE_MAX_WARPS = 32
+WAVE_PREFETCH = 16
+ROUTES = ("rowscan", "wavefront")  # the C entries' route codes 0 and 1
+
+
+class RnntPlan(NamedTuple):
+    route: str   # "wavefront" or "rowscan"
+    warps: int   # wavefront: warps a block, ceil(U1 / 32); rowscan: 0
+
+
+def rnnt_plan(U1: int) -> RnntPlan:
+    """The route of both lattice kernels for U+1 = U1 states a frame: the
+    wavefront (one block an utterance of W = ceil(U1 / 32) warps, one state
+    a thread, one anti-diagonal a step) up to 32·WAVE_MAX_WARPS = 1024
+    states, a block's most threads; the row scan (one block an utterance,
+    one frame a step) above, up to MAX_U1. The cut is where the wavefront
+    runs out of threads. On the training batch's frames
+    (`tools/torch_rnnt_ab.py --cut`, PERF.md §6) the wavefront is the
+    faster route at U+1 = 83 to 768 and about level at 1024 (alpha
+    faster, beta slower), and from U+1 = 512 on only its states stay
+    within the state gate of the exact values. `csrc/rnnt.cu` refuses
+    any other plan."""
+    if not 1 <= U1 <= MAX_U1:
+        raise ValueError(f"rnnt_plan: the kernels take 1 <= U+1 <= {MAX_U1}, "
+                         f"got {U1}")
+    warps = -(-U1 // 32)
+    if warps <= WAVE_MAX_WARPS:
+        return RnntPlan("wavefront", warps)
+    return RnntPlan("rowscan", 0)
 
 
 def _label_index(labels):
@@ -86,11 +121,13 @@ def _linrec(m, a):
 
 
 def forward_alphas_reference(blank_eff, label_eff):
-    """Plain version of `forward_alphas`: a loop over frames."""
+    """Plain version of `forward_alphas`: a loop over frames, in the
+    tables' dtype (float64 tables give an exact witness)."""
     T, N, U1 = blank_eff.shape
-    alpha = torch.full((N, U1), LOG_EPS, device=blank_eff.device)
+    alpha = torch.full((N, U1), LOG_EPS, dtype=blank_eff.dtype,
+                       device=blank_eff.device)
     alpha[:, 0] = 0.0
-    alphas = torch.empty(T, N, U1, device=blank_eff.device)
+    alphas = torch.empty_like(blank_eff)
     for t in range(T):
         base = alpha if t == 0 else torch.clamp_min(alpha + blank_eff[t - 1],
                                                     LOG_EPS)
@@ -102,10 +139,10 @@ def forward_alphas_reference(blank_eff, label_eff):
 
 def backward_betas_reference(blank_eff, label_eff, beta_term):
     """Plain version of `backward_betas`: a loop over frames, the suffix
-    scan as a prefix scan of the flipped row."""
+    scan as a prefix scan of the flipped row, in the tables' dtype."""
     T = blank_eff.shape[0]
     betas = torch.empty_like(blank_eff)
-    beta = beta_term
+    beta = beta_term.to(blank_eff.dtype)
     for t in range(T - 1, -1, -1):
         base = torch.clamp_min(blank_eff[t] + beta, LOG_EPS)
         m = F.pad(label_eff[t, :, :-1], (0, 1), value=LOG_EPS)
@@ -138,18 +175,28 @@ def _check(name, tables, rows):
     return shape
 
 
+def _launch(entry, ptrs, shape, plan, device):
+    """Call the C entry `entry` of `csrc/rnnt.cu` on the pointers `ptrs`
+    and the (T, N, U+1) of the tables with `plan`; raises if the kernel
+    refuses or fails to launch."""
+    err = getattr(_build.load("rnnt", _ENTRIES), entry)(
+        *ptrs, *shape, ROUTES.index(plan.route), plan.warps,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, entry)
+
+
 def forward_alphas(blank_eff, label_eff):
     """All alpha rows (T, N, U+1) f32 of the tables blank_eff and label_eff
     (T, N, U+1) f32. A CPU tensor takes `forward_alphas_reference`; a CUDA
-    tensor launches `rnnt_alpha` of `csrc/rnnt.cu` or raises."""
+    tensor launches `rnnt_alpha` of `csrc/rnnt.cu` on the route of
+    `rnnt_plan` or raises."""
     if blank_eff.device.type == "cpu":
         return forward_alphas_reference(blank_eff, label_eff)
-    T, N, U1 = _check("forward_alphas", (blank_eff, label_eff), ())
+    shape = _check("forward_alphas", (blank_eff, label_eff), ())
     out = torch.empty_like(blank_eff)
-    err = _build.load("rnnt", _ENTRIES).rnnt_alpha(
-        blank_eff.data_ptr(), label_eff.data_ptr(), out.data_ptr(), T, N, U1,
-        torch.cuda.current_stream(blank_eff.device).cuda_stream)
-    _build.check(err, "rnnt_alpha")
+    _launch("rnnt_alpha", (blank_eff.data_ptr(), label_eff.data_ptr(),
+                           out.data_ptr()), shape, rnnt_plan(shape[2]),
+            out.device)
     forward_alphas.launches += 1
     return out
 
@@ -158,21 +205,35 @@ def backward_betas(blank_eff, label_eff, beta_term):
     """All beta rows (T, N, U+1) f32, beta[t] from beta[t+1] (beta_term
     (N, U+1) f32 for t = T-1) and the tables of frame t. A CPU tensor takes
     `backward_betas_reference`; a CUDA tensor launches `rnnt_beta` of
-    `csrc/rnnt.cu` or raises."""
+    `csrc/rnnt.cu` on the route of `rnnt_plan` or raises."""
     if blank_eff.device.type == "cpu":
         return backward_betas_reference(blank_eff, label_eff, beta_term)
-    T, N, U1 = _check("backward_betas", (blank_eff, label_eff), (beta_term,))
+    shape = _check("backward_betas", (blank_eff, label_eff), (beta_term,))
     out = torch.empty_like(blank_eff)
-    err = _build.load("rnnt", _ENTRIES).rnnt_beta(
-        blank_eff.data_ptr(), label_eff.data_ptr(), beta_term.data_ptr(),
-        out.data_ptr(), T, N, U1,
-        torch.cuda.current_stream(blank_eff.device).cuda_stream)
-    _build.check(err, "rnnt_beta")
+    _launch("rnnt_beta", (blank_eff.data_ptr(), label_eff.data_ptr(),
+                          beta_term.data_ptr(), out.data_ptr()), shape,
+            rnnt_plan(shape[2]), out.device)
     backward_betas.launches += 1
     return out
 
 
-_ENTRIES = {"rnnt_alpha": (3, 3, 0), "rnnt_beta": (4, 3, 0)}
+def chain_floor(out, steps, weight=-0.5):
+    """Measurement only, for the recursions' bound: launches `steps`
+    dependent steps of the wavefront (one f64 `lae_wide` of two floored
+    sums, its floor and one shuffle) with no loads on out.shape[0] blocks
+    of one warp; out (N, 32) f32 on the card takes the last states."""
+    if not (out.is_cuda and out.dtype == torch.float32
+            and out.is_contiguous() and out.shape[1:] == (32,)):
+        raise ValueError("chain_floor: out is a contiguous f32 (N, 32) CUDA "
+                         "tensor")
+    err = _build.load("rnnt", _ENTRIES).rnnt_chain_floor(
+        out.data_ptr(), out.shape[0], int(steps), float(weight),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "rnnt_chain_floor")
+
+
+_ENTRIES = {"rnnt_alpha": (3, 5, 0), "rnnt_beta": (4, 5, 0),
+            "rnnt_chain_floor": (1, 2, 1)}
 forward_alphas.launches = 0
 backward_betas.launches = 0
 

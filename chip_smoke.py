@@ -69,11 +69,20 @@ Phases, any failure exits non-zero:
 7. RNN-T kernels: the lattice recursions of `ops/rnnt.py` against their
    plain versions at the rnnt-v1 training batch (the training batch's
    T' = 299..493, labels U = T'//6 ids in 1..1023, V = 1024, tables of
-   log-softmaxed random logits): states as the CTC ones, log-likelihoods
-   to 1e-5 relative, gradient rows within 1e-3 + 1e-3·|plain|; and at
-   edge shapes (U+1 of 1, 2, 33, 257 and 1500, T' = 1, label length 0);
-   no PyTorch call computes an RNN-T loss (torchaudio is absent), so
-   `library_ms` is null;
+   log-softmaxed random logits; the wavefront route of `rnnt_plan`):
+   states as the CTC ones and log-likelihoods to 1e-5 relative, against
+   the f32 plain versions and against the same plain versions on f64
+   copies of the tables (the witness); gradient rows within 1e-3 +
+   1e-3·|witness| of the witness's (the f32 plain version's own lie about
+   twice that far from it at this batch; both distances are printed);
+   and at edge shapes on both routes (U+1 of 1 to 1024 on the wavefront,
+   1025 and 1500 on the row scan, T' = 1, label length 0), against both;
+   two calls of each bit for bit; no PyTorch call computes an RNN-T loss
+   (torchaudio is absent), so `library_ms` is null. The bounds of the CTC
+   and RNN-T recursions take a third term beside operations and bytes:
+   their chain of dependent steps times t_step, the latency of one step of
+   the kernel's own arithmetic measured in this run (`rnnt.chain_floor`,
+   `ctc.chain_floor`);
 8. RNN-T serving: the libri rnnt-v1 transducer (egs/libri/exp/rnnt-v1:
    the crf-v1 encoder without its classifier, a 640-wide LSTM predictor,
    a 512-wide "add" joiner, V = 1024) greedy-decodes the serving batch
@@ -181,8 +190,27 @@ def timed(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
-    return 1e3 * max(flops / peak, nbytes / PEAK_BYTES)
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS, chain_ms=0.0):
+    return max(1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES, chain_ms)
+
+
+def step_floors():
+    """t_step in ms by kind ("rnnt", "ctc"): the latency of one dependent
+    step of each lattice recursion, its kernel's own arithmetic walked with
+    no loads (`rnnt.chain_floor`, `ctc.chain_floor`) on 32 blocks of one
+    warp, from the times of 10 x 575 and 575 steps."""
+    import torch
+    from cat_tpu_torch.ops import ctc, rnnt
+    out = torch.empty(32, 32, device="cuda")
+    floors = {}
+    for kind, mod in (("rnnt", rnnt), ("ctc", ctc)):
+        ms = [timed(lambda: mod.chain_floor(out, k * 575), 20, 3)
+              for k in (1, 10)]
+        floors[kind] = (ms[1] - ms[0]) / (9 * 575)
+        log(f"[kernel] dependent-step floor of the {kind} recursion: "
+            f"{floors[kind] * 1e6:.2f} ns a step (575 steps {ms[0]:.4f} ms, "
+            f"5750 steps {ms[1]:.4f} ms; 32 blocks of one warp, no loads)")
+    return floors
 
 
 def compare(name, out, ref, rows=None):
@@ -297,14 +325,24 @@ class Records:
         self.by_name = {}
 
     def add(self, name, source, replaces, err, k_ms, p_ms, flops, nbytes,
-            what, peak=PEAK_BF16_FLOPS, library_ms=None):
-        b = bound_ms(flops, nbytes, peak)
-        by = "operations" if flops / peak >= nbytes / PEAK_BYTES \
-            else "bytes"
+            what, peak=PEAK_BF16_FLOPS, library_ms=None, chain=None):
+        """chain: (dependent steps, t_step ms) of a recursion, whose product
+        bounds it beside operations and bytes; a dependent chain of
+        operations, it counts as bound by operations."""
+        ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
+        chain_ms = chain[0] * chain[1] if chain else 0.0
+        b = bound_ms(flops, nbytes, peak, chain_ms)
+        by = "operations" if max(ops_ms, chain_ms) >= bytes_ms else "bytes"
+        how = by
+        if chain:
+            how += (f"; chain {chain[0]} steps x {chain[1] * 1e6:.2f} ns = "
+                    f"{chain_ms:.4f} ms"
+                    + (", the larger term" if chain_ms >= max(ops_ms, bytes_ms)
+                       else ""))
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"[kernel] {name} {what}: max err {err:.4g}, kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound {b:.4f} ms "
-            f"({by})")
+            f"({how})")
         self.by_name.setdefault(name, {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
@@ -757,9 +795,10 @@ def close_rel(name, got, want):
     return (got - want).abs().max().item()
 
 
-def phase_loss_kernels(gen, rec, den):
+def phase_loss_kernels(gen, rec, den, floors):
     """The loss path's kernels against their plain versions at the
-    training batch; the JSON records of all five."""
+    training batch; the JSON records of all five, the CTC recursions'
+    bounds with their chain of T' dependent steps (`step_floors`)."""
     import torch
     import torch.nn.functional as F
     from cat_tpu_torch.ops import crf_dense, ctc, dropout
@@ -833,7 +872,7 @@ def phase_loss_kernels(gen, rec, den):
             timed(lambda: ctc.forward_alphas(em, allow2), 10, 2),
             timed(lambda: ctc.forward_alphas_reference(em, allow2), 1, 1),
             12 * em.numel(), nbytes, sw, PEAK_F32_FLOPS,
-            timed(lambda: library(False), 10, 2))
+            timed(lambda: library(False), 10, 2), (T, floors["ctc"]))
     rec.add("ctc_beta", "cat_tpu_torch/csrc/ctc.cu",
             "cat_tpu/ops/ctc_pallas.py:73", max(e_b, e_g),
             timed(lambda: ctc.backward_betas(em, allow2_dst, beta_last), 10,
@@ -841,7 +880,8 @@ def phase_loss_kernels(gen, rec, den):
             timed(lambda: ctc.backward_betas_reference(em, allow2_dst,
                                                        beta_last), 1, 1),
             12 * em.numel(), nbytes + beta_last.numel() * 4, sw,
-            PEAK_F32_FLOPS, timed(lambda: library(True), 10, 2))
+            PEAK_F32_FLOPS, timed(lambda: library(True), 10, 2),
+            (T, floors["ctc"]))
     log(f"[kernel] ctc alphas, betas and gradient rows agree with the plain "
         f"versions (max abs err over live states: alpha {e_a:.4g}, beta "
         f"{e_b:.4g}; gradient rows {e_g:.4g}); library_ms: "
@@ -1396,13 +1436,34 @@ def rnnt_edge_tables(gen, U1, T, N, V=9):
     return rnnt._row_tables(lp, labels, ilens, llens, 0), llens
 
 
-def phase_rnnt_kernels(gen, rec):
+def phase_rnnt_kernels(gen, rec, floors):
     """The RNN-T lattice kernels (rows 20-21) against their plain versions
     at the rnnt-v1 training batch (N = 32, T' = 299..493, U = T' // 6, V =
-    1024, tables of log-softmaxed random logits) and at edge shapes; the
-    JSON records of both."""
+    1024, tables of log-softmaxed random logits) and at edge shapes, on
+    both routes of `rnnt_plan` (wavefront up to U+1 = 1024, row scan
+    above), two calls of each bit for bit; the JSON records of both, their
+    bounds with the chain of T' + U dependent steps (`step_floors`).
+
+    Each comparison is made twice: against the plain version in f32 (what
+    a CPU tensor takes) and against the same plain version on f64 copies
+    of the tables (the witness, exact to about 1e-11). States and
+    log-likelihoods are gated against both. The gradient rows (the blank
+    and label posteriors of `rnnt.posteriors`, which the loss's backward
+    scatters, negated, into the V-wide rows) are gated against the
+    witness: at this batch the f32 plain version's own rows lie about
+    twice GRAD_TOL from it (printed here; measured on the CPU by
+    tests/test_torch_rnnt_wavefront.py), so no kernel that sums in another
+    order could meet GRAD_TOL against them; their distance from the
+    kernel's is printed beside."""
     import torch
     from cat_tpu_torch.ops import rnnt
+
+    def same_twice(tag, call, first):
+        if not torch.equal(call(), first):
+            fail(f"{tag}: two calls on the same inputs differ")
+
+    def wide(xs):
+        return [x.double() for x in xs]
 
     tl = [subsampled(f) for f in TRAIN_FRAMES]
     N, T = len(tl), max(tl)
@@ -1410,69 +1471,118 @@ def phase_rnnt_kernels(gen, rec):
                        frames_per_label=6)
     labels, llens = batch["labels"], batch["label_lengths"]
     U1 = labels.shape[1] + 1
+    plan = rnnt.rnnt_plan(U1)
+    log(f"[kernel] rnnt plan at the rnnt-v1 batch (U+1 = {U1}): route "
+        f"{plan.route}, {plan.warps} warps of one state a thread")
     lens = torch.tensor(tl, device="cuda")
     lp = torch.log_softmax(_rnd(gen, N, T, U1, RNNT_V, s=2.0), -1)
-    be, le, _, _ = rnnt._row_tables(lp, labels, lens, llens, 0)
+    tabs = rnnt._row_tables(lp, labels, lens, llens, 0)
+    del lp
+    torch.cuda.empty_cache()
+    be, le = tabs[0], tabs[1]
     term = rnnt.beta_term(llens, U1)
     alphas = rnnt.forward_alphas(be, le)
+    betas = rnnt.backward_betas(be, le, term)
     plain_a = rnnt.forward_alphas_reference(be, le)
+    plain_b = rnnt.backward_betas_reference(be, le, term)
+    wit_a = rnnt.forward_alphas_reference(*wide((be, le)))
+    wit_b = rnnt.backward_betas_reference(*wide((be, le, term)))
+    ll_k, ll_p, ll_w = (rnnt._final_ll(a, b, llens) for a, b in (
+        (alphas, be), (plain_a, be), (wit_a, be.double())))
     e_a = close_states("rnnt_alpha", alphas, plain_a, STATE_ATOL, STATE_RTOL)
-    close_rel("rnnt log-likelihood", rnnt._final_ll(alphas, be, llens),
-              rnnt._final_ll(plain_a, be, llens))
-    e_b = close_states("rnnt_beta", rnnt.backward_betas(be, le, term),
-                       rnnt.backward_betas_reference(be, le, term),
-                       STATE_ATOL, STATE_RTOL)
-    del alphas, plain_a
+    e_b = close_states("rnnt_beta", betas, plain_b, STATE_ATOL, STATE_RTOL)
+    e_aw = close_states("rnnt_alpha vs the f64 witness", alphas, wit_a,
+                        STATE_ATOL, STATE_RTOL)
+    e_bw = close_states("rnnt_beta vs the f64 witness", betas, wit_b,
+                        STATE_ATOL, STATE_RTOL)
+    close_rel("rnnt log-likelihood", ll_k, ll_p)
+    close_rel("rnnt log-likelihood vs the f64 witness", ll_k, ll_w)
+    same_twice("rnnt_alpha", lambda: rnnt.forward_alphas(be, le), alphas)
+    same_twice("rnnt_beta", lambda: rnnt.backward_betas(be, le, term), betas)
+    log("[kernel] rnnt_alpha, rnnt_beta bitwise reproducible over two calls "
+        "(rnnt-v1 batch): True, True")
+    del alphas, betas, plain_a, plain_b, wit_a, wit_b
 
-    def rnnt_grad():
-        xl = lp.clone().requires_grad_()
-        rnnt.rnnt_loss(xl, labels, lens, llens, reduction="sum").backward()
-        return xl.grad
+    ones = torch.ones(N, device="cuda")
 
-    g_k = rnnt_grad()
-    g_p = patched(plain_patches(), rnnt_grad)
-    e_g = max(close_rows(f"rnnt gradient rows, utterance {n}", g_k[n], g_p[n])
-              for n in range(N))
-    del g_k, g_p, lp
+    def rows(tables, alphas_of):
+        a = alphas_of(tables[0], tables[1])
+        return torch.stack(rnnt.posteriors(
+            *tables, a, rnnt._final_ll(a, tables[0], llens), lens, llens,
+            ones))
+
+    rows_k = rows(tabs, rnnt.forward_alphas)
+    rows_p = patched(plain_patches(),
+                     lambda: rows(tabs, rnnt.forward_alphas_reference))
+    rows_w = patched(plain_patches(),
+                     lambda: rows(wide(tabs), rnnt.forward_alphas_reference))
+    e_g = close_rows("rnnt gradient rows vs the f64 witness", rows_k, rows_w)
+    e_gp = (rows_k - rows_p).abs().max().item()
+    e_pw = (rows_p - rows_w).abs().max().item()
+    over = lambda got: ((got - rows_w).abs()
+                        / (GRAD_TOL + GRAD_TOL * rows_w.abs())).max().item()
+    log(f"[kernel] rnnt gradient rows at the rnnt-v1 batch, max abs err: "
+        f"kernel vs the f64 witness {e_g:.4g} ({over(rows_k):.3f} of the "
+        f"gate); f32 plain vs the witness {e_pw:.4g} ({over(rows_p):.3f} of "
+        f"the gate); kernel vs f32 plain {e_gp:.4g}; states vs the witness "
+        f"alpha {e_aw:.4g}, beta {e_bw:.4g}")
+    del rows_k, rows_p, rows_w
     torch.cuda.empty_cache()
     edges = []
-    for U1e, Te, Ne in ((1, 24, 3), (2, 24, 3), (33, 24, 3), (257, 24, 3),
-                        (1500, 24, 3), (9, 1, 2)):
+    shapes = [(1, 24, 3), (2, 24, 3), (32, 24, 3), (33, 24, 3), (64, 24, 3),
+              (65, 24, 3), (97, 24, 3), (256, 24, 3), (257, 24, 3),
+              (1024, 24, 3), (1025, 24, 3), (1500, 24, 3), (9, 1, 2)]
+    for U1e, Te, Ne in shapes:
         (eb, el, _, _), ell = rnnt_edge_tables(gen, U1e, Te, Ne)
         eterm = rnnt.beta_term(ell, U1e)
         ea = rnnt.forward_alphas(eb, el)
-        pa = rnnt.forward_alphas_reference(eb, el)
-        tag = f"U+1={U1e} T'={Te} N={Ne}"
-        edges.append(close_states(f"rnnt_alpha {tag}", ea, pa, STATE_ATOL,
-                                  STATE_RTOL))
-        close_rel(f"rnnt log-likelihood {tag}", rnnt._final_ll(ea, eb, ell),
-                  rnnt._final_ll(pa, eb, ell))
-        edges.append(close_states(
-            f"rnnt_beta {tag}", rnnt.backward_betas(eb, el, eterm),
-            rnnt.backward_betas_reference(eb, el, eterm), STATE_ATOL,
-            STATE_RTOL))
-    log(f"[kernel] rnnt alphas, betas, log-likelihoods and gradient rows "
-        f"agree with the plain versions (max abs err over live states: alpha "
+        eb_out = rnnt.backward_betas(eb, el, eterm)
+        ep = rnnt.rnnt_plan(U1e)
+        tag = f"U+1={U1e} T'={Te} N={Ne} ({ep.route}, W={ep.warps})"
+        for what, tables in (("", (eb, el, eterm)),
+                             (" vs the f64 witness", wide((eb, el, eterm)))):
+            pa = rnnt.forward_alphas_reference(*tables[:2])
+            edges.append(close_states(f"rnnt_alpha {tag}{what}", ea, pa,
+                                      STATE_ATOL, STATE_RTOL))
+            close_rel(f"rnnt log-likelihood {tag}{what}",
+                      rnnt._final_ll(ea, eb, ell),
+                      rnnt._final_ll(pa, tables[0], ell))
+            edges.append(close_states(
+                f"rnnt_beta {tag}{what}", eb_out,
+                rnnt.backward_betas_reference(*tables), STATE_ATOL,
+                STATE_RTOL))
+        same_twice(f"rnnt_alpha {tag}", lambda: rnnt.forward_alphas(eb, el),
+                   ea)
+        same_twice(f"rnnt_beta {tag}",
+                   lambda: rnnt.backward_betas(eb, el, eterm), eb_out)
+    log(f"[kernel] rnnt alphas, betas and log-likelihoods agree with the "
+        f"f32 plain versions and the f64 witness, gradient rows with the "
+        f"witness (max abs err over live states vs f32 plain: alpha "
         f"{e_a:.4g}, beta {e_b:.4g}; gradient rows {e_g:.4g}; edge shapes U+1 "
-        f"in 1, 2, 33, 257, 1500 at T'=24 and T'=1, label lengths down to 0: "
-        f"{max(edges):.4g}); no PyTorch call computes an RNN-T loss here "
-        f"(torchaudio is absent): library_ms null")
+        f"in {', '.join(str(u) for u, _, _ in shapes[:-1])} at T'=24 and 9 "
+        f"at T'=1, label lengths down to 0, on both routes, each two calls "
+        f"bit for bit: {max(edges):.4g}); no PyTorch call computes an RNN-T "
+        f"loss here (torchaudio is absent): library_ms null")
     # bytes: the two tables read and the states written (and beta_T read);
     # about 12 f32 operations a state and frame (an exp, a log1p, adds and
-    # maxima of the sequential recurrence)
+    # maxima of the sequential recurrence); the longest utterance's chain
+    # of T' + U dependent steps
     nbytes = 3 * be.numel() * 4
+    chain = (T + llens.max().item(), floors["rnnt"])
     what = (f"N={N} T'={min(tl)}..{T} U+1={U1} "
-            f"(U={llens.min().item()}..{llens.max().item()}) V={RNNT_V}")
+            f"(U={llens.min().item()}..{llens.max().item()}) V={RNNT_V}, "
+            f"{plan.route} route, W={plan.warps}")
     rec.add("rnnt_alpha", "cat_tpu_torch/csrc/rnnt.cu",
             "cat_tpu/ops/rnnt_pallas.py:87", max(e_a, e_g),
             timed(lambda: rnnt.forward_alphas(be, le), 10, 2),
             timed(lambda: rnnt.forward_alphas_reference(be, le), 1, 1),
-            12 * be.numel(), nbytes, what, PEAK_F32_FLOPS)
+            12 * be.numel(), nbytes, what, PEAK_F32_FLOPS, chain=chain)
     rec.add("rnnt_beta", "cat_tpu_torch/csrc/rnnt.cu",
             "cat_tpu/ops/rnnt_pallas.py:112", max(e_b, e_g),
             timed(lambda: rnnt.backward_betas(be, le, term), 10, 2),
             timed(lambda: rnnt.backward_betas_reference(be, le, term), 1, 1),
-            12 * be.numel(), nbytes + term.numel() * 4, what, PEAK_F32_FLOPS)
+            12 * be.numel(), nbytes + term.numel() * 4, what, PEAK_F32_FLOPS,
+            chain=chain)
     torch.cuda.empty_cache()
 
 
@@ -1755,9 +1865,11 @@ def main():
     rec = Records()
     phase_kernels(torch.Generator(device="cuda").manual_seed(0))
     phase_backward_kernels(torch.Generator(device="cuda").manual_seed(1), rec)
+    floors = step_floors()
     phase_loss_kernels(torch.Generator(device="cuda").manual_seed(4), rec,
-                       den)
-    phase_rnnt_kernels(torch.Generator(device="cuda").manual_seed(12), rec)
+                       den, floors)
+    phase_rnnt_kernels(torch.Generator(device="cuda").manual_seed(12), rec,
+                       floors)
     cfg = load_config()
     forward = phase_serving(cfg)
     if profile:

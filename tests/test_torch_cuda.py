@@ -20,7 +20,7 @@ bit; CTC states live in the plain version (above LOG_EPS / 2) within
 1e-3 + 2e-6·|plain|, den snapshots there within 1e-5 relative, the other
 states at or below LOG_EPS / 2 in both; den logZ to 1e-5 relative;
 gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|; RNN-T states as
-the CTC ones.
+the CTC ones, on both routes of `rnnt.rnnt_plan`, two calls bit for bit.
 """
 import numpy as np
 import pytest
@@ -765,17 +765,35 @@ def _rnnt_tables(gen, U1, T, N, V=9):
 
 @pytest.mark.parametrize("N", [1, 3, 32])
 @pytest.mark.parametrize("T", [1, 24, 493])
-@pytest.mark.parametrize("U1", [1, 2, 31, 32, 33, 83, 257, 1500])
+@pytest.mark.parametrize("U1", [1, 2, 31, 32, 33, 64, 65, 83, 96, 97, 256,
+                                257, 1500])
 def test_rnnt_kernels(gen, U1, T, N):
+    """Both routes of `rnnt_plan` (wavefront up to U+1 = 1024, in its
+    instantiations for up to 8 and up to 32 warps; row scan above) against the plain versions, one launch a call, and two calls
+    bit for bit."""
     (be, le, _, _), llens = _rnnt_tables(gen, U1, T, N)
     term = rnnt.beta_term(llens, U1)
+    assert rnnt.rnnt_plan(U1).route == ("wavefront" if U1 <= 1024
+                                        else "rowscan")
     before = (rnnt.forward_alphas.launches, rnnt.backward_betas.launches)
-    _states_close(rnnt.forward_alphas(be, le),
-                  rnnt.forward_alphas_reference(be, le))
-    _states_close(rnnt.backward_betas(be, le, term),
-                  rnnt.backward_betas_reference(be, le, term))
+    alphas = rnnt.forward_alphas(be, le)
+    betas = rnnt.backward_betas(be, le, term)
     assert (rnnt.forward_alphas.launches, rnnt.backward_betas.launches) == (
         before[0] + 1, before[1] + 1)
+    _states_close(alphas, rnnt.forward_alphas_reference(be, le))
+    _states_close(betas, rnnt.backward_betas_reference(be, le, term))
+    assert torch.equal(rnnt.forward_alphas(be, le), alphas)
+    assert torch.equal(rnnt.backward_betas(be, le, term), betas)
+
+
+@pytest.mark.parametrize("lattice", ["rnnt", "ctc"])
+def test_chain_floor(gen, lattice):
+    """The measurement kernel of a recursion's bound runs and keeps finite
+    states."""
+    out = torch.full((32, 32), float("nan"), device="cuda")
+    {"rnnt": rnnt, "ctc": ctc}[lattice].chain_floor(out, 575)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 def test_rnnt_losses_keep_the_graph_on_the_card(gen):
@@ -853,6 +871,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     big = torch.zeros(1, 1, rnnt.MAX_U1 + 1, device="cuda")
     with pytest.raises(ValueError, match="U\\+1 <="):
         rnnt.forward_alphas(big, big)
+    # the C entries refuse any plan but `rnnt_plan`'s
+    out = torch.empty_like(be)
+    for plan in (rnnt.RnntPlan("rowscan", 0), rnnt.RnntPlan("wavefront", 2)):
+        with pytest.raises(RuntimeError, match="rnnt_alpha"):
+            rnnt._launch("rnnt_alpha", (be.data_ptr(), le.data_ptr(),
+                                        out.data_ptr()), be.shape, plan,
+                         be.device)
+        with pytest.raises(RuntimeError, match="rnnt_beta"):
+            rnnt._launch("rnnt_beta", (be.data_ptr(), le.data_ptr(),
+                                       term.data_ptr(), out.data_ptr()),
+                         be.shape, plan, be.device)
 
 
 def test_conformer_forward_matches_plain_on_the_card(gen, monkeypatch):
