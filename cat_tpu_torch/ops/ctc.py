@@ -11,27 +11,62 @@ is the exact posterior from an alpha and a beta pass (d nll / d log_probs
 The two recursions are `forward_alphas` and `backward_betas`, which
 replace the TPU kernels `_alpha_kernel` and `_beta_kernel` of
 `cat_tpu/ops/ctc_pallas.py`: on a CUDA tensor each launches its kernel in
-`cat_tpu_torch/csrc/ctc.cu` (one launch for all frames) and counts it, on
-a CPU tensor it takes its plain version (`forward_alphas_reference`,
+`cat_tpu_torch/csrc/ctc.cu` (one launch for all frames, on the route
+`ctc_plan` picks from S) and counts it, on a CPU tensor it takes its plain
+version (`forward_alphas_reference`,
 `backward_betas_reference`: a loop over frames). The lattice tables, the
 emission table and the gamma/scatter-add gradient are vectorised PyTorch,
 a few launches per step. Labels use blank = 0 by convention.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from cat_tpu_torch import _build
 from cat_tpu_torch.ops.semiring import LOG_EPS, logaddexp3, safe_logaddexp
 
+# the frames kernels keep two rows of S f32 states and S skip bytes in
+# shared memory, at most 227 KB
+MAX_S = 227 * 1024 // 9
+# the lanes kernels run one block of at most LANES_MAX_WARPS warps an
+# utterance, one state a thread, and load the emissions LANES_PREFETCH
+# frames ahead (`LANES_MAX_WARPS`, `PREFETCH` of `csrc/ctc.cu`)
+LANES_MAX_WARPS = 32
+LANES_PREFETCH = 16
+ROUTES = ("frames", "lanes")  # the C entries' route codes 0 and 1
+
+
+class CtcPlan(NamedTuple):
+    route: str   # "lanes" or "frames"
+    warps: int   # lanes: warps a block, ceil(S / 32); frames: 0
+
+
+def ctc_plan(S: int) -> CtcPlan:
+    """The route of both lattice kernels for S = 2U + 1 states a frame:
+    lanes (one block an utterance of W = ceil(S / 32) warps, state s in
+    thread s, the neighbours by shuffles and across the warps' seams) up
+    to 32·LANES_MAX_WARPS = 1024 states, a block's most threads; frames
+    (one block an utterance, the states of a frame in shared memory) above,
+    up to MAX_S. `csrc/ctc.cu` refuses any other plan."""
+    if not 1 <= S <= MAX_S:
+        raise ValueError(f"ctc_plan: the kernels take 1 <= S <= {MAX_S} "
+                         f"lattice states, got S = {S}")
+    warps = -(-S // 32)
+    if warps <= LANES_MAX_WARPS:
+        return CtcPlan("lanes", warps)
+    return CtcPlan("frames", 0)
+
 
 def _shift_right(x, k):
-    """x[..., s-k] with LOG_EPS fill (along the last axis)."""
-    return torch.nn.functional.pad(x[..., :-k], (k, 0), value=LOG_EPS)
+    """x[..., s-k] with LOG_EPS fill (along the last axis; any width)."""
+    return torch.nn.functional.pad(x, (k, 0), value=LOG_EPS)[
+        ..., :x.shape[-1]]
 
 
 def _shift_left(x, k):
-    return torch.nn.functional.pad(x[..., k:], (0, k), value=LOG_EPS)
+    return torch.nn.functional.pad(x, (0, k), value=LOG_EPS)[..., k:]
 
 
 def _lattice_tables(labels, label_lengths, blank, S):
@@ -129,19 +164,28 @@ def _check(name, em, masks, rows):
     return T, N, S
 
 
+def _launch(entry, ptrs, shape, device):
+    """Call the C entry `entry` of `csrc/ctc.cu` on the pointers `ptrs` and
+    the (T, N, S) of the emission table, on the route of `ctc_plan`;
+    raises if the kernel refuses or fails to launch."""
+    plan = ctc_plan(shape[2])
+    err = getattr(_build.load("ctc", _ENTRIES), entry)(
+        *ptrs, *shape, ROUTES.index(plan.route), plan.warps,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, entry)
+
+
 def forward_alphas(em, allow2):
     """All alpha rows (T, N, S) f32 of the emission table em (T, N, S) f32
     and the skip permissions allow2 (N, S) bool. A CPU tensor takes
     `forward_alphas_reference`; a CUDA tensor launches `ctc_alpha` of
-    `csrc/ctc.cu` or raises."""
+    `csrc/ctc.cu` on the route of `ctc_plan` or raises."""
     if em.device.type == "cpu":
         return forward_alphas_reference(em, allow2)
-    T, N, S = _check("forward_alphas", em, (allow2,), ())
+    shape = _check("forward_alphas", em, (allow2,), ())
     out = torch.empty_like(em)
-    err = _build.load("ctc", _ENTRIES).ctc_alpha(
-        em.data_ptr(), allow2.data_ptr(), out.data_ptr(), T, N, S,
-        torch.cuda.current_stream(em.device).cuda_stream)
-    _build.check(err, "ctc_alpha")
+    _launch("ctc_alpha", (em.data_ptr(), allow2.data_ptr(), out.data_ptr()),
+            shape, em.device)
     forward_alphas.launches += 1
     return out
 
@@ -150,16 +194,15 @@ def backward_betas(em, allow2_dst, beta_last):
     """All beta rows (T, N, S) f32: beta[T-1] = beta_last (N, S) f32, and
     beta[t] from beta[t+1] and em[t+1] with the skip permissions
     allow2_dst (N, S) bool. A CPU tensor takes `backward_betas_reference`;
-    a CUDA tensor launches `ctc_beta` of `csrc/ctc.cu` or raises."""
+    a CUDA tensor launches `ctc_beta` of `csrc/ctc.cu` on the route of
+    `ctc_plan` or raises."""
     if em.device.type == "cpu":
         return backward_betas_reference(em, allow2_dst, beta_last)
-    T, N, S = _check("backward_betas", em, (allow2_dst,), (beta_last,))
+    shape = _check("backward_betas", em, (allow2_dst,), (beta_last,))
     out = torch.empty_like(em)
-    err = _build.load("ctc", _ENTRIES).ctc_beta(
-        em.data_ptr(), allow2_dst.data_ptr(), beta_last.data_ptr(),
-        out.data_ptr(), T, N, S,
-        torch.cuda.current_stream(em.device).cuda_stream)
-    _build.check(err, "ctc_beta")
+    _launch("ctc_beta", (em.data_ptr(), allow2_dst.data_ptr(),
+                         beta_last.data_ptr(), out.data_ptr()), shape,
+            em.device)
     backward_betas.launches += 1
     return out
 
@@ -180,7 +223,7 @@ def chain_floor(out, steps, weight=-0.5):
     _build.check(err, "ctc_chain_floor")
 
 
-_ENTRIES = {"ctc_alpha": (3, 3, 0), "ctc_beta": (4, 3, 0),
+_ENTRIES = {"ctc_alpha": (3, 5, 0), "ctc_beta": (4, 5, 0),
             "ctc_chain_floor": (1, 2, 1)}
 forward_alphas.launches = 0
 backward_betas.launches = 0

@@ -28,7 +28,9 @@ Phases, any failure exits non-zero:
    74..123, V = 72, the 3-gram denominator of `make_den`): the
    standalone dropout bit for bit
    (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
-   betas on live states within 1e-3 + 2e-6·|plain| and the rest floored
+   betas (the lanes route of `ctc_plan` at the training batch, the frames
+   route on a lattice of S = 2049, N = 2, T' = 40; two calls of each bit
+   for bit) on live states within 1e-3 + 2e-6·|plain| and the rest floored
    on both sides, the CTC log-likelihood and the den logZ to 1e-5
    relative, the den snapshots to 1e-5 relative on live states, the CTC
    and den gradient rows within 1e-3 + 1e-3·|plain| (CTC beside
@@ -833,29 +835,64 @@ def phase_loss_kernels(gen, rec, den, floors):
             f"({N}, {T}, {D}) bf16, rate 0.1, bit-exact forward and backward",
             library_ms=timed(lambda: F.dropout(x, 0.1, True), 20, 3))
 
-    # CTC: the lattice of the training batch's labels
+    # CTC: the lattice of the training batch's labels (the lanes route of
+    # `ctc_plan`), then a lattice of S = 2049 (the frames route)
     S = 2 * labels.shape[1] + 1
-    ext, svalid, allow2 = ctc._lattice_tables(labels, llens, 0, S)
-    em = ctc._emissions(lp, ext, svalid, lens, 0)
-    allow2_dst, beta_last = ctc._beta_tables(allow2, llens)
-    alphas = ctc.forward_alphas(em, allow2)
-    plain_a = ctc.forward_alphas_reference(em, allow2)
-    e_a = close_states("ctc_alpha", alphas, plain_a, STATE_ATOL, STATE_RTOL)
-    close_rel("ctc log-likelihood", ctc._final_ll(alphas[-1], llens),
-              ctc._final_ll(plain_a[-1], llens))
-    e_b = close_states("ctc_beta",
-                       ctc.backward_betas(em, allow2_dst, beta_last),
-                       ctc.backward_betas_reference(em, allow2_dst,
-                                                    beta_last),
-                       STATE_ATOL, STATE_RTOL)
+    plan = ctc.ctc_plan(S)
+    log(f"[kernel] ctc plan at the crf-v1 batch (S = {S}): route "
+        f"{plan.route}, {plan.warps} warps of one state a thread")
 
-    def ctc_grad():
-        xl = lp.clone().requires_grad_()
-        ctc.ctc_loss(xl, labels, lens, llens, reduction="sum").backward()
-        return xl.grad
+    def ctc_case(tag, lp_, labels_, lens_, llens_):
+        """Both CTC kernels against their plain versions (states, the
+        log-likelihoods, the gradient rows) and two calls bit for bit;
+        returns (em, allow2, allow2_dst, beta_last) and the errors."""
+        S_ = 2 * labels_.shape[1] + 1
+        ext, svalid, allow2 = ctc._lattice_tables(labels_, llens_, 0, S_)
+        em = ctc._emissions(lp_, ext, svalid, lens_, 0)
+        allow2_dst, beta_last = ctc._beta_tables(allow2, llens_)
+        alphas = ctc.forward_alphas(em, allow2)
+        betas = ctc.backward_betas(em, allow2_dst, beta_last)
+        plain_a = ctc.forward_alphas_reference(em, allow2)
+        e_a = close_states(f"ctc_alpha {tag}", alphas, plain_a, STATE_ATOL,
+                           STATE_RTOL)
+        close_rel(f"ctc log-likelihood {tag}",
+                  ctc._final_ll(alphas[-1], llens_),
+                  ctc._final_ll(plain_a[-1], llens_))
+        e_b = close_states(f"ctc_beta {tag}", betas,
+                           ctc.backward_betas_reference(em, allow2_dst,
+                                                        beta_last),
+                           STATE_ATOL, STATE_RTOL)
+        if not (torch.equal(ctc.forward_alphas(em, allow2), alphas)
+                and torch.equal(ctc.backward_betas(em, allow2_dst,
+                                                   beta_last), betas)):
+            fail(f"ctc {tag}: two calls on the same inputs differ")
 
-    e_g = close_rows("ctc gradient rows", ctc_grad(),
-                     patched(plain_patches(), ctc_grad))
+        def ctc_grad():
+            xl = lp_.clone().requires_grad_()
+            ctc.ctc_loss(xl, labels_, lens_, llens_,
+                         reduction="sum").backward()
+            return xl.grad
+
+        e_g = close_rows(f"ctc gradient rows {tag}", ctc_grad(),
+                         patched(plain_patches(), ctc_grad))
+        log(f"[kernel] ctc_alpha, ctc_beta {tag} ({ctc.ctc_plan(S_).route} "
+            f"route): max abs err alpha {e_a:.4g}, beta {e_b:.4g}, gradient "
+            f"rows {e_g:.4g}; bitwise reproducible over two calls: True, "
+            f"True")
+        return (em, allow2, allow2_dst, beta_last), (e_a, e_b, e_g)
+
+    wide_lens = torch.tensor([40, 33], device="cuda")
+    wide_ll = torch.tensor([1024, 15], device="cuda")
+    wide_labels = torch.randint(1, V, (2, 1024), generator=gen,
+                                device="cuda")
+    wide_labels *= torch.arange(1024, device="cuda")[None, :] < wide_ll[:,
+                                                                        None]
+    if ctc.ctc_plan(2049).route != "frames":
+        fail("ctc: S = 2049 does not take the frames route")
+    ctc_case("N=2 T'=40 S=2049 U=1024,15", torch.log_softmax(
+        _rnd(gen, 2, 40, V, s=2.0), -1), wide_labels, wide_lens, wide_ll)
+    (em, allow2, allow2_dst, beta_last), (e_a, e_b, e_g) = ctc_case(
+        f"crf-v1 batch S={S}", lp, labels, lens, llens)
     lib_in = lp.transpose(0, 1).detach().requires_grad_()
 
     def library(backward):
@@ -866,7 +903,8 @@ def phase_loss_kernels(gen, rec, den, floors):
     # bytes: em read and the states written; about 12 f32 operations a
     # state and frame (three exp, a log, adds and maxima)
     nbytes = 2 * em.numel() * 4 + allow2.numel()
-    sw = f"{what} S={S} U={llens.min().item()}..{llens.max().item()}"
+    sw = (f"{what} S={S} U={llens.min().item()}..{llens.max().item()}, "
+          f"{plan.route} route, W={plan.warps}")
     rec.add("ctc_alpha", "cat_tpu_torch/csrc/ctc.cu",
             "cat_tpu/ops/ctc_pallas.py:55", max(e_a, e_g),
             timed(lambda: ctc.forward_alphas(em, allow2), 10, 2),
@@ -886,7 +924,7 @@ def phase_loss_kernels(gen, rec, den, floors):
         f"versions (max abs err over live states: alpha {e_a:.4g}, beta "
         f"{e_b:.4g}; gradient rows {e_g:.4g}); library_ms: "
         f"F.ctc_loss forward (alpha) and forward + backward (beta)")
-    del em, alphas, plain_a, lib_in
+    del em, lib_in
 
     # the dense denominator: snapshots, logZ, gradient rows
     (s_in, s_bl), logz = crf_dense.den_forward(lp, lens, den)

@@ -19,8 +19,9 @@ The loss kernels (f32), as chip_smoke.py holds them: dropout bit for
 bit; CTC states live in the plain version (above LOG_EPS / 2) within
 1e-3 + 2e-6·|plain|, den snapshots there within 1e-5 relative, the other
 states at or below LOG_EPS / 2 in both; den logZ to 1e-5 relative;
-gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|; RNN-T states as
-the CTC ones, on both routes of `rnnt.rnnt_plan`, two calls bit for bit.
+gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|; CTC and RNN-T
+states on both routes of `ctc.ctc_plan` and `rnnt.rnnt_plan`, two calls
+bit for bit.
 """
 import numpy as np
 import pytest
@@ -628,19 +629,21 @@ def test_dropout_kernel_is_bit_exact(gen, rate, C, dtype):
 
 
 def _lattice(gen, S, T, N):
-    """A CTC case of S = 2U + 1 lattice states over V = 72: labels with
-    repeats, U_n falling from U to 0 and, for N > 1, an utterance of one
-    frame; em, allow2, allow2_dst, beta_last as `_CTCNll` builds them."""
+    """A CTC case of S lattice states over V = 72 (S = 2U + 1, or for an
+    even S the lattice of S // 2 label slots, its last state padding):
+    labels with repeats, U_n falling from U to 0 and, for N > 1, an
+    utterance of one frame; em, allow2, allow2_dst, beta_last as `_CTCNll`
+    builds them."""
     U = (S - 1) // 2
     lp = torch.log_softmax(_rnd(gen, N, T, 72, s=2.0), -1)
-    labels = torch.randint(1, 72, (N, U), generator=gen, device="cuda")
+    labels = torch.randint(1, 72, (N, S // 2), generator=gen, device="cuda")
     labels[:, 1:U:5] = labels[:, 0:U - 1:5]
     llens = torch.tensor([U - (U * i) // N for i in range(N)], device="cuda")
     ilens = torch.tensor([max(1, T - 3 * i) for i in range(N)],
                          device="cuda")
     if N > 1:
         llens[-1], ilens[1] = 0, 1
-    labels *= torch.arange(U, device="cuda")[None, :] < llens[:, None]
+    labels *= torch.arange(S // 2, device="cuda")[None, :] < llens[:, None]
     ext, svalid, allow2 = ctc._lattice_tables(labels, llens, 0, S)
     em = ctc._emissions(lp, ext, svalid, ilens, 0)
     return (em, allow2, *ctc._beta_tables(allow2, llens))
@@ -653,18 +656,27 @@ def _states_close(got, want, atol=1e-3, rtol=2e-6):
         (got - want).abs()[live].max().item()
 
 
-@pytest.mark.parametrize("S,T,N", [(3, 1, 1), (5, 23, 3), (247, 493, 32),
+@pytest.mark.parametrize("S,T,N", [(3, 1, 1), (5, 23, 3), (31, 17, 3),
+                                   (32, 17, 3), (33, 17, 3), (64, 17, 3),
+                                   (65, 17, 3), (247, 493, 32),
+                                   (256, 40, 3), (257, 40, 3),
                                    (1023, 40, 3), (1025, 40, 3),
                                    (6001, 12, 2)])
 def test_ctc_kernels(gen, S, T, N):
+    """Both routes of `ctc.ctc_plan` (lanes up to S = 1024, frames above)
+    against the plain versions, one launch each, two calls bit for bit."""
     em, allow2, allow2_dst, beta_last = _lattice(gen, S, T, N)
+    assert ctc.ctc_plan(S).route == ("lanes" if S <= 1024 else "frames")
     before = (ctc.forward_alphas.launches, ctc.backward_betas.launches)
-    _states_close(ctc.forward_alphas(em, allow2),
-                  ctc.forward_alphas_reference(em, allow2))
-    _states_close(ctc.backward_betas(em, allow2_dst, beta_last),
-                  ctc.backward_betas_reference(em, allow2_dst, beta_last))
+    alphas = ctc.forward_alphas(em, allow2)
+    betas = ctc.backward_betas(em, allow2_dst, beta_last)
     assert (ctc.forward_alphas.launches, ctc.backward_betas.launches) == (
         before[0] + 1, before[1] + 1)
+    _states_close(alphas, ctc.forward_alphas_reference(em, allow2))
+    _states_close(betas,
+                  ctc.backward_betas_reference(em, allow2_dst, beta_last))
+    assert torch.equal(ctc.forward_alphas(em, allow2), alphas)
+    assert torch.equal(ctc.backward_betas(em, allow2_dst, beta_last), betas)
 
 
 def _den(V, order):
