@@ -7,9 +7,9 @@ each utterance; `main` is the decode CLI:
     python -m cat_tpu_torch.ctc.decode <expdir> --mode beam
 
 reading the experiment's `hyper-p.json`, `config.json`, tokenizer,
-`pkl/<split>` dataset and best checkpoint, as written by `cat_tpu`. The
-n-gram fusion CLI option (`--lm`) and WFST decoding need the `fst`
-modules, a later slice of the port (ROADMAP.md).
+`pkl/<split>` dataset and best checkpoint, as written by `cat_tpu` or by
+the port's `Manager`. The n-gram fusion CLI option (`--lm`) and WFST
+decoding need the `fst` modules, a later slice of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -167,10 +167,8 @@ def main(argv=None):
 
     from cat_tpu_torch.utils import tokenizer as tknz
     from cat_tpu_torch.utils.checkpoint import (CheckpointManager,
-                                                load_checkpoint,
-                                                model_variables)
+                                                model_weights)
     from cat_tpu_torch.utils.data import SpeechDataset
-    from cat_tpu_torch.utils.from_jax import conformer_state_dict
 
     p = argparse.ArgumentParser("cat_tpu_torch.ctc.decode")
     p.add_argument("expdir")
@@ -209,9 +207,7 @@ def main(argv=None):
     model = task.build_model(config, num_classes=tok.vocab_size,
                              device=args.device)
     ckpt = CheckpointManager(os.path.join(args.expdir, "check"))
-    params, stats = model_variables(
-        load_checkpoint(ckpt.path(ckpt.best()))["state"])
-    model.load_state_dict(conformer_state_dict(params, stats))
+    model.load_state_dict(model_weights(model, ckpt.path(ckpt.best())))
     ds = SpeechDataset(os.path.join(args.expdir, "pkl", args.split))
 
     t0 = time.time()

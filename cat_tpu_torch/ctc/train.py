@@ -12,7 +12,7 @@ encoder, the standalone dropout and the loss recursions (CTC alpha and
 beta, the dense denominator forward and backward) run their CUDA kernels.
 With `grad_accum_fold` N > 1 a step is one micro-step of a weighted
 fold-N accumulation (`utils/grad_accum.py`): the optimizer steps on every
-N-th call.
+N-th call, and the accumulator lives in the `TrainState`.
 """
 from __future__ import annotations
 
@@ -175,7 +175,7 @@ def _make_accum_train_step(model, loss_fn, fold: WeightedMultiSteps):
             fold.optimizer.zero_grad(set_to_none=True)
             w_sum = torch.zeros_like(w_sum)
             loss_sum = torch.zeros_like(loss_sum)
-        gnorm, applied = fold.update(w_sum, lr)
+        gnorm, applied = fold.update(state, w_sum, lr)
         state.step += 1
         state.skipped += int(not finite)
         return state, {"loss": loss_sum.detach() / torch.clamp_min(w_sum, 1.0),

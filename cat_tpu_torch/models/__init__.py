@@ -3,7 +3,7 @@ registered by class name for config reflection, as `cat_tpu.models`
 does. Only the classes below are ported; the others raise."""
 from cat_tpu_torch.models import decoders, encoders, joiner
 
-_ENCODERS = {"ConformerNet": encoders.ConformerNet}
+_ENCODERS = {"ConformerNet": encoders.ConformerNet, "LSTM": encoders.LSTM}
 _DECODERS = {"LSTMPredictor": decoders.LSTMPredictor,
              "Embedding": decoders.Embedding,
              "ZeroDecoder": decoders.ZeroDecoder}

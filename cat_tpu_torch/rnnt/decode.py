@@ -17,7 +17,8 @@ decode stage:
     python -m cat_tpu_torch.rnnt.decode <expdir> --mode beam
 
 reading a `cat_tpu.rnnt.train` experiment (`hyper-p.json`,
-`config.json`, tokenizer, `pkl/<split>`, best checkpoint). `--lm` needs
+`config.json`, tokenizer, `pkl/<split>`, best checkpoint, of either
+package). `--lm` needs
 ARPA IO and `--mode streaming` the unified trainer, both later slices
 (ROADMAP.md).
 """
@@ -246,10 +247,8 @@ def main(argv=None):
 
     from cat_tpu_torch.utils import tokenizer as tknz
     from cat_tpu_torch.utils.checkpoint import (CheckpointManager,
-                                                load_checkpoint,
-                                                model_variables)
+                                                model_weights)
     from cat_tpu_torch.utils.data import SpeechDataset
-    from cat_tpu_torch.utils.from_jax import transducer_state_dict
 
     p = argparse.ArgumentParser("cat_tpu_torch.rnnt.decode")
     p.add_argument("expdir")
@@ -288,9 +287,7 @@ def main(argv=None):
     model = task.build_model(config, num_classes=tok.vocab_size,
                              device=args.device)
     ckpt = CheckpointManager(os.path.join(args.expdir, "check"))
-    params, stats = model_variables(
-        load_checkpoint(ckpt.path(ckpt.best()))["state"])
-    model.load_state_dict(transducer_state_dict(params, stats))
+    model.load_state_dict(model_weights(model, ckpt.path(ckpt.best())))
     ds = SpeechDataset(os.path.join(args.expdir, "pkl", args.split))
     if args.mode == "greedy":
         greedy = make_greedy_decoder(model)

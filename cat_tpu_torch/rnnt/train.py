@@ -1,11 +1,11 @@
 """RNN-T model assembly and train step (counterpart of
 `cat_tpu/rnnt/train.py`).
 
-`TransducerModel` bundles the encoder (a `ConformerNet` without its
-classifier), the predictor and the joiner; blank = <bos> = 0. The loss is
-`ops.rnnt.rnnt_loss` on the (N, T, U+1, V) log-prob lattice, or, for a
-`LogAdd` joiner, the fused `ops.rnnt_simple.rnnt_loss_simple`, which never
-builds it. `make_train_step` wraps the loss in the CTC trainer's step
+`TransducerModel` bundles the encoder (a `ConformerNet` or an `LSTM`
+without its classifier), the predictor and the joiner; blank = <bos> =
+0. The loss is `ops.rnnt.rnnt_loss` on the (N, T, U+1, V) log-prob
+lattice, or, for a `LogAdd` joiner, the fused
+`ops.rnnt_simple.rnnt_loss_simple`, which never builds it. `make_train_step` wraps the loss in the CTC trainer's step
 (`cat_tpu_torch.ctc.train.make_step`: the NaN/Inf guard, clipping, Adam,
 `grad_accum_fold`). Every random draw (SpecAugment and predictor masks,
 dropout seeds) comes from the `torch.Generator` the caller passes. On the
@@ -102,8 +102,7 @@ def build_model(cfg: dict, num_classes: int, device=None, seed: int = 0):
 
     join_cfg = cfg["joiner"]
     join_kw = dict(join_cfg.get("kwargs", {}))
-    join_kw.update(odim=num_classes, denc=enc_kw.get("hdim", 512),
-                   dpred=predictor.hdim)
+    join_kw.update(odim=num_classes, denc=encoder.odim, dpred=predictor.hdim)
     joiner = models.get_joiner(join_cfg["type"])(**join_kw, generator=gen)
     tr = cfg.get("trainer", {})
     model = TransducerModel(

@@ -1,6 +1,7 @@
-"""Carry `cat_tpu` weights across: a JAX `ConformerNet`'s or
+"""Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s or
 `TransducerModel`'s variables (nested dicts of numpy arrays, as in its
-checkpoints) to the port's state_dict.
+checkpoints) to the port's state_dict (`model_state_dict` picks the
+converter by the port's model class).
 
 Layouts handled:
 - cells are `cell_{i}` subtrees, or one `cells` subtree whose leaves carry
@@ -138,13 +139,56 @@ def joiner_state_dict(params, pre=""):
     return sd
 
 
-def transducer_state_dict(params, batch_stats):
+def lstm_encoder_state_dict(params, bidirectional=True):
+    """The port's `LSTM` encoder state_dict from a `cat_tpu` LSTM's
+    `params`: the cells `LSTMStack_0/OptimizedLSTMCell_{k}`, numbered in
+    the order they were built (layer by layer, the forward direction
+    before the reverse one), each gate's kernels concatenated in the
+    order i, f, g, o; then the classifier. An LSTM has no batch_stats."""
+    stack = params["LSTMStack_0"]
+    n = len([k for k in stack if re.fullmatch(r"OptimizedLSTMCell_\d+", k)])
+    dirs = 2 if bidirectional else 1
+    sd = {}
+    for k in range(n):
+        cell = stack[f"OptimizedLSTMCell_{k}"]
+        pre = f"layers.{k // dirs}.{k % dirs}."
+        for name, kind, part in (("wi", "i", "kernel"), ("wh", "h", "kernel"),
+                                 ("b", "h", "bias")):
+            sd[pre + name] = _t(np.concatenate(
+                [np.asarray(cell[kind + g][part]) for g in "ifgo"], -1))
+    if "classifier" in params:
+        _dense(sd, "classifier.", params["classifier"])
+    return sd
+
+
+def encoder_state_dict(encoder, params, batch_stats):
+    """The state_dict of the port's `encoder` (a `ConformerNet` or an
+    `LSTM`) from the JAX encoder's `params` and `batch_stats` trees."""
+    name = type(encoder).__name__
+    if name == "ConformerNet":
+        return conformer_state_dict(params, batch_stats)
+    if name == "LSTM":
+        return lstm_encoder_state_dict(params, encoder.bidirectional)
+    raise NotImplementedError(f"no converter of JAX weights for {name}")
+
+
+def model_state_dict(model, params, batch_stats):
+    """The state_dict of the port's `model` (an encoder or a
+    `TransducerModel`) from the JAX model's variables."""
+    if type(model).__name__ == "TransducerModel":
+        return transducer_state_dict(params, batch_stats, model.encoder)
+    return encoder_state_dict(model, params, batch_stats)
+
+
+def transducer_state_dict(params, batch_stats, encoder=None):
     """The port's `TransducerModel` state_dict from a `cat_tpu`
-    TransducerModel's `params` and `batch_stats` trees: the encoder
-    through `conformer_state_dict` (either cell layout), then the
-    predictor and the joiner."""
-    sd = {"encoder." + k: v for k, v in conformer_state_dict(
-        params["encoder"], (batch_stats or {}).get("encoder", {})).items()}
+    TransducerModel's `params` and `batch_stats` trees: the encoder (the
+    port's `encoder` module tells its kind; None: a `ConformerNet`, either
+    cell layout), then the predictor and the joiner."""
+    stats = (batch_stats or {}).get("encoder", {})
+    enc = (conformer_state_dict(params["encoder"], stats) if encoder is None
+           else encoder_state_dict(encoder, params["encoder"], stats))
+    sd = {"encoder." + k: v for k, v in enc.items()}
     sd.update(predictor_state_dict(params.get("predictor", {}),
                                    "predictor."))
     sd.update(joiner_state_dict(params["joiner"], "joiner."))

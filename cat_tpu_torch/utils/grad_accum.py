@@ -24,40 +24,38 @@ class WeightedMultiSteps:
         self.params = list(params)
         self.fold = int(fold)
         self.grad_clip = float(grad_clip)
-        self.acc = None
-        self.weight = None
-        self.count = 0
 
-    def update(self, weight, lr):
+    def update(self, state, weight, lr):
         """Adds the parameters' `.grad` (None counts as zero) and `weight`
-        (a 0-dim tensor) to the fold. Returns (the global norm of the
-        fold's mean gradient so far, whether this micro-step applied the
-        update). Leaves every `.grad` as None."""
-        if self.acc is None:
-            self.acc = [torch.zeros_like(p, dtype=torch.float32)
-                        for p in self.params]
-            self.weight = torch.zeros((), device=weight.device)
-        for p, a in zip(self.params, self.acc):
+        (a 0-dim tensor) to the fold of `state` (a `TrainState`). Returns
+        (the global norm of the fold's mean gradient so far, whether this
+        micro-step applied the update). Leaves every `.grad` as None."""
+        if state.fold_sums is None:
+            state.fold_sums = [torch.zeros_like(p, dtype=torch.float32)
+                               for p in self.params]
+            state.fold_weight = torch.zeros((), device=weight.device)
+        acc = state.fold_sums
+        for p, a in zip(self.params, acc):
             if p.grad is not None:
                 a.add_(p.grad)
                 p.grad = None
-        self.weight += weight
-        self.count += 1
-        inv = 1.0 / torch.clamp_min(self.weight, 1e-8)
+        state.fold_weight += weight
+        state.fold_count += 1
+        inv = 1.0 / torch.clamp_min(state.fold_weight, 1e-8)
         gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(a * inv) for a in self.acc]))
-        if self.count < self.fold:
+            [torch.linalg.vector_norm(a * inv) for a in acc]))
+        if state.fold_count < self.fold:
             return gnorm, False
         scale = inv
         if self.grad_clip > 0:
             scale = inv * torch.clamp_max(self.grad_clip / (gnorm + 1e-6), 1.0)
-        for p, a in zip(self.params, self.acc):
+        for p, a in zip(self.params, acc):
             p.grad = (a * scale).to(p.dtype)
         set_lr(self.optimizer, lr)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
-        for a in self.acc:
+        for a in acc:
             a.zero_()
-        self.weight.zero_()
-        self.count = 0
+        state.fold_weight.zero_()
+        state.fold_count = 0
         return gnorm, True

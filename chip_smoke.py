@@ -68,6 +68,25 @@ Phases, any failure exits non-zero:
    forward and backward), 1 CTC alpha, 1 CTC beta, 1 den forward and 1
    den backward; step time, audio seconds trained per second, peak
    memory and the split of one step into encoder and loss;
+6b. manager: the training loop (`cat_tpu_torch.utils.manager.Manager`)
+   trains the full crf-v1 model (as phase 6, at `grad_accum_fold` 2, cut
+   from crf-v1's 16) for one epoch of a packed split (256 utterances of
+   800..2400 frames, `pack_speech_data`; dev 32) through
+   `BucketedLoader` at crf-v1's loader options (frame budget 51,200, 8
+   buckets, seed 0), check_freq 3: every micro-step launches exactly the
+   kernels of phase 6 and every eval batch the four forward kernels, 1
+   CTC alpha and 1 den forward (EVAL); losses finite; the lr at micro-step
+   k is Noam's at ceil(k / 2). The step-3 checkpoint, taken mid-fold,
+   loads into a fresh Manager (model from another seed) bit for bit
+   (parameters, running statistics, Adam moments and steps, fold sums,
+   weight and count); a run resumed from it (given the generator's state
+   at step 3, which the Manager does not checkpoint) ends with run A's
+   global step, epoch, scheduler state_dict, checkpoint names and
+   batches (cuDNN's and PyTorch's deterministic algorithms are on for the
+   phase). Then the LSTM encoder of egs/template/exp/asr-ctc trains 3
+   Manager steps (1 CTC alpha and 1 beta a step) until a fixed stop.
+   Step ms (CUDA events) and host wall, the Manager's data_s and step_s,
+   collate ms a batch and the phase's seconds are printed;
 7. RNN-T kernels: the lattice recursions of `ops/rnnt.py` against their
    plain versions at the rnnt-v1 training batch (the training batch's
    T' = 299..493, labels U = T'//6 ids in 1..1023, V = 1024, tables of
@@ -1456,6 +1475,415 @@ def phase_training(cfg, den, profile):
     return launches
 
 
+EVAL = {k: (1 if k in ("ctc_alpha", "den_fwd") else v)
+        for k, v in SERVE.items()}  # one crf-v1 eval batch
+MANAGER_FOLD = 2  # crf-v1 trains at grad_accum_fold 16: cut to 2
+
+
+def pack_split(path, n, seed, frames=(800, 2400), dim=80, vocab=72,
+               frames_per_label=4, subsample=True):
+    """A packed split (`cat_tpu_torch.utils.data.pack_speech_data`) of `n`
+    utterances: frames uniform in `frames`, features numpy-normal from
+    `seed`, labels U = T' // frames_per_label ids in 1..vocab-1 (T' the
+    subsampled length, or T), as `make_batch` draws them."""
+    import numpy as np
+    from cat_tpu_torch.utils.data import pack_speech_data
+    rng = np.random.default_rng(seed)
+
+    def utterances():
+        for i in range(n):
+            T = int(rng.integers(frames[0], frames[1] + 1))
+            U = (subsampled(T) if subsample else T) // frames_per_label
+            yield (f"s{seed}-{i:04d}",
+                   rng.standard_normal((T, dim), dtype=np.float32),
+                   [int(c) for c in rng.integers(1, vocab, U)])
+
+    return pack_speech_data(path, utterances())
+
+
+class Probe:
+    """Wraps a Manager's train and eval steps: each call's launches (the
+    counters' change), CUDA-event ms and host wall, the lr it was given,
+    its metrics; the uids of every batch trained on; the seconds of each
+    checkpoint write."""
+
+    def __init__(self, mgr):
+        import torch
+        self.train, self.evals, self.uids, self.saves = [], [], [], []
+        step, evaluate, transform = (mgr.train_step, mgr.eval_step,
+                                     mgr.batch_transform)
+        ckpt_save = mgr.ckpt.save
+
+        def save(*args):
+            t = time.perf_counter()
+            name = ckpt_save(*args)
+            self.saves.append(time.perf_counter() - t)
+            return name
+
+        mgr.ckpt.save = save
+
+        def run(fn, *args):
+            before = counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev[0].record()
+            out = fn(*args)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            per = {k: v - before[k] for k, v in counts().items()}
+            return out, per, ev[0].elapsed_time(ev[1]), wall
+
+        def train_step(state, batch, lr, gen):
+            # the Manager transforms each batch just before its step
+            self.uids.append(self.last_uids)
+            (state, m), per, ms, wall = run(step, state, batch, lr, gen)
+            self.train.append(dict(lr=lr, launches=per, ms=ms, wall=wall,
+                                   loss=m["loss"].item(),
+                                   applied=m.get("applied", 1),
+                                   skipped=m["skipped"]))
+            return state, m
+
+        def eval_step(state, batch):
+            m, per, ms, wall = run(evaluate, state, batch)
+            self.evals.append(dict(launches=per, ms=ms,
+                                   loss_sum=m["loss_sum"].item()))
+            return m
+
+        def batch_transform(b):
+            self.last_uids = list(b.uids)
+            return transform(b)
+
+        mgr.train_step, mgr.eval_step = train_step, eval_step
+        mgr.batch_transform = batch_transform
+
+
+def state_tensors(tree, prefix=""):
+    """{path: CPU copy} of every tensor of a (nested) state dict, and
+    {path: value} of every other leaf."""
+    import torch
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(state_tensors(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(state_tensors(v, f"{prefix}/{i}"))
+    else:
+        out[prefix] = (tree.detach().to("cpu", copy=True)
+                       if isinstance(tree, torch.Tensor) else tree)
+    return out
+
+
+def bitwise_diff(got, want):
+    """Paths of `want` (from `state_tensors`) whose value `got` does not
+    hold bit for bit, with its dtype."""
+    import torch
+    bad = sorted(set(got) ^ set(want))
+    for k, w in want.items():
+        g = got.get(k)
+        if isinstance(w, torch.Tensor):
+            if not (isinstance(g, torch.Tensor) and g.dtype == w.dtype
+                    and torch.equal(g, w)):
+                bad.append(k)
+        elif g != w:
+            bad.append(k)
+    return bad
+
+
+def phase_manager(cfg, den):
+    """[manager] The training loop: crf-v1 (full width and depth) trains
+    one epoch of a packed 256-utterance split under the port's Manager
+    (crf-v1's loader options, Noam + Adam, check_freq 3, fold 2): every
+    micro-step's and eval batch's launches, finite losses, the lr at each
+    step; the step-3 checkpoint into a fresh Manager bit for bit; a run
+    resumed from it against the uninterrupted one. Then the LSTM encoder
+    of egs/template/exp/asr-ctc for 3 Manager steps. Splits and
+    checkpoints live under build/manager and are removed at the end."""
+    import shutil
+    import numpy as np
+    import torch
+    from cat_tpu_torch.ctc.train import (build_model, init_state,
+                                         make_eval_step, make_train_step)
+    from cat_tpu_torch.utils.checkpoint import CheckpointManager
+    from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
+    from cat_tpu_torch.utils.manager import Manager
+    from cat_tpu_torch.utils.scheduler import SchedulerNoam, build_scheduler
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", "manager")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    fill = torch.utils.deterministic
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled(),
+                     fill.fill_uninitialized_memory)
+    # run B must repeat run A's arithmetic: cuDNN's deterministic
+    # algorithms, and the CTC gradient's scatter_add without atomics
+    # (uninitialised memory is left as it is, as in every other phase)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    fill.fill_uninitialized_memory = False
+    try:
+        t = time.perf_counter()
+        train_dir = pack_split(os.path.join(root, "train"), 256, 20)
+        dev_dir = pack_split(os.path.join(root, "dev"), 32, 21)
+        with open(os.path.join(REPO, "egs/libri/exp/crf-v1/hyper-p.json")) \
+                as f:
+            opts = json.load(f)["train"]["option"]
+        kw = dict(frame_budget=opts["frame_budget"],
+                  num_buckets=opts["num_buckets"])
+        train_ds = SpeechDataset(train_dir)
+        frames = [train_ds.frame_length(i) for i in range(len(train_ds))]
+        log(f"[manager] packed 256 + 32 utterances of 800..2400 frames "
+            f"({sum(frames) * 0.01:.1f} audio s in train) in "
+            f"{time.perf_counter() - t:.1f} s; disk free "
+            f"{shutil.disk_usage(root).free / 2 ** 30:.1f} GiB")
+        tr = cfg["trainer"]
+
+        def manager(seed, name):
+            model = build_model(cfg, num_classes=72, device="cuda",
+                                seed=seed)
+            sched, opt = build_scheduler(cfg["scheduler"],
+                                         model.parameters())
+            train_loader = BucketedLoader(train_ds, seed=opts["seed"], **kw)
+            mgr = Manager(
+                make_train_step(model, opt, tr["loss"], den, tr["lamb"],
+                                cfg["specaug"], grad_clip=5.0,
+                                grad_accum_fold=MANAGER_FOLD),
+                make_eval_step(model, tr["loss"], den, tr["lamb"]),
+                init_state(model, opt), sched,
+                CheckpointManager(os.path.join(root, name), keep_last=2,
+                                  keep_best=1),
+                train_loader,
+                BucketedLoader(SpeechDataset(dev_dir), shuffle=False, **kw),
+                gen=torch.Generator().manual_seed(13), max_epochs=1,
+                check_freq=3, verbose=False, grad_accum_fold=MANAGER_FOLD)
+            collate = train_loader._collate
+            mgr.collate_ms = []
+
+            def timed_collate(*args):
+                t = time.perf_counter()
+                out = collate(*args)
+                mgr.collate_ms.append(1e3 * (time.perf_counter() - t))
+                return out
+
+            train_loader._collate = timed_collate
+            return mgr, Probe(mgr)
+
+        a, pa = manager(0, "a")
+        loader = a.train_loader
+        log(f"[manager] BucketedLoader (crf-v1 options {kw}, seed "
+            f"{opts['seed']}): buckets {loader.buckets}, batch sizes "
+            f"{loader.batch_sizes}, label caps {loader.label_caps}, "
+            f"{loader.num_batches()} batches an epoch; grad_accum_fold "
+            f"{MANAGER_FOLD} (crf-v1: 16), check_freq 3")
+        at = {}
+        save = a.save
+
+        def save_and_keep(metric):
+            name = save(metric)
+            if a.global_step == 3:
+                # the checkpoint, kept aside from retention by a hard link
+                at["path"] = os.path.join(root, "step3.pt")
+                os.link(a.ckpt.path(name), at["path"])
+                at["state"] = state_tensors(a.state.state_dict())
+                at["gen"] = a.gen.get_state()
+                at["batches"] = len(pa.uids)
+            return name
+
+        a.save = save_and_keep
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        a.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        total = counts()
+        n_steps, n_evals = len(pa.train), len(pa.evals)
+        with open(a.logger.path) as f:
+            logged = [json.loads(line) for line in f]
+        epoch_log = [m for m in logged if "data_s" in m]
+        rounds = [m for m in logged if "dev_loss" in m]
+        want = {k: n_steps * PER_STEP[k] + n_evals * EVAL[k]
+                for k in PER_STEP}
+        for i, r in enumerate(pa.train):
+            if r["launches"] != PER_STEP:
+                fail(f"manager micro-step {i + 1}: launch counts "
+                     f"{r['launches']} != {PER_STEP}")
+            if r["skipped"] or not math.isfinite(r["loss"]):
+                fail(f"manager micro-step {i + 1}: loss {r['loss']}, "
+                     f"skipped {r['skipped']}")
+            if r["applied"] != int((i + 1) % MANAGER_FOLD == 0):
+                fail(f"manager micro-step {i + 1}: applied {r['applied']}")
+        for i, r in enumerate(pa.evals):
+            if r["launches"] != EVAL:
+                fail(f"manager eval batch {i + 1}: launch counts "
+                     f"{r['launches']} != {EVAL}")
+            if not math.isfinite(r["loss_sum"]):
+                fail(f"manager eval batch {i + 1}: loss {r['loss_sum']}")
+        if total != want:
+            fail(f"manager run A launches {total} != {want}")
+        noam = SchedulerNoam(**cfg["scheduler"]["kwargs"])
+        for k, r in enumerate(pa.train, 1):
+            noam.update_lr_step(-(-k // MANAGER_FOLD))
+            if r["lr"] != noam.lr:
+                fail(f"manager micro-step {k}: lr {r['lr']} != Noam at "
+                     f"update {-(-k // MANAGER_FOLD)}: {noam.lr}")
+        if n_steps != loader.num_batches() or a.global_step != n_steps \
+                or len(rounds) != n_steps // 3 or "path" not in at:
+            fail(f"manager run A: {n_steps} steps, {len(rounds)} rounds")
+        if any(not math.isfinite(m["dev_loss"]) for m in rounds):
+            fail(f"manager run A: dev losses {rounds}")
+        ms = [r["ms"] for r in pa.train]
+        walls = [1e3 * r["wall"] for r in pa.train]
+        log(f"[manager] run A: {n_steps} micro-steps ({n_steps // 2} "
+            f"updates), {len(rounds)} eval rounds of "
+            f"{n_evals // len(rounds)} batches, in {run_s:.1f} s; losses "
+            f"{[round(r['loss'], 3) for r in pa.train]}; dev losses "
+            f"{[round(m['dev_loss'], 4) for m in rounds]}; lr = Noam at "
+            f"ceil(step / {MANAGER_FOLD}) at every step")
+        log(f"[manager] run A launches: {PER_STEP} a micro-step, {EVAL} an "
+            f"eval batch; {total} in all")
+        log(f"[manager] micro-step ms (CUDA events) {[round(x, 1) for x in ms]}"
+            f", mean {sum(ms) / len(ms):.1f}; host wall "
+            f"{[round(x, 1) for x in walls]}, mean "
+            f"{sum(walls) / len(walls):.1f}; eval batch ms mean "
+            f"{sum(r['ms'] for r in pa.evals) / n_evals:.1f}")
+        log(f"[manager] epoch: data_s {epoch_log[0]['data_s']:.3f}, step_s "
+            f"{epoch_log[0]['step_s']:.3f} (Manager's log); collate ms a "
+            f"batch {[round(x, 1) for x in a.collate_ms]}, mean "
+            f"{sum(a.collate_ms) / len(a.collate_ms):.1f}; checkpoint "
+            f"writes s {[round(x, 2) for x in pa.saves]}")
+        names_a = [e[0] for e in a.ckpt.entries]
+        sched_a = a.scheduler.state_dict()
+        uids_a = pa.uids[at["batches"]:]
+        step_a, epoch_a = a.global_step, a.epoch
+        del a, pa, loader
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(root, "a"))
+
+        # the round trip: a fresh Manager, its model from another seed
+        b, pb = manager(1, "b")
+        fresh = state_tensors(b.state.state_dict())
+        if not bitwise_diff(fresh, at["state"]):
+            fail("the fresh model already equals run A's")
+        t = time.perf_counter()
+        b.resume(at["path"])
+        load_s = time.perf_counter() - t
+        bad = bitwise_diff(state_tensors(b.state.state_dict()), at["state"])
+        n_t = sum(isinstance(v, torch.Tensor) for v in at["state"].values())
+        fold = at["state"]["/fold/count"], float(at["state"]["/fold/weight"])
+        log(f"[manager] step-3 checkpoint ({os.path.getsize(at['path']) / 2 ** 30:.2f} "
+            f"GiB) into a fresh Manager in {load_s:.1f} s: {n_t} tensors "
+            f"(parameters, running statistics, Adam moments and steps, fold "
+            f"sums), fold count {fold[0]} weight {fold[1]:g}; "
+            f"{len(bad)} differ bit for bit")
+        if bad or fold[0] != 1:
+            fail(f"the step-3 checkpoint does not round-trip: {bad[:5]}")
+        # run B: resumed, with the generator's state at step 3 (the
+        # Manager does not checkpoint its generator, as JAX its rng)
+        b.gen.set_state(at["gen"])
+        reset_counts()
+        t = time.perf_counter()
+        b.run()
+        torch.cuda.synchronize()
+        log(f"[manager] run B (resumed at step 3, epoch replayed from its "
+            f"start): {len(pb.train)} micro-steps in "
+            f"{time.perf_counter() - t:.1f} s, launches {counts()}")
+        checks = {"global_step": (b.global_step, step_a),
+                  "epoch": (b.epoch, epoch_a),
+                  "scheduler state_dict": (b.scheduler.state_dict(), sched_a),
+                  "checkpoint.list names": ([e[0] for e in b.ckpt.entries],
+                                            names_a[1:]),
+                  "batch uids after step 3": (pb.uids, uids_a)}
+        for what, (got, exp) in checks.items():
+            if got != exp:
+                fail(f"manager run B's {what} differs from run A's: {got} "
+                     f"!= {exp}")
+        log(f"[manager] run B = run A: global_step {step_a}, epoch "
+            f"{epoch_a}, scheduler state_dict (best {sched_a['best_metric']:.6g}, "
+            f"lr {sched_a['lr']:.6g}), checkpoint names {names_a[1:]}, "
+            f"uids of {len(uids_a)} batches")
+        del b, pb
+        torch.cuda.empty_cache()
+        phase_manager_lstm(root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic[0]
+        torch.use_deterministic_algorithms(deterministic[1])
+        fill.fill_uninitialized_memory = deterministic[2]
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[manager] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_manager_lstm(root):
+    """The LSTM encoder of egs/template/exp/asr-ctc (hdim 32, one
+    bidirectional layer, CTC, Adam at its lr, 40 features, its loader
+    options) under the Manager for 3 steps on the card; a fixed stop at
+    step 3 ends the run at its first checkpoint round."""
+    import torch
+    from cat_tpu_torch.ctc.train import (build_model, init_state,
+                                         make_eval_step, make_train_step)
+    from cat_tpu_torch.utils.checkpoint import CheckpointManager
+    from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
+    from cat_tpu_torch.utils.manager import Manager
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    exp = os.path.join(REPO, "egs/template/exp/asr-ctc")
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(exp, "hyper-p.json")) as f:
+        hyper = json.load(f)
+    dim = hyper["feature"]["num_mel_bins"]
+    vocab = 12
+    cfg["encoder"]["kwargs"]["idim"] = dim
+    opts = hyper["train"]["option"]
+    kw = dict(frame_budget=opts["frame_budget"],
+              num_buckets=opts["num_buckets"])
+    train_dir = pack_split(os.path.join(root, "lstm-train"), 24, 30,
+                           (60, 240), dim, vocab, 8, subsample=False)
+    dev_dir = pack_split(os.path.join(root, "lstm-dev"), 6, 31, (60, 240),
+                         dim, vocab, 8, subsample=False)
+    model = build_model(cfg, num_classes=vocab, device="cuda", seed=0)
+    sched, opt = build_scheduler(
+        {"type": "SchedulerFixedStop", "kwargs": {"stop_step": 3},
+         "optimizer": cfg["scheduler"]["optimizer"]}, model.parameters())
+    loss = cfg["trainer"]["loss"]
+    mgr = Manager(make_train_step(model, opt, loss),
+                  make_eval_step(model, loss), init_state(model, opt), sched,
+                  CheckpointManager(os.path.join(root, "lstm")),
+                  BucketedLoader(SpeechDataset(train_dir), seed=opts["seed"],
+                                 **kw),
+                  BucketedLoader(SpeechDataset(dev_dir), shuffle=False, **kw),
+                  max_epochs=5, check_freq=3, verbose=False)
+    probe = Probe(mgr)
+    reset_counts()
+    mgr.run()
+    torch.cuda.synchronize()
+    step = {k: int(k in ("ctc_alpha", "ctc_beta")) for k in KERNELS}
+    ev = {k: int(k == "ctc_alpha") for k in KERNELS}
+    for i, r in enumerate(probe.train):
+        if r["launches"] != step or not math.isfinite(r["loss"]) \
+                or r["skipped"]:
+            fail(f"LSTM manager step {i + 1}: launches {r['launches']} != "
+                 f"{step}, loss {r['loss']}, skipped {r['skipped']}")
+    for r in probe.evals:
+        if r["launches"] != ev:
+            fail(f"LSTM eval batch: launches {r['launches']} != {ev}")
+    want = {k: 3 * step[k] + len(probe.evals) * ev[k] for k in KERNELS}
+    if mgr.global_step != 3 or len(probe.train) != 3 or counts() != want \
+            or len(mgr.ckpt.entries) != 1:
+        fail(f"LSTM manager: {mgr.global_step} steps, launches {counts()} "
+             f"!= {want}, checkpoints {mgr.ckpt.entries}")
+    log(f"[manager] LSTM (asr-ctc: {cfg['encoder']['kwargs']}, V={vocab}): "
+        f"3 steps, losses {[round(r['loss'], 3) for r in probe.train]}, "
+        f"{[round(r['ms'], 1) for r in probe.train]} ms (CUDA events), "
+        f"launches a step {dict((k, v) for k, v in step.items() if v)}, an "
+        f"eval batch {dict((k, v) for k, v in ev.items() if v)}; stopped at "
+        f"step 3 by SchedulerFixedStop ({len(probe.evals)} eval batches)")
+
+
 def rnnt_edge_tables(gen, U1, T, N, V=9):
     """RNN-T tables (`_row_tables`) of U = U1 - 1 labels over V: label
     lengths falling from U to 0, input lengths from T down, for N > 1 one
@@ -1918,6 +2346,7 @@ def main():
     phase_train_vs_plain(cfg, den)
     phase_fold(cfg, den)
     launches = phase_training(cfg, den, profile)
+    phase_manager(cfg, den)
     rnnt_cfg = load_config("rnnt-v1")
     phase_rnnt_serving(rnnt_cfg)
     phase_rnnt_train_vs_plain(rnnt_cfg)

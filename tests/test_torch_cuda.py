@@ -921,3 +921,85 @@ def test_conformer_forward_matches_plain_on_the_card(gen, monkeypatch):
                       num_classes=11, device="cuda")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         f32(x, lengths)
+
+
+def test_manager_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    """A toy Manager run on the card (2-cell bf16 conformer, dropout 0.1,
+    CTC on its kernels, fold 2, check_freq 3): the step-3 checkpoint,
+    taken mid-fold, loads into a fresh Manager (model from another seed)
+    with every tensor bit for bit equal to the run's at the moment of
+    saving: parameters, running statistics, Adam moments and steps, the
+    fold's sums, weight and count."""
+    from cat_tpu_torch.ctc.train import (init_state, make_eval_step,
+                                         make_train_step)
+    from cat_tpu_torch.utils.checkpoint import CheckpointManager
+    from cat_tpu_torch.utils.data import (BucketedLoader, SpeechDataset,
+                                          pack_speech_data)
+    from cat_tpu_torch.utils.manager import Manager
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    rng = np.random.default_rng(0)
+    utts = []
+    for i in range(16):
+        T = int(rng.integers(60, 200))
+        utts.append((f"u{i}", rng.standard_normal((T, 80), np.float32),
+                     [int(c) for c in rng.integers(1, 11, T // 16)]))
+    split = pack_speech_data(str(tmp_path / "train"), utts)
+    cfg = {"encoder": {"type": "ConformerNet", "kwargs": dict(
+        num_cells=2, hdim=256, num_heads=4, kernel_size=15,
+        dropout_rate=0.1, dtype="bfloat16")}}
+    sched_cfg = {"type": "SchedulerNoam", "kwargs": {"dim_model": 256,
+                                                     "warmup_step": 10},
+                 "optimizer": {"type": "Adam", "kwargs": {}}}
+
+    def manager(seed, name):
+        model = build_model(cfg, num_classes=11, device="cuda", seed=seed)
+        sched, opt = build_scheduler(sched_cfg, model.parameters())
+        loader = BucketedLoader(SpeechDataset(split), frame_budget=600,
+                                num_buckets=2)
+        return Manager(make_train_step(model, opt, "ctc",
+                                       grad_accum_fold=2),
+                       make_eval_step(model, "ctc"),
+                       init_state(model, opt), sched,
+                       CheckpointManager(str(tmp_path / name)), loader,
+                       loader, max_epochs=1, check_freq=3, verbose=False,
+                       grad_accum_fold=2)
+
+    def flat(sd, prefix=""):
+        out = {}
+        for k, v in sd.items():
+            if isinstance(v, dict):
+                out.update(flat(v, f"{prefix}{k}/"))
+            elif isinstance(v, torch.Tensor):
+                out[prefix + k] = v.detach().to("cpu", copy=True)
+            else:
+                out[prefix + k] = v
+        return out
+
+    a = manager(0, "a")
+    saved = {}
+    save = a.save
+
+    def save_and_note(metric):
+        name = save(metric)
+        if a.global_step == 3:
+            saved.update(path=a.ckpt.path(name),
+                         state=flat(a.state.state_dict()))
+        return name
+
+    a.save = save_and_note
+    a.run()
+    assert a.global_step >= 4 and saved["state"]["fold/count"] == 1
+    assert saved["state"]["model/cells.0.conv.running_mean"].device.type \
+        == "cpu"
+    b = manager(1, "b")
+    b.resume(saved["path"])
+    got = flat(b.state.state_dict())
+    assert sorted(got) == sorted(saved["state"])
+    for k, want in saved["state"].items():
+        if isinstance(want, torch.Tensor):
+            assert got[k].dtype == want.dtype and torch.equal(got[k], want), k
+        else:
+            assert got[k] == want, k
+    assert next(b.state.model.parameters()).is_cuda
+    assert b.state.fold_sums[0].is_cuda and b.global_step == 3

@@ -72,5 +72,5 @@ def test_build_model_needs_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_model(cfg, num_classes=11)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"encoder": {"type": "LSTM", "kwargs": {}}},
+        build_model({"encoder": {"type": "VGGLSTM", "kwargs": {}}},
                     num_classes=11, device="cpu")
