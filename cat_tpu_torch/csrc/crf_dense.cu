@@ -237,6 +237,7 @@ struct Params {
   const int* order;        // (N,) utterances by length, longest first
   const float* w;          // expW (V, V, V)
   const float* fin;        // F (V, V)
+  const unsigned char* emit;  // (V, V): u an LM event after b (backward)
   float* snap_in;          // (S_T, N, V, V)
   float* snap_bl;
   float* logz;             // (N,)
@@ -769,23 +770,27 @@ __device__ void beta_frame(const Block& k, const Params& P, int t,
       P.grad[((size_t)k.un[lane] * P.T + t) * V] = sm * k.gn[lane];
   }
   // rows b = b0 + s of rhs: maxima over u (all u, and u != b) and the
-  // exp-domain products (parity 0 of k.p, k.m), GRP lanes per row (g, s)
+  // exp-domain products (parity 0 of k.p, k.m), GRP lanes per row (g, s).
+  // A u that is no LM event after b (P.emit) adds nothing to E: it takes
+  // no part in the maxima, which a model's mass on it would otherwise
+  // set, flushing every other term of the row to zero.
   const float* ex = k.ex + xpar * G * col;
   for (int base = 0; base < cols; base += ng) {
     const int c = base + tid / GRP;
     const bool on = c < cols;
     const int g = on ? c / nb : 0, s = on ? c - g * nb : 0, b = k.b0 + s;
     const float* r = ex + (g * S + s) * V;
+    const unsigned char* ev = P.emit + (size_t)b * V;
     float ma = LOWEST, mn = LOWEST;
     for (int u = l8; on && u < V; u += GRP) {
-      const float v = r[u];
+      const float v = __ldg(ev + u) ? r[u] : LOG_EPS;
       ma = fmaxf(ma, v);
       mn = fmaxf(mn, u == b ? LOG_EPS : v);
     }
     ma = fmaxf(group_max(ma), LOG_EPS);
     mn = fmaxf(group_max(mn), LOG_EPS);
     for (int u = l8; on && u < V; u += GRP) {
-      const float v = r[u];
+      const float v = __ldg(ev + u) ? r[u] : LOG_EPS;
       float* pp = k.p + (s * V + u) * PG;
       pp[g] = __expf(v - ma);
       pp[G + g] = __expf((u == b ? LOG_EPS : v) - mn);
@@ -1038,10 +1043,11 @@ extern "C" int den_fwd(const void* lp, const void* lens, const void* order,
 // The backward: g (N,) the incoming gradient; grad (N, T, V) out; scratch
 // ceil(N / G) C x K x 3 x al4(G V ceil(V / C)) f32.
 extern "C" int den_bwd(const void* lp, const void* lens, const void* order,
-                       const void* w, const void* fin, const void* snap_in,
-                       const void* snap_bl, const void* logz, const void* g,
-                       void* grad, void* scratch, int N, int T, int V, int K,
-                       int C, int G, int ws, int smem, void* stream) {
+                       const void* w, const void* fin, const void* emit,
+                       const void* snap_in, const void* snap_bl,
+                       const void* logz, const void* g, void* grad,
+                       void* scratch, int N, int T, int V, int K, int C,
+                       int G, int ws, int smem, void* stream) {
   if (N <= 0 || T <= 0) return cudaSuccess;
   if (V <= 0 || K <= 0) return cudaErrorInvalidValue;
   Params p{};
@@ -1050,6 +1056,7 @@ extern "C" int den_bwd(const void* lp, const void* lens, const void* order,
   p.order = static_cast<const int*>(order);
   p.w = static_cast<const float*>(w);
   p.fin = static_cast<const float*>(fin);
+  p.emit = static_cast<const unsigned char*>(emit);
   p.snap_in = const_cast<float*>(static_cast<const float*>(snap_in));
   p.snap_bl = const_cast<float*>(static_cast<const float*>(snap_bl));
   p.logz = const_cast<float*>(static_cast<const float*>(logz));

@@ -21,9 +21,6 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
-# the trainer modules a `cat_tpu` experiment may name, and the port's own
-_TRAIN_BINS = {"cat_tpu.ctc.train": "cat_tpu_torch.ctc.train",
-               "cat_tpu_torch.ctc.train": "cat_tpu_torch.ctc.train"}
 
 
 def _lae(a, b):
@@ -160,11 +157,11 @@ def main(argv=None):
     """Decode CLI: per-utterance encoder forward + host search, writing
     `decode_<split>.txt`, its n-best pickle, and the real-time factor."""
     import argparse
-    import importlib
     import json
     import pickle
     import time
 
+    from cat_tpu_torch.pipeline.tasks import train_module
     from cat_tpu_torch.utils import tokenizer as tknz
     from cat_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                 model_weights)
@@ -199,11 +196,7 @@ def main(argv=None):
     config = load_json("config.json")
     tok = tknz.load(os.path.join(
         args.expdir, hyper["tokenizer"].get("file", "tokenizer.tknz")))
-    train_bin = hyper["train"]["bin"]
-    if train_bin not in _TRAIN_BINS:
-        raise NotImplementedError(f"trainer {train_bin!r} is not ported to "
-                                  "cat_tpu_torch yet; see ROADMAP.md")
-    task = importlib.import_module(_TRAIN_BINS[train_bin])
+    task = train_module(hyper["train"]["bin"], "ctc")
     model = task.build_model(config, num_classes=tok.vocab_size,
                              device=args.device)
     ckpt = CheckpointManager(os.path.join(args.expdir, "check"))

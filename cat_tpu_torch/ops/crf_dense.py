@@ -49,6 +49,9 @@ class DenseDen:
         # alpha snapshot (memory O(T/K + K) alpha tensors, not O(T))
         self.logw = np.asarray(logw, np.float32)
         self.final = np.asarray(final, np.float32)
+        # emit[b, u]: u is an LM event after context symbol b for some a
+        # (never for blank, nor for a unit the LM never saw)
+        self.emit = (self.logw > LOG_EPS / 2).any(axis=0)
         self.num_classes = int(self.logw.shape[0])
         self.ckpt_every = int(ckpt_every)
         self._tables = {}
@@ -125,6 +128,14 @@ class DenseDen:
                                  torch.from_numpy(self.final).to(device))
         return self._tables[key]
 
+    def emit_table(self, device=None):
+        """`emit` as a (V, V) uint8 tensor on `device`, made once."""
+        key = ("emit", str(torch.device(device or "cpu")))
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(
+                self.emit.astype(np.uint8)).to(device)
+        return self._tables[key]
+
     def save(self, path):
         np.savez(path, logw=self.logw, final=self.final)
 
@@ -150,8 +161,13 @@ def _emit_contract(src, expw):
     return out.masked_fill(s <= 0.0, LOG_EPS)
 
 
-def _beta_contract(rhs, expw):
-    """E[n, a, b] = LSE_u(rhs[n, b, u] + W[a, b, u])."""
+def _beta_contract(rhs, expw, emit):
+    """E[n, a, b] = LSE_u(rhs[n, b, u] + W[a, b, u]). The shift is the
+    largest rhs[n, b, u] over the u that `emit` allows after b: a u that
+    is no LM event (blank, a unit the LM never saw) adds nothing to E,
+    and a shift taken there, where a model may put most of its mass,
+    would flush every other term of the row to zero."""
+    rhs = rhs.masked_fill(~emit, LOG_EPS)
     m = torch.clamp_min(rhs.amax(dim=2), LOG_EPS)            # (M, b)
     p = torch.exp(rhs - m[:, :, None])                       # (M, b, u)
     s = torch.bmm(p.permute(1, 0, 2), expw.permute(1, 2, 0))  # (b, M, a)
@@ -217,6 +233,7 @@ def den_backward_reference(log_probs, input_lengths, snaps, logz, g, den):
     N, T, V = log_probs.shape
     dev = log_probs.device
     expw, final = den.device_tables(dev)
+    emit = den.emit_table(dev).bool()
     K = den.ckpt_every
     y = log_probs.transpose(0, 1)
     eye = torch.eye(V, dtype=torch.bool, device=dev)
@@ -251,7 +268,8 @@ def den_backward_reference(log_probs, input_lengths, snaps, logz, g, den):
             # betas before frame t
             rhs = yu + b_in
             both = _beta_contract(
-                torch.cat([rhs, rhs.masked_fill(eye, LOG_EPS)], dim=0), expw)
+                torch.cat([rhs, rhs.masked_fill(eye, LOG_EPS)], dim=0), expw,
+                emit)
             blank_term = blank + b_bl
             new_in = torch.clamp_min(
                 _lse_pair(_lse_pair(rhs, both[N:]), blank_term), LOG_EPS)
@@ -454,8 +472,9 @@ def den_backward(log_probs, input_lengths, snaps, logz, g, den):
     err = _build.load("crf_dense", _ENTRIES).den_bwd(
         log_probs.data_ptr(), input_lengths.data_ptr(),
         plan.order.data_ptr(), expw.data_ptr(), final.data_ptr(),
-        snap_in.data_ptr(), snap_bl.data_ptr(), logz.data_ptr(), g.data_ptr(),
-        grad.data_ptr(), scratch.data_ptr(), N, T, V, K, plan.C, plan.G,
+        den.emit_table(log_probs.device).data_ptr(), snap_in.data_ptr(),
+        snap_bl.data_ptr(), logz.data_ptr(), g.data_ptr(), grad.data_ptr(),
+        scratch.data_ptr(), N, T, V, K, plan.C, plan.G,
         int(plan.w_smem), plan.smem_bytes,
         torch.cuda.current_stream(log_probs.device).cuda_stream)
     _build.check(err, "den_bwd")
@@ -463,7 +482,7 @@ def den_backward(log_probs, input_lengths, snaps, logz, g, den):
     return grad
 
 
-_ENTRIES = {"den_fwd": (8, 8, 0), "den_bwd": (11, 8, 0),
+_ENTRIES = {"den_fwd": (8, 8, 0), "den_bwd": (12, 8, 0),
             "den_clusters": (1, 5, 0)}
 den_forward.launches = 0
 den_backward.launches = 0

@@ -11,8 +11,8 @@
   call each; shallow fusion with an n-gram (`fst.ngram.NGramLM`, or
   `CombinedLM`), a length reward and internal-LM subtraction.
 
-`main` is the decode CLI, the port's stand-in for the pipeline's RNN-T
-decode stage:
+`main` is the decode CLI (the pipeline's stage 4, `pipeline/asr.py`,
+builds its own `RNNTBeamDecoder` over padded batches):
 
     python -m cat_tpu_torch.rnnt.decode <expdir> --mode beam
 
@@ -30,9 +30,6 @@ import numpy as np
 import torch
 
 LN10 = math.log(10.0)
-# the trainer modules a `cat_tpu` experiment may name, and the port's own
-_TRAIN_BINS = {"cat_tpu.rnnt.train": "cat_tpu_torch.rnnt.train",
-               "cat_tpu_torch.rnnt.train": "cat_tpu_torch.rnnt.train"}
 
 
 def _tree_map(fn, *trees):
@@ -239,12 +236,12 @@ def main(argv=None):
     """Decode CLI: per-utterance encoder forward and search, writing
     `decode_<split>.txt`, its n-best pickle, and the real-time factor."""
     import argparse
-    import importlib
     import json
     import os
     import pickle
     import time
 
+    from cat_tpu_torch.pipeline.tasks import train_module
     from cat_tpu_torch.utils import tokenizer as tknz
     from cat_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                 model_weights)
@@ -279,11 +276,7 @@ def main(argv=None):
     config = load_json("config.json")
     tok = tknz.load(os.path.join(
         args.expdir, hyper["tokenizer"].get("file", "tokenizer.tknz")))
-    train_bin = hyper["train"]["bin"]
-    if train_bin not in _TRAIN_BINS:
-        raise NotImplementedError(f"trainer {train_bin!r} is not ported to "
-                                  "cat_tpu_torch.rnnt yet; see ROADMAP.md")
-    task = importlib.import_module(_TRAIN_BINS[train_bin])
+    task = train_module(hyper["train"]["bin"], "rnnt")
     model = task.build_model(config, num_classes=tok.vocab_size,
                              device=args.device)
     ckpt = CheckpointManager(os.path.join(args.expdir, "check"))

@@ -1,6 +1,6 @@
 """Checkpoints: the port's writer and reader, the reader of `cat_tpu`'s,
-the `checkpoint.list` index with its retention, and averaging
-(counterpart of `cat_tpu/utils/checkpoint.py`).
+the `checkpoint.list` index with its retention, and averaging of either
+package's checkpoints (counterpart of `cat_tpu/utils/checkpoint.py`).
 
 The port writes a checkpoint with `torch.save` (a zip archive of state
 dicts: the model's, the optimizer's, the fold accumulator, the
@@ -180,17 +180,31 @@ class CheckpointManager:
         return avail[-1][0] if avail else None
 
 
-def average_checkpoints(paths):
-    """Uniform average of the model state dicts of the port's checkpoints
-    at `paths`: float tensors summed in float64 and returned in float32,
-    any other entry taken from the first (it must be equal in all)."""
+def average_checkpoints(paths, model=None):
+    """Uniform average of the model state dicts held by the checkpoints at
+    `paths`: float tensors summed in float64 and returned in float32 (the
+    JAX package's averaging), any other entry taken from the first (it
+    must be equal in all). With the port's `model`, the checkpoints may be
+    of either package, in any mix: each goes through `model_weights`, so
+    a JAX one is converted first (the conversion only lays f32 values out
+    anew, so converting and averaging commute); without it, each must be
+    the port's."""
     acc, n = None, 0
     for p in paths:
-        tree = load_checkpoint(p)["state"]["model"]
+        if model is not None:
+            tree = model_weights(model, p)
+        elif is_port_checkpoint(p):
+            tree = load_checkpoint(p)["state"]["model"]
+        else:
+            raise ValueError(f"{p}: a JAX checkpoint; pass the port's model "
+                             "to average it")
         if acc is None:
             acc = {k: v.double() if v.is_floating_point() else v
                    for k, v in tree.items()}
         else:
+            if tree.keys() != acc.keys():
+                raise ValueError(f"{p}: holds other weights than "
+                                 f"{paths[0]}")
             for k, v in tree.items():
                 if v.is_floating_point():
                     acc[k] += v.double()

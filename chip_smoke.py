@@ -117,7 +117,30 @@ Phases, any failure exits non-zero:
    exactly the encoder launches of phase 6, 2 dropout, 1 rnnt_alpha, 1
    rnnt_beta and no CTC or den kernel per step; step time, audio-s/s,
    peak memory and the split of one step;
-11. device: the card's name and power limit.
+11. pipeline: `cat_tpu_torch.pipeline.asr.main` in-process, on data the
+   script synthesizes in a temporary directory under build/ (removed at
+   the end). (A) egs/libri/exp/crf-v1 at full width (17 cells, d = 512,
+   bf16, V = 72) through its four stages on a corpus of 70 phone tones
+   (a 200-word lexicon; 192 train and 32 dev utterances of 15-45 words,
+   16 kHz), cut to grad_accum_fold 2, one epoch and check_freq 2: the
+   files of every stage, one hypothesis per dev utterance and finite WER
+   numbers; four utterances' packed features within 1e-3 + 1e-4·|x| of
+   the CPU fbank of the same WAVs in the mel bins within 16 nats of their
+   frame's largest, the others' mel power within 1e-9 of the frame's
+   largest against a float64 witness; every micro-step `PER_STEP` and
+   every eval batch `EVAL` launches, finite losses and no micro-step
+   skipped by the NaN/Inf guard; every decode batch the four
+   encoder forward kernels and nothing else; the best-5 average equal to
+   the f64 mean of the chosen checkpoints, in the decode model too; the
+   device beam (width 17) of the first decode batch equal to the same
+   function on the CPU (prefixes of live lanes, scores within 1e-4 +
+   1e-5·|s|) and two calls bit for bit; each stage's seconds, the
+   features' audio-s/s, the denominator's seconds, micro-step ms,
+   checkpoint writes, averaging, the beam's ms a batch and share of stage
+   4, and the RTF. (B) egs/template/exp/asr-ctc as its files stand on
+   yes/no tones (64 train, 20 dev, seed 0) until its run ends: at most 2
+   word errors on the dev set, 1 CTC alpha and 1 beta a step;
+12. device: the card's name and power limit.
 With --profile, one serving forward and the two train steps also run
 under torch.profiler; the device time by kernel is printed and written to
 chiprun_out/profile.txt, profile_train.txt and profile_rnnt_train.txt.
@@ -280,6 +303,14 @@ def phase_build():
         for line in text.splitlines():
             if "Used" in line or "spill" in line and "0 bytes spill" not in line:
                 log(f"[build] {name}: {line.strip()}")
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def subsampled(frames):
@@ -2253,6 +2284,468 @@ def phase_rnnt_training(cfg, profile):
     return launches
 
 
+PIPE_FOLD = 2       # crf-v1 trains at grad_accum_fold 16: cut to 2
+# packed features vs the CPU fbank (the tolerance of
+# tests/test_torch_fbank.py): within FEAT_ATOL + FEAT_RTOL·|x| in every
+# mel bin within 16 nats of its frame's largest; in the others, which an
+# f32 FFT cannot resolve, the mel power within FEAT_POWER of the frame's
+# largest mel power of a float64 witness
+FEAT_ATOL, FEAT_RTOL, FEAT_POWER = 1e-3, 1e-4, 1e-9
+BEAM_ATOL, BEAM_RTOL = 1e-4, 1e-5   # device beam scores, card vs CPU
+TOY_MAX_ERRORS = 2  # asr-ctc on the yes/no dev set: word errors at most
+YESNO_SR = 8000
+YESNO_TONES = {"yes": 440.0, "no": 880.0}
+
+
+def yesno_utt(rng, words):
+    """One yes/no utterance: 'yes' a 440 Hz and 'no' an 880 Hz tone of
+    0.2 s, Hann-windowed, noise of 0.01 on the tones, 0.1 s of silence
+    after each word and 0.05 s before the first; 8 kHz (the toy recipe's
+    data, egs/template/local/make_data.py)."""
+    import numpy as np
+    chunks = [np.zeros(int(YESNO_SR * 0.05), np.float32)]
+    for w in words:
+        t = np.arange(int(YESNO_SR * 0.2)) / YESNO_SR
+        tone = 0.5 * np.sin(2 * np.pi * YESNO_TONES[w] * t).astype(np.float32)
+        tone *= np.hanning(len(tone)).astype(np.float32)
+        chunks.append(tone + rng.standard_normal(len(tone)).astype(
+            np.float32) * 0.01)
+        chunks.append(np.zeros(int(YESNO_SR * 0.1), np.float32))
+    return np.concatenate(chunks)
+
+
+def write_split(d, utts, sr):
+    """wav.scp and text of `utts` [(uid, samples, words)] under d."""
+    from cat_tpu_torch.utils.audio import write_wav
+    os.makedirs(os.path.join(d, "wav"))
+    scp, text = [], []
+    for uid, wav, words in utts:
+        path = os.path.join(d, "wav", uid + ".wav")
+        write_wav(path, wav, sr)
+        scp.append(f"{uid} {path}")
+        text.append(f"{uid} {' '.join(words)}")
+    for name, lines in (("wav.scp", scp), ("text", text)):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def make_yesno(root):
+    """64 train and 20 dev yes/no utterances of 1-3 words, drawn from
+    seed 0 as the JAX package's pipeline test draws them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 64), ("dev", 20)):
+        utts = []
+        for i in range(n):
+            words = list(rng.choice(["yes", "no"],
+                                    size=int(rng.integers(1, 4))))
+            utts.append((f"{split}_{i:03d}", yesno_utt(rng, words), words))
+        write_split(os.path.join(root, split), utts, YESNO_SR)
+
+
+def make_phone_corpus(root, seed=19):
+    """The crf-v1 stand-in for LibriSpeech: a lexicon of 200 words of 2-6
+    of 70 phones (every phone used, so V = 72 with <s> and <unk>); phone p
+    a 70 ms Hann-windowed tone of 200 + 50p Hz, 100 ms of silence after
+    each word and 50 ms before the first, noise of sigma 0.01 over all;
+    16 kHz. 192 train and 32 dev utterances of 15-45 words."""
+    import numpy as np
+    sr = 16000
+    rng = np.random.default_rng(seed)
+    phones = [f"p{i:02d}" for i in range(70)]
+    while True:
+        spell = [list(rng.integers(0, 70, int(rng.integers(2, 7))))
+                 for _ in range(200)]
+        if len({p for s in spell for p in s}) == 70:
+            break
+    words = [f"w{i:03d}" for i in range(200)]
+    os.makedirs(root)
+    lexicon = os.path.join(root, "lexicon.txt")
+    with open(lexicon, "w") as f:
+        for w, s in zip(words, spell):
+            f.write(w + " " + " ".join(phones[p] for p in s) + "\n")
+    n_tone, n_gap = int(0.07 * sr), int(0.1 * sr)
+    win = np.hanning(n_tone)
+    tone = [0.5 * np.sin(2 * np.pi * (200 + 50 * p) * np.arange(n_tone) / sr)
+            * win for p in range(70)]
+    for split, n in (("train", 192), ("dev", 32)):
+        utts = []
+        for i in range(n):
+            ws = list(rng.integers(0, 200, int(rng.integers(15, 46))))
+            parts = [np.zeros(int(0.05 * sr))]
+            for w in ws:
+                parts += [tone[p] for p in spell[w]] + [np.zeros(n_gap)]
+            wav = np.concatenate(parts)
+            wav = (wav + 0.01 * rng.standard_normal(len(wav))).astype(
+                np.float32)
+            utts.append((f"{split}{i:03d}", wav, [words[w] for w in ws]))
+        write_split(os.path.join(root, split), utts, sr)
+    return lexicon
+
+
+def fbank_witness(wav, sr, bins):
+    """The log-mel of `cat_tpu_torch.ops.fbank.log_fbank` (25 ms windows
+    every 10 ms, a 512-point FFT) in float64 numpy, without CMVN."""
+    import numpy as np
+    from cat_tpu_torch.ops import fbank
+    n, hop = int(sr * 0.025), int(sr * 0.010)
+    x = np.asarray(wav, np.float64)
+    T = 1 + (len(x) - n) // hop
+    fr = x[np.arange(T)[:, None] * hop + np.arange(n)[None, :]]
+    fr = fr - fr.mean(-1, keepdims=True)
+    fr = fr - 0.97 * np.concatenate([fr[:, :1], fr[:, :-1]], -1)
+    fr = fr * fbank.povey_window(n).astype(np.float64)
+    power = np.abs(np.fft.rfft(fr, n=512, axis=-1)) ** 2
+    mel = power @ fbank.mel_filterbank(bins, 512, sr).astype(np.float64)
+    return np.log(np.maximum(mel, 1e-10))
+
+
+def feature_errors(got, ref, wav, sr):
+    """(max abs err of the CMVN features `got` against `ref` in the
+    resolved bins, their share, the largest power error in the others);
+    fails beyond the FEAT_* tolerances."""
+    import numpy as np
+    exact = fbank_witness(wav, sr, got.shape[1])
+    top = exact.max(-1, keepdims=True)
+    res = exact >= top - 16.0
+    err = np.where(res, np.abs(got - ref), 0.0)
+    bad = int((err > FEAT_ATOL + FEAT_RTOL * np.abs(ref)).sum())
+    # CMVN undone with the witness's means
+    lm = got.astype(np.float64) + exact.mean(0)
+    power = np.where(res, 0.0, np.abs(np.exp(lm) - np.exp(exact))
+                     / np.exp(top)).max()
+    if got.shape != ref.shape or bad or power > FEAT_POWER:
+        fail(f"packed features differ from the CPU fbank: {bad} resolved "
+             f"bins beyond {FEAT_ATOL} + {FEAT_RTOL}|x| (max {err.max():.3g})"
+             f", power error {power:.3g} in the others (tol {FEAT_POWER})")
+    return float(err.max()), float(res.mean()), float(power)
+
+
+class Stopwatch:
+    """Seconds and calls of the functions it wraps (each call ends in a
+    device synchronisation, so its time is the card's too)."""
+
+    def __init__(self):
+        self.s, self.n = {}, {}
+
+    def wrap(self, name, fn, before=None, after=None):
+        import torch
+
+        def timed_fn(*args, **kwargs):
+            if before:
+                before(*args, **kwargs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t
+            self.n[name] = self.n.get(name, 0) + 1
+            if after:
+                after(out, *args, **kwargs)
+            return out
+
+        return timed_fn
+
+
+def run_pipeline(expdir, watch, extra=None):
+    """`cat_tpu_torch.pipeline.asr.main([expdir])` with its stages, the
+    feature extraction, the denominator and the averaging timed by
+    `watch`, and every Manager it builds probed (`Probe`); `extra`: more
+    patches. Returns the probes and the launch counts of the run, set to 0
+    just before it."""
+    import torch
+    from cat_tpu_torch.pipeline import asr
+    from cat_tpu_torch.utils import manager
+    probes = []
+
+    class ProbedManager(manager.Manager):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            probes.append(Probe(self))
+
+    patches = {manager: {"Manager": ProbedManager},
+               asr: {name: watch.wrap(name, getattr(asr, name)) for name in
+                     ("stage_pack", "stage_train", "stage_decode",
+                      "wav_features", "build_den")}}
+    for mod, fns in (extra or {}).items():
+        patches.setdefault(mod, {}).update(fns)
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    patched(patches, lambda: asr.main([expdir]))
+    torch.cuda.synchronize()
+    watch.s["main"] = time.perf_counter() - t
+    return probes, counts()
+
+
+def check_outputs(expdir, n_dev, what):
+    """The four stages' files, one hypothesis and one n-best entry per dev
+    utterance, every number of wer_dev.json finite; returns the WER
+    record."""
+    from cat_tpu_torch.utils.nbest import read_nbest
+    for name in ("tokenizer.tknz", "pkl/train/meta.npz", "pkl/dev/meta.npz",
+                 "check/checkpoint.list", "check/metrics.jsonl", "readme.md",
+                 "decode_dev.txt", "nbest_dev.pkl", "wer_dev.json"):
+        if not os.path.exists(os.path.join(expdir, name)):
+            fail(f"{what}: no {name}")
+    with open(os.path.join(expdir, "decode_dev.txt")) as f:
+        lines = f.read().splitlines()
+    nbest = read_nbest(os.path.join(expdir, "nbest_dev.pkl"))
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        res = json.load(f)
+    nums = [v for v in res.values() if isinstance(v, (int, float))]
+    if len(lines) != n_dev or len(nbest) != n_dev or not all(
+            math.isfinite(v) for v in nums):
+        fail(f"{what}: {len(lines)} hypotheses, {len(nbest)} n-best entries "
+             f"for {n_dev} dev utterances; wer_dev.json {res}")
+    return res
+
+
+def check_probe(probe, step_want, eval_want, what):
+    for i, r in enumerate(probe.train):
+        if r["launches"] != step_want or r["skipped"] \
+                or not math.isfinite(r["loss"]):
+            fail(f"{what} micro-step {i + 1}: launches {r['launches']} != "
+                 f"{step_want}, loss {r['loss']}, skipped {r['skipped']}")
+    for i, r in enumerate(probe.evals):
+        if r["launches"] != eval_want or not math.isfinite(r["loss_sum"]):
+            fail(f"{what} eval batch {i + 1}: launches {r['launches']} != "
+                 f"{eval_want}, loss {r['loss_sum']}")
+
+
+def phase_pipeline(card):
+    """[pipeline] `python -m cat_tpu_torch.pipeline.asr` in-process on
+    synthesized data in a temporary directory under build/, removed at the
+    end: crf-v1's recipe at full width through its four stages, then the
+    asr-ctc toy recipe to the end of its training."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="pipeline-", dir=os.path.join(REPO,
+                                                                  "build"))
+    try:
+        pipeline_crf_v1(os.path.join(root, "crf-v1"), card)
+        pipeline_toy(os.path.join(root, "asr-ctc"), card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[pipeline] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def recipe(name, expdir, data, edit):
+    """The recipe egs/<name>'s two JSON files, the data paths set to
+    `data` and `edit`(hyper, config) applied, written to expdir."""
+    src = os.path.join(REPO, "egs", name)
+    with open(os.path.join(src, "hyper-p.json")) as f:
+        hyper = json.load(f)
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    hyper["data"] = {"train": os.path.join(data, "train"),
+                     "dev": os.path.join(data, "dev")}
+    edit(hyper, config)
+    os.makedirs(expdir)
+    for fname, obj in (("hyper-p.json", hyper), ("config.json", config)):
+        with open(os.path.join(expdir, fname), "w") as f:
+            json.dump(obj, f, indent=1)
+    return hyper, config
+
+
+def pipeline_crf_v1(root, card):
+    """crf-v1 (egs/libri/exp/crf-v1, 17 cells, d = 512, bf16, the dense
+    3-gram denominator, Noam + Adam, SpecAugment, best-5 averaging, beam
+    17) through the four stages on the phone corpus. Cuts: grad_accum_fold
+    16 -> 2, max_epochs 80 -> 1, check_freq 2000 -> 2, the data and
+    lexicon paths."""
+    import numpy as np
+    import torch
+    from cat_tpu_torch.ctc import decode_device
+    from cat_tpu_torch.ops.semiring import LOG_EPS
+    from cat_tpu_torch.pipeline import asr
+    from cat_tpu_torch.utils.audio import read_wav
+    from cat_tpu_torch.utils.data import SpeechDataset
+    from cat_tpu_torch.utils.data_prep import wav_features
+
+    t = time.perf_counter()
+    data = os.path.join(root, "data")
+    lexicon = make_phone_corpus(data)
+    synth_s = time.perf_counter() - t
+
+    def edit(hyper, config):
+        hyper["tokenizer"]["option-init"]["lexicon"] = lexicon
+        hyper["train"]["option"].update(max_epochs=1, check_freq=2)
+        config["trainer"]["grad_accum_fold"] = PIPE_FOLD
+
+    expdir = os.path.join(root, "exp")
+    hyper, config = recipe("libri/exp/crf-v1", expdir, data, edit)
+    watch = Stopwatch()
+    beams, decodes, averaged = [], [], {}
+
+    def keep_beam(out, lp, olens, **kw):
+        if not beams:
+            beams.append((lp.clone(), olens.clone(), kw,
+                          [x.clone() for x in out]))
+
+    def before_forward(model, feats, flens):
+        decodes.append(counts())
+        averaged.setdefault("model", model)
+
+    def after_forward(out, model, feats, flens):
+        before = decodes.pop()
+        decodes.append({k: v - before[k] for k, v in counts().items()})
+
+    def keep_average(out, paths, model=None):
+        averaged.update(paths=list(paths), state=out)
+
+    from cat_tpu_torch.utils import checkpoint
+    extra = {decode_device: {"ctc_beam_search_device": watch.wrap(
+                 "beam", decode_device.ctc_beam_search_device,
+                 after=keep_beam)},
+             asr: {"ctc_log_probs": watch.wrap(
+                 "forward", asr.ctc_log_probs, before=before_forward,
+                 after=after_forward)},
+             checkpoint: {"average_checkpoints": watch.wrap(
+                 "average_checkpoints", checkpoint.average_checkpoints,
+                 after=keep_average)}}
+    probes, total = run_pipeline(expdir, watch, extra)
+
+    # the files, and the result of every dev utterance
+    res = check_outputs(expdir, 32, "crf-v1 pipeline")
+    # stage 2: packed features against the CPU fbank of the same WAVs
+    ds = SpeechDataset(os.path.join(expdir, "pkl", "train"))
+    feat = []
+    for i in range(4):
+        wav, sr = read_wav(os.path.join(data, "train", "wav",
+                                        ds.uids[i] + ".wav"))
+        feat.append(feature_errors(np.asarray(ds[i][0]),
+                                   wav_features(wav, sr, 80, "cpu"), wav, sr))
+    # stage 3: the Manager's steps and eval batches
+    if len(probes) != 1:
+        fail(f"crf-v1 pipeline built {len(probes)} Managers")
+    pr = probes[0]
+    check_probe(pr, PER_STEP, EVAL, "crf-v1 pipeline")
+    n_steps, n_evals, n_dec = len(pr.train), len(pr.evals), len(decodes)
+    if n_steps == 0 or any(d != SERVE for d in decodes) or n_dec == 0:
+        fail(f"crf-v1 pipeline: {n_steps} micro-steps; decode batches' "
+             f"launches {decodes}")
+    want = {k: n_steps * PER_STEP[k] + n_evals * EVAL[k] + n_dec * SERVE[k]
+            for k in PER_STEP}
+    if total != want:
+        fail(f"crf-v1 pipeline launches {total} != {want}")
+    # stage 4: the averaged weights against the f64 mean of the chosen
+    # checkpoints, read anew; the decode model holds them
+    paths = averaged.get("paths") or []
+    n_ck = len(pr.saves)
+    if len(paths) != min(hyper["inference"]["avgmodel"]["num"], n_ck):
+        fail(f"crf-v1 pipeline averaged {len(paths)} of {n_ck} checkpoints")
+    acc = None
+    for p in paths:
+        sd = torch.load(p, map_location="cpu", weights_only=True,
+                        mmap=True)["state"]["model"]
+        if acc is None:
+            acc = {k: v.double() for k, v in sd.items()}
+        else:
+            for k, v in sd.items():
+                acc[k] += v.double()
+    mean = {k: (v / len(paths)).float() for k, v in acc.items()}
+    held = averaged["model"].state_dict()
+    bad = [k for k, v in mean.items()
+           if not (torch.equal(averaged["state"][k], v)
+                   and torch.equal(held[k].cpu(), v))]
+    if bad:
+        fail(f"averaged weights differ from the f64 mean: {bad[:5]}")
+    # the device beam: the first batch on the CPU, and twice on the card
+    lp, olens, kw, out = beams[0]
+    cpu = decode_device.ctc_beam_search_device(lp.cpu(), olens.cpu(), **kw)
+    again = decode_device.ctc_beam_search_device(lp, olens, **kw)
+    bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+    pref, plen, score = (x.cpu() for x in out)
+    live = score > LOG_EPS / 2
+    same = all(torch.equal(pref[n, k, :plen[n, k]], cpu[0][n, k, :plen[n, k]])
+               and plen[n, k] == cpu[1][n, k] for n, k in live.nonzero())
+    s_err = (score[live] - cpu[2][live]).abs()
+    if not (bitwise and same and torch.equal(live, cpu[2] > LOG_EPS / 2)
+            and bool((s_err <= BEAM_ATOL + BEAM_RTOL
+                      * cpu[2][live].abs()).all())):
+        fail(f"device beam: bit for bit over two calls {bitwise}, prefixes "
+             f"as on the CPU {same}, max score diff {s_err.max():.3g}")
+
+    s, n = watch.s, watch.n
+    dev = SpeechDataset(os.path.join(expdir, "pkl", "dev"))
+    audio_s = sum(d.frame_length(i) for d in (ds, dev)
+                  for i in range(len(d))) * 0.01
+    ms = [r["ms"] for r in pr.train]
+    log(f"[pipeline] crf-v1 ({card}): corpus of 192 + 32 utterances "
+        f"({audio_s:.1f} audio s) synthesized in "
+        f"{synth_s:.1f} s; stages 1-4 in {s['main']:.1f} s: pack "
+        f"{s['stage_pack']:.1f}, train {s['stage_train']:.1f}, decode "
+        f"{s['stage_decode']:.1f}")
+    log(f"[pipeline] crf-v1 features on the card: {n['wav_features']} "
+        f"utterances in {s['wav_features']:.2f} s "
+        f"({audio_s / s['wav_features']:.0f} "
+        f"audio-s/s, fbank + CMVN with the host copies); 4 utterances vs "
+        f"the CPU fbank: max abs err {max(f[0] for f in feat):.3g} in the "
+        f"{min(f[1] for f in feat):.1%}+ of bins within 16 nats of their "
+        f"frame's largest (tol {FEAT_ATOL} + {FEAT_RTOL}|x|), power error "
+        f"in the others {max(f[2] for f in feat):.3g} of the frame's "
+        f"largest (tol {FEAT_POWER}, against a float64 witness)")
+    log(f"[pipeline] crf-v1 stage 3: dense 3-gram denominator built in "
+        f"{s['build_den']:.2f} s; {n_steps} micro-steps at fold {PIPE_FOLD} "
+        f"(ms {[round(x, 1) for x in ms]}, CUDA events), losses "
+        f"{[round(r['loss'], 2) for r in pr.train]}; {n_evals} eval "
+        f"batches; launches {PER_STEP} a micro-step, {EVAL} an eval batch; "
+        f"{n_ck} checkpoint writes s {[round(x, 2) for x in pr.saves]}")
+    log(f"[pipeline] crf-v1 stage 4: averaging of {len(paths)} checkpoints "
+        f"in {s['average_checkpoints']:.1f} s, equal to their f64 mean; "
+        f"{n_dec} decode batches of {SERVE} launches each; beam 17 "
+        f"{1e3 * s['beam'] / n['beam']:.1f} ms a batch ({n['beam']} batches, "
+        f"{100 * s['beam'] / s['stage_decode']:.1f} % of stage 4); the "
+        f"first batch's beam on the card equals the CPU's (live lanes "
+        f"{int(live.sum())} of {live.numel()}, max score diff "
+        f"{float(s_err.max()):.3g}) and two calls agree bit for bit; WER "
+        f"{res['wer']:.2f} % ({res['errors']} errors of {res['num_words']} "
+        f"phones, a random model after {n_steps // PIPE_FOLD} updates), RTF "
+        f"{res['rtf']:.4f}")
+
+
+def pipeline_toy(root, card):
+    """egs/template/exp/asr-ctc as its JSON files stand (the LSTM of hdim
+    32, a word tokenizer, 40 mel bins, SchedulerEarlyStop, beam 8) on the
+    yes/no data, trained until the run ends; at most TOY_MAX_ERRORS word
+    errors on the dev set."""
+    data = os.path.join(root, "data")
+    make_yesno(data)
+    expdir = os.path.join(root, "exp")
+    recipe("template/exp/asr-ctc", expdir, data, lambda h, c: None)
+    watch = Stopwatch()
+    probes, total = run_pipeline(expdir, watch)
+    res = check_outputs(expdir, 20, "asr-ctc pipeline")
+    step = {k: int(k in ("ctc_alpha", "ctc_beta")) for k in KERNELS}
+    ev = {k: int(k == "ctc_alpha") for k in KERNELS}
+    pr = probes[0]
+    check_probe(pr, step, ev, "asr-ctc pipeline")
+    want = {k: len(pr.train) * step[k] + len(pr.evals) * ev[k]
+            for k in KERNELS}
+    if len(probes) != 1 or total != want:
+        fail(f"asr-ctc pipeline: {len(probes)} Managers, launches {total} "
+             f"!= {want}")
+    with open(os.path.join(expdir, "check", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    rounds = [m for m in logged if "dev_loss" in m]
+    ms = sorted(r["ms"] for r in pr.train)
+    log(f"[pipeline] asr-ctc ({card}): {len(pr.train)} steps in "
+        f"{rounds[-1]['epoch']} epochs (last scheduler state "
+        f"{rounds[-1]['sched']}, lr {rounds[-1]['lr']:.3g}), step ms median "
+        f"{ms[len(ms) // 2]:.1f} (CUDA events); stages 1-4 in "
+        f"{watch.s['main']:.1f} s (train {watch.s['stage_train']:.1f}); "
+        f"dev: {res['errors']} word errors of {res['num_words']} (sub "
+        f"{res['sub']} ins {res['ins']} del {res['del']}; gate <= "
+        f"{TOY_MAX_ERRORS}), RTF {res['rtf']:.4f}; launches 1 CTC alpha and "
+        f"1 beta a step, 1 alpha an eval batch")
+    if res["errors"] > TOY_MAX_ERRORS:
+        fail(f"asr-ctc pipeline: {res['errors']} word errors on the dev set "
+             f"(at most {TOY_MAX_ERRORS})")
+
+
 def phase_profile(fn, what, path):
     """Device time of fn() by kernel (torch.profiler), and the device's
     busy share over the span from its first kernel's start to its last
@@ -2351,6 +2844,7 @@ def main():
     phase_rnnt_serving(rnnt_cfg)
     phase_rnnt_train_vs_plain(rnnt_cfg)
     rnnt_launches = phase_rnnt_training(rnnt_cfg, profile)
+    phase_pipeline(card())
     # each kernel's launches on the main path that runs it: the crf-v1
     # training phase, or the rnnt-v1 one for the RNN-T lattice kernels
     records = [rec.by_name[k] for k in KERNELS]
@@ -2359,12 +2853,9 @@ def main():
                          else launches)[r["name"]]
     log(f"[env] whole run {time.perf_counter() - t_all:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
     if "jax" in sys.modules:
         fail("jax was imported")
-    log(smi.stdout.strip().splitlines()[0])
+    log(card())
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

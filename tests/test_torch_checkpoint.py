@@ -9,7 +9,9 @@ package has the same function.
 - `CheckpointManager` against JAX's under one sequence of (metric, step,
   epoch): the same file names on disk after every save, the same
   `checkpoint.list` text, the same `best()` and `last()`.
-- `average_checkpoints` against JAX's on the same weights: 1e-6.
+- `average_checkpoints` against JAX's on the same weights: 1e-6; over a
+  mix of a JAX checkpoint and the port's, given the port's model: equal
+  to the f64 mean of their converted weights, bit for bit.
 - `Manager.load_init_model` from a JAX checkpoint against JAX's: the
   parameters equal to the converted JAX ones (exactly, they are copies),
   optimizer and running statistics untouched.
@@ -177,6 +179,32 @@ def test_average_checkpoints_matches_jax(tmp_path):
         assert got[k].dtype == torch.float32
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
                                    rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_average_checkpoints_of_both_packages(tmp_path):
+    """A JAX checkpoint and two of the port's, averaged through the
+    conversion `model_weights` applies: the f32 of the f64 mean of the
+    converted weights, bit for bit. Without the model a JAX file is
+    refused."""
+    jm = jax_ckpt.CheckpointManager(str(tmp_path / "j"))
+    pm = ckpt.CheckpointManager(str(tmp_path / "p"), 10, 10)
+    model = train.build_model(LSTM, V, device="cpu")
+    params = _lstm_params(3)
+    paths = [jm.path(jm.save({"state": JaxTrainState(
+        params=params[0], batch_stats={}, opt_state=(),
+        step=np.asarray(0))}, 1.0, 0, 1))]
+    trees = [lstm_encoder_state_dict(p) for p in params]
+    for i in (1, 2):
+        model.load_state_dict(trees[i])
+        paths.append(pm.path(pm.save({"state": {
+            "model": model.state_dict()}}, 1.0, i, 1)))
+    got = ckpt.average_checkpoints(paths, model)
+    assert sorted(got) == sorted(trees[0])
+    for k in trees[0]:
+        want = (sum(t[k].double() for t in trees) / 3).float()
+        assert got[k].dtype == torch.float32 and torch.equal(got[k], want), k
+    with pytest.raises(ValueError, match="JAX checkpoint"):
+        ckpt.average_checkpoints(paths)
 
 
 def test_load_init_model_from_a_jax_checkpoint(tmp_path):

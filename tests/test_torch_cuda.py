@@ -21,7 +21,13 @@ bit; CTC states live in the plain version (above LOG_EPS / 2) within
 states at or below LOG_EPS / 2 in both; den logZ to 1e-5 relative;
 gradient rows |kernel - plain| <= 1e-3 + 1e-3·|plain|; CTC and RNN-T
 states on both routes of `ctc.ctc_plan` and `rnnt.rnnt_plan`, two calls
-bit for bit.
+bit for bit. The front end and the device beam (no kernel of their own):
+cuFFT's log-mel and CMVN against the CPU's within 1e-3 + 1e-4·|x| in the
+mel bins within 16 nats of their frame's largest, the others' power
+within 1e-9 of the frame's largest against a float64 witness; the batched
+prefix beam against the same function on the CPU (prefixes of live lanes
+identical, scores within 1e-4 + 1e-5·|s|); both bit for bit over two
+calls on the card.
 """
 import numpy as np
 import pytest
@@ -1003,3 +1009,81 @@ def test_manager_checkpoint_round_trip_on_the_card(gen, tmp_path):
             assert got[k] == want, k
     assert next(b.state.model.parameters()).is_cuda
     assert b.state.fold_sums[0].is_cuda and b.global_step == 3
+
+
+def _power_ok(log_mel, wav, sr, bins):
+    """The f32 log-mel `log_mel` (T, bins) against a float64 numpy witness
+    of `fbank.log_fbank`: in the bins within 16 nats of their frame's
+    largest, returned for the caller's tolerance; in the others, the mel
+    power within 1e-9 of the frame's largest (tests/test_torch_fbank.py)."""
+    from cat_tpu_torch.ops import fbank
+    n, hop = int(sr * 0.025), int(sr * 0.010)
+    x = np.asarray(wav, np.float64)
+    T = 1 + (len(x) - n) // hop
+    fr = x[np.arange(T)[:, None] * hop + np.arange(n)[None, :]]
+    fr = fr - fr.mean(-1, keepdims=True)
+    fr = fr - 0.97 * np.concatenate([fr[:, :1], fr[:, :-1]], -1)
+    fr = fr * fbank.povey_window(n).astype(np.float64)
+    mel = (np.abs(np.fft.rfft(fr, n=512, axis=-1)) ** 2) @ \
+        fbank.mel_filterbank(bins, 512, sr).astype(np.float64)
+    exact = np.log(np.maximum(mel, 1e-10))
+    top = exact.max(-1, keepdims=True)
+    res = exact >= top - 16.0
+    err = np.abs(np.exp(log_mel.astype(np.float64)) - np.exp(exact)) \
+        / np.exp(top)
+    assert np.where(res, 0.0, err).max() <= 1e-9
+    return res
+
+
+@pytest.mark.parametrize("sr,bins", [(8000, 40), (16000, 80)])
+def test_log_fbank_on_the_card_matches_the_cpu(gen, sr, bins):
+    """cuFFT's log-mel and CMVN against the CPU's: |Δ| <= 1e-3 +
+    1e-4·|x| in the resolved bins, the power bound in the others; two
+    calls on the card bit for bit."""
+    from cat_tpu_torch.ops import fbank
+    rng = np.random.default_rng(sr + bins)
+    L = int(1.3 * sr)
+    t = np.arange(L) / sr
+    w = (0.3 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1870 * t)
+         + 0.01 * rng.standard_normal(L)).astype(np.float32)
+    w[: L // 4] = 0.0
+    kw = dict(num_bins=bins, sample_rate=sr, frame_length=int(sr * 0.025),
+              frame_shift=int(sr * 0.010), fft_size=512)
+    x = torch.from_numpy(w[None])
+    card = fbank.log_fbank(x.cuda(), **kw)
+    assert torch.equal(card, fbank.log_fbank(x.cuda(), **kw))
+    cpu = fbank.log_fbank(x, **kw)[0].numpy()
+    got = card[0].cpu().numpy()
+    res = _power_ok(got, w, sr, bins)
+    assert (np.abs(got - cpu) <= 1e-3 + 1e-4 * np.abs(cpu))[res].all()
+    for norm_var in (False, True):
+        c = fbank.cmvn(card, torch.tensor([got.shape[0]], device="cuda"),
+                       norm_var=norm_var)[0].cpu().numpy()
+        p = fbank.cmvn(torch.from_numpy(cpu[None]),
+                       norm_var=norm_var)[0].numpy()
+        assert (np.abs(c - p) <= 1e-3 + 1e-4 * np.abs(p))[res].all()
+
+
+@pytest.mark.parametrize("W", [4, 17])
+def test_device_beam_on_the_card_matches_the_cpu(gen, W):
+    """The batched prefix beam on the card against the same function on
+    the CPU: prefixes of the lanes live on the CPU identical, scores within
+    1e-4 + 1e-5·|s|; two calls on the card bit for bit."""
+    from cat_tpu_torch.ctc.decode_device import ctc_beam_search_device
+    from cat_tpu_torch.ops.semiring import LOG_EPS
+    lp = torch.log_softmax(_rnd(gen, 6, 120, 72, s=3.0), -1)
+    lp[2, 10:40] = -float(np.log(72))  # tied rows
+    lens = torch.tensor([120, 97, 60, 1, 33, 120], device="cuda")
+    kw = dict(beam_width=W, topk=8, max_len=64, beta=0.5)
+    out = ctc_beam_search_device(lp, lens, **kw)
+    again = ctc_beam_search_device(lp, lens, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    cpu = ctc_beam_search_device(lp.cpu(), lens.cpu(), **kw)
+    pref, plen, score = (t.cpu() for t in out)
+    live = cpu[2] > LOG_EPS / 2
+    assert torch.equal(score > LOG_EPS / 2, live)
+    for n, k in live.nonzero().tolist():
+        assert plen[n, k] == cpu[1][n, k]
+        assert torch.equal(pref[n, k, :plen[n, k]], cpu[0][n, k, :plen[n, k]])
+    assert ((score[live] - cpu[2][live]).abs()
+            <= 1e-4 + 1e-5 * cpu[2][live].abs()).all()

@@ -125,7 +125,9 @@ for m in pkgutil.walk_packages(cat_tpu_torch.__path__, "cat_tpu_torch."):
 for m in ("ops.dropout", "ops.semiring", "ops.ctc", "ops.crf_dense",
           "ops.specaug", "fst.ngram", "utils.scheduler", "utils.manager",
           "utils.tolerance", "ctc.train", "ops.rnnt", "ops.rnnt_simple",
-          "rnnt.train", "rnnt.decode"):
+          "rnnt.train", "rnnt.decode", "pipeline.asr", "pipeline.tasks",
+          "ctc.decode_device", "ops.fbank", "utils.audio", "utils.wer",
+          "utils.nbest", "utils.data_prep"):
     assert "cat_tpu_torch." + m in sys.modules, m
 import runpy
 for tool in ("torch_step_diag", "torch_ffn_ab", "torch_ffn_ablate",
@@ -140,4 +142,20 @@ print(len([m for m in sys.modules if m.startswith("cat_tpu_torch")]))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 26
+    assert int(res.stdout.split()[-1]) >= 34
+    # the pipeline's entry point, with nothing of JAX loaded
+    code = """
+import runpy, sys
+sys.argv = ["asr", "--help"]
+try:
+    runpy.run_module("cat_tpu_torch.pipeline.asr", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax", "cat_tpu"))
+assert not bad, bad
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "--stop_stage" in res.stdout and "--device" in res.stdout

@@ -257,6 +257,8 @@ class _Cluster:
         rhs = me["ex"].reshape(2, G, S, V)[par][:, :nb].copy()  # rows b
         assert not np.isnan(rhs).any(), "rhs read before it was written"
         me["ex"].reshape(2, G, S, V)[par] = np.nan
+        # a u that is no LM event after b takes no part in the shift
+        rhs = np.where(self.den.emit[lo:lo + nb][None], rhs, LOG_EPS)
         nr = rhs.copy()
         for s in range(nb):
             nr[:, s, lo + s] = LOG_EPS
@@ -389,3 +391,50 @@ def test_model_catches_a_single_exchange_buffer(monkeypatch):
         r_z = crf_dense.den_forward_reference(
             torch.from_numpy(lp), torch.from_numpy(lens), den)[1]
         np.testing.assert_allclose(m_z, r_z.numpy(), rtol=1e-5)
+
+
+def test_backward_when_the_model_favours_a_unit_the_lm_never_emits():
+    """A model that puts its mass on a unit the LM never saw (an untrained
+    model and <unk>): y[u] + beta[b, u] is largest at that u in every row,
+    where W is zero. Shifted there, the beta contraction flushed every
+    other term to zero (or to a denormal, which log(max(s, 1e-37))
+    lifted), and the gradient rows went to inf. Shifted over the LM's
+    events, the posterior rows sum to 1 (1e-3), in the plain version and
+    in the model of the kernel, which agree (1e-5 relative). The JAX
+    package's rows on the same inputs are printed beside them."""
+    rng = np.random.default_rng(3)
+    V, T = 9, 90
+    seqs = [list(map(int, rng.integers(2, V, size=int(rng.integers(3, 30)))))
+            for _ in range(200)]  # unit 1 never occurs
+    den = DenseDen.from_ngram(train_ngram(seqs, order=3), V)
+    den = DenseDen(den.logw, den.final, ckpt_every=7)
+    assert not den.emit[:, 1].any() and not den.emit[:, 0].any()
+    x = rng.standard_normal((3, T, V)).astype(F32)
+    x[..., 1] += 9.0
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(F32)
+    lens = np.array([T, T - 13, 40])
+    (r_in, r_bl), r_z = crf_dense.den_forward_reference(
+        torch.from_numpy(lp), torch.from_numpy(lens), den)
+    g = np.ones(3, F32)
+    want = crf_dense.den_backward_reference(
+        torch.from_numpy(lp), torch.from_numpy(lens), (r_in, r_bl), r_z,
+        torch.from_numpy(g), den).numpy()
+    assert np.isfinite(want).all()
+    for n, L in enumerate(lens):
+        np.testing.assert_allclose(want[n, :L].sum(-1), 1.0, atol=1e-3)
+    got = _model(lp, lens, den, 3, 2, seed=5, backward_g=g,
+                 snaps=(r_in.numpy(), r_bl.numpy()), logz=r_z.numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the JAX package's den backward shifts at the same u (ROADMAP.md §C,
+    # caveat 8): its rows, printed, do not sum to 1 here
+    import jax
+    import jax.numpy as jnp
+
+    from cat_tpu.ops import crf_dense as jax_crf_dense
+    jden = jax_crf_dense.DenseDen(den.logw, den.final, ckpt_every=7)
+    jg = np.asarray(jax.grad(lambda a: jax_crf_dense.dense_den_log_partition(
+        a, jnp.asarray(lens, np.int32), jden).sum())(jnp.asarray(lp)))
+    rows = np.concatenate([jg[n, :L].sum(-1) for n, L in enumerate(lens)])
+    ours = np.concatenate([want[n, :L].sum(-1) for n, L in enumerate(lens)])
+    print(f"posterior row sums: port {ours.min():.6g}..{ours.max():.6g}, "
+          f"JAX {rows.min():.3g}..{rows.max():.3g}")

@@ -1,0 +1,466 @@
+"""Port parity for the experiment pipeline: `cat_tpu_torch.pipeline.asr`
+against `cat_tpu.pipeline.asr` on the CPU, on the yes/no toy data that
+the JAX package's pipeline tests draw (seed 0: 64 train and 20 dev
+utterances of 1-3 words, 8 kHz tones).
+
+- Stages 1-2 of both packages: the same vocabulary, uids and labels;
+  features (fbank + CMVN) within |Δ| <= 1e-3 + 1e-4·|x|.
+- `build_den`: den_dense.npz tables within 1e-6 of JAX's.
+- Stage 4 on one JAX checkpoint (written by the JAX package's own
+  `CheckpointManager` from `init_state`, the classifier scaled so that
+  most hypotheses are not empty): CTC "beam" and "greedy" on the asr-ctc
+  template, RNN-T on the asr-rnnt template give identical decode_dev.txt
+  files and equal sub/ins/del counts; n-best texts equal and scores
+  within 1e-4; the train-time dev WER (`eval_wer`) equal for CTC greedy,
+  CTC beam 4 and RNN-T greedy.
+- The port's four stages end to end on the CPU (asr-ctc, 2 epochs).
+- Every path not ported raises NotImplementedError naming its ROADMAP.md
+  section; one map of train bins serves the pipeline and both decode
+  CLIs.
+- Slow only: the asr-ctc template trained to its end, and the asr-rnnt
+  template with the JAX package's converging toy transducer, each to at
+  most 2 dev word errors (absolute counts).
+"""
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from cat_tpu.pipeline import asr as jax_asr
+from cat_tpu.utils.audio import write_wav
+from cat_tpu.utils.checkpoint import CheckpointManager as JaxCkpt
+from cat_tpu.utils.data import SpeechDataset
+from cat_tpu_torch.pipeline import asr, tasks
+from cat_tpu_torch.utils import tokenizer as tknz
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOL, RTOL = 1e-3, 1e-4
+
+
+@pytest.fixture(scope="module")
+def yesno(tmp_path_factory):
+    sys.path.insert(0, os.path.join(REPO, "egs", "template", "local"))
+    import make_data
+
+    rng = np.random.default_rng(0)
+    root = tmp_path_factory.mktemp("yesno")
+    for split, n in (("train", 64), ("dev", 20)):
+        d = root / split
+        (d / "wav").mkdir(parents=True)
+        scp, text = [], []
+        for i in range(n):
+            words = list(rng.choice(["yes", "no"],
+                                    size=int(rng.integers(1, 4))))
+            uid = f"{split}_{i:03d}"
+            path = d / "wav" / (uid + ".wav")
+            write_wav(str(path), make_data.make_utt(rng, words),
+                      make_data.SR)
+            scp.append(f"{uid} {path}")
+            text.append(f"{uid} {' '.join(words)}")
+        (d / "wav.scp").write_text("\n".join(scp) + "\n")
+        (d / "text").write_text("\n".join(text) + "\n")
+    return root
+
+
+def _expdir(path, data, template, edit=None):
+    """egs/template/exp/<template>'s JSON files, the data paths set."""
+    src = os.path.join(REPO, "egs", "template", "exp", template)
+    with open(os.path.join(src, "hyper-p.json")) as f:
+        hyper = json.load(f)
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    hyper["data"] = {"train": str(data / "train"), "dev": str(data / "dev")}
+    if edit:
+        edit(hyper, config)
+    os.makedirs(path)
+    for name, obj in (("hyper-p.json", hyper), ("config.json", config)):
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(obj, f)
+    return str(path), hyper, config
+
+
+@pytest.fixture(scope="module")
+def staged(yesno, tmp_path_factory):
+    """Stages 1-2 of both packages on the asr-ctc template."""
+    root = tmp_path_factory.mktemp("staged")
+    ej, hyper, config = _expdir(root / "jax", yesno, "asr-ctc")
+    ep, _, _ = _expdir(root / "port", yesno, "asr-ctc")
+    jax_asr.main([ej, "--stop_stage", "2"])
+    asr.main([ep, "--stop_stage", "2", "--device", "cpu"])
+    return ej, ep, hyper, config
+
+
+def test_stages_1_2_match_jax(staged):
+    ej, ep, _, _ = staged
+    tj = tknz.load(os.path.join(ej, "tokenizer.tknz"))
+    tp = tknz.load(os.path.join(ep, "tokenizer.tknz"))
+    assert tp._i2t == tj._i2t and tp.vocab_size == 4
+    worst = 0.0
+    for split in ("train", "dev"):
+        want = SpeechDataset(os.path.join(ej, "pkl", split))
+        got = SpeechDataset(os.path.join(ep, "pkl", split))
+        assert got.uids == want.uids and len(got) == {"train": 64,
+                                                      "dev": 20}[split]
+        for i in range(len(want)):
+            (gf, gl), (wf, wl) = got[i], want[i]
+            np.testing.assert_array_equal(gl, wl)
+            assert gf.shape == wf.shape
+            err = np.abs(gf - wf)
+            assert (err <= ATOL + RTOL * np.abs(wf)).all(), err.max()
+            worst = max(worst, float(err.max()))
+    print(f"packed features max abs err {worst:.3g}")
+
+
+@pytest.mark.parametrize("order", [2, 3])
+def test_build_den_matches_jax(yesno, tmp_path, order):
+    """The dense denominator of char units (V = 7) over the train
+    transcripts, written to den_dense.npz by both packages."""
+    text = [line.split(None, 1)[1] for line in
+            (yesno / "train" / "text").read_text().splitlines()]
+    tok = tknz.SimpleTokenizer.from_corpus(text, level="char")
+    labels = [(None, np.asarray(tok.encode(t), np.int32)) for t in text]
+    hyper = {"den_lm": {"order": order}}
+    for d in ("jax", "port"):
+        os.makedirs(tmp_path / d)
+    jax_asr.build_den(str(tmp_path / "jax"), hyper, tok, labels)
+    den = asr.build_den(str(tmp_path / "port"), hyper, tok, labels)
+    want = np.load(tmp_path / "jax" / "den_dense.npz")
+    got = np.load(tmp_path / "port" / "den_dense.npz")
+    assert tok.vocab_size == 7 and got["logw"].shape == (7, 7, 7)
+    for k in ("logw", "final"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6)
+    # the cache is read back
+    again = asr.build_den(str(tmp_path / "port"), hyper, tok, None)
+    np.testing.assert_array_equal(again.logw, den.logw)
+
+
+def _jax_checkpoint(expdir, config, family, tok, scale):
+    """One checkpoint of the JAX package's own CheckpointManager, from
+    init_state, its output layer scaled by `scale`."""
+    import importlib
+
+    from cat_tpu.utils.scheduler import build_scheduler
+    task = importlib.import_module(f"cat_tpu.{family}.train")
+    model = task.build_model(config, num_classes=tok.vocab_size)
+    _, tx = build_scheduler(config["scheduler"])
+    state = task.init_state(model, tx, 40)
+    params = jax.tree_util.tree_map(np.asarray, state.params)
+    if family == "ctc":
+        params["classifier"]["kernel"] = params["classifier"]["kernel"] * scale
+    else:
+        out = params["joiner"]["fc_out"]
+        out["kernel"] = out["kernel"] * scale
+    state = state.replace(params=params)
+    JaxCkpt(os.path.join(expdir, "check")).save({"state": state}, 1.0, 1, 1)
+    return model, state
+
+
+def _decode_both(expdir):
+    """Stage 4 of JAX, then of the port, in one expdir: (JAX's and the
+    port's decode_dev.txt, wer_dev.json and nbest_dev.pkl)."""
+    from cat_tpu_torch.utils.nbest import read_nbest
+    out = []
+    for run in (lambda: jax_asr.main([expdir, "--start_stage", "4"]),
+                lambda: asr.main([expdir, "--start_stage", "4",
+                                  "--device", "cpu"])):
+        run()
+        with open(os.path.join(expdir, "decode_dev.txt")) as f:
+            text = f.read()
+        with open(os.path.join(expdir, "wer_dev.json")) as f:
+            res = json.load(f)
+        out.append((text, res, read_nbest(os.path.join(expdir,
+                                                       "nbest_dev.pkl"))))
+        for name in ("decode_dev.txt", "wer_dev.json", "nbest_dev.pkl"):
+            os.remove(os.path.join(expdir, name))
+    return out
+
+
+def _stage_from(staged, path, template, edit):
+    """An expdir on the port's packed data and tokenizer."""
+    _, ep, _, _ = staged
+    yesno = os.path.dirname(json.load(open(os.path.join(
+        ep, "hyper-p.json")))["data"]["dev"])
+    import pathlib
+    expdir, hyper, config = _expdir(path, pathlib.Path(yesno), template,
+                                    edit)
+    shutil.copytree(os.path.join(ep, "pkl"), os.path.join(expdir, "pkl"))
+    shutil.copy(os.path.join(ep, "tokenizer.tknz"), expdir)
+    return expdir, hyper, config, tknz.load(os.path.join(expdir,
+                                                         "tokenizer.tknz"))
+
+
+def _assert_same_decode(jax_out, port_out, n_dev=20):
+    (tj, rj, nj), (tp, rp, np_) = jax_out, port_out
+    assert tp == tj
+    lines = tp.splitlines()
+    assert len(lines) == n_dev
+    non_empty = sum(bool(line.split("\t")[1].strip()) for line in lines)
+    assert non_empty >= n_dev // 2, tp
+    for k in ("sub", "ins", "del", "errors", "num_words"):
+        assert rp[k] == rj[k], k
+    assert rp["mode"] == rj["mode"] and rp["rtf"] > 0
+    assert nj.keys() == np_.keys()
+    for uid in nj:
+        assert [t for _, t in np_[uid].values()] == \
+            [t for _, t in nj[uid].values()]
+        np.testing.assert_allclose([s for s, _ in np_[uid].values()],
+                                   [s for s, _ in nj[uid].values()],
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["beam", "greedy"])
+def test_ctc_stage_4_on_a_jax_checkpoint_matches_jax(staged, tmp_path, mode):
+    def edit(hyper, config):
+        hyper["inference"]["decode"].update(mode=mode, nbest=3)
+
+    expdir, hyper, config, tok = _stage_from(staged, tmp_path / "exp",
+                                             "asr-ctc", edit)
+    _jax_checkpoint(expdir, config, "ctc", tok, scale=8.0)
+    _assert_same_decode(*_decode_both(expdir))
+
+
+def test_rnnt_stage_4_on_a_jax_checkpoint_matches_jax(staged, tmp_path):
+    def edit(hyper, config):
+        hyper["inference"]["decode"].update(nbest=2)
+
+    expdir, hyper, config, tok = _stage_from(staged, tmp_path / "exp",
+                                             "asr-rnnt", edit)
+    _jax_checkpoint(expdir, config, "rnnt", tok, scale=4.0)
+    _assert_same_decode(*_decode_both(expdir))
+
+
+@pytest.mark.parametrize("template,beam", [("asr-ctc", 1), ("asr-ctc", 4),
+                                           ("asr-rnnt", 1)])
+def test_eval_metric_matches_jax(staged, tmp_path, template, beam):
+    from cat_tpu_torch.utils.checkpoint import model_weights
+    from cat_tpu_torch.utils.data import SpeechDataset as PortDataset
+    expdir, hyper, config, tok = _stage_from(staged, tmp_path / "exp",
+                                             template, None)
+    family = "rnnt" if template == "asr-rnnt" else "ctc"
+    jmodel, jstate = _jax_checkpoint(expdir, config, family, tok, 6.0)
+    opts = dict(hyper["train"]["option"], eval_wer={"beam_width": beam})
+    dev = os.path.join(expdir, "pkl", "dev")
+    want = jax_asr._make_eval_metric(hyper, config, jmodel, tok,
+                                     SpeechDataset(dev), opts)(jstate)
+    task = tasks.train_module(hyper["train"]["bin"])
+    model = task.build_model(asr._with_feat_dim(config, 40),
+                             tok.vocab_size, device="cpu")
+    ck = os.path.join(expdir, "check")
+    model.load_state_dict(model_weights(model, os.path.join(
+        ck, JaxCkpt(ck).best())))
+    got = asr._make_eval_metric(hyper, model, tok, PortDataset(dev),
+                                opts)(None)
+    assert got == want and 0.0 < got
+
+
+def test_four_stages_end_to_end_on_the_cpu(yesno, tmp_path):
+    def edit(hyper, config):
+        hyper["train"]["option"]["max_epochs"] = 2
+
+    expdir, _, _ = _expdir(tmp_path / "exp", yesno, "asr-ctc", edit)
+    asr.main([expdir, "--device", "cpu"])
+    for name in ("tokenizer.tknz", "pkl/train/meta.npz", "pkl/dev/meta.npz",
+                 "check/checkpoint.list", "check/metrics.jsonl",
+                 "readme.md", "decode_dev.txt", "nbest_dev.pkl",
+                 "wer_dev.json"):
+        assert os.path.exists(os.path.join(expdir, name)), name
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        res = json.load(f)
+    assert res["num_words"] == 37 and res["mode"] == "beam"
+    assert res["rtf"] > 0 and np.isfinite(res["wer"])
+    with open(os.path.join(expdir, "check", "metrics.jsonl")) as f:
+        rounds = [json.loads(line) for line in f if "dev_loss" in line]
+    assert [r["epoch"] for r in rounds] == [1, 2]
+    with open(os.path.join(expdir, "readme.md")) as f:
+        assert "- devices: cpu x1" in f.read()
+    with open(os.path.join(expdir, "decode_dev.txt")) as f:
+        assert len(f.read().splitlines()) == 20
+
+
+def _hyper(**kw):
+    hyper = {"data": {"train": "t", "dev": "d"},
+             "tokenizer": {"type": "SimpleTokenizer"},
+             "train": {"bin": "cat_tpu.ctc.train", "option": {}},
+             "inference": {"decode": {}}}
+    for path, value in kw.items():
+        node = hyper
+        keys = path.split("__")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+    return hyper
+
+
+UNPORTED = [
+    (_hyper(inference__decode__mode="wfst"), {}, "§A.3"),
+    (_hyper(inference__decode__lm={"type": "ngram"}), {}, "§A.3"),
+    (_hyper(inference__decode__rescore={"alpha": 0.2}), {}, "§A.3"),
+    (_hyper(den_lm={"path": "den.arpa"}), {"trainer": {"loss": "crf"}},
+     "§A.3"),
+    (_hyper(den_lm={"path": "den.fst"}), {"trainer": {"loss": "crf"}},
+     "§A.3"),
+    (_hyper(inference__decode__mode="streaming"), {}, "§A.4"),
+    (_hyper(train__bin="cat_tpu.ctc.train_unified"), {}, "§A.4"),
+    (_hyper(train__bin="cat_tpu.rnnt.train_unified"), {}, "§A.4"),
+    (_hyper(train__bin="cat_tpu.lm.train"), {}, "§A.5"),
+    (_hyper(den_lm={"order": 4}), {"trainer": {"loss": "crf"}}, "§A.6"),
+    (_hyper(train__option={"sharded_data": "shards/"}), {}, "§A.7"),
+    (_hyper(), {"parallel": {"model": 2}}, "§A.7"),
+    (_hyper(data={"train": ["a", "b"], "dev": "d"}), {}, "§A.8"),
+    (_hyper(train__bin="cat_tpu.ctc.train_me2e"), {}, "§A.8"),
+    (_hyper(train__bin="cat_tpu.ctc.train_jsa"), {}, "§A.8"),
+    (_hyper(train__bin="cat_tpu.p2g.train"), {}, "§A.8"),
+]
+
+
+@pytest.mark.parametrize("hyper,config,section", UNPORTED)
+def test_unported_paths_name_their_section(tmp_path, hyper, config,
+                                           section):
+    for name, obj in (("hyper-p.json", hyper), ("config.json", config)):
+        with open(tmp_path / name, "w") as f:
+            json.dump(obj, f)
+    with pytest.raises(NotImplementedError, match=section):
+        asr.main([str(tmp_path), "--device", "cpu"])
+    assert sorted(os.listdir(tmp_path)) == ["config.json", "hyper-p.json"]
+
+
+def test_unported_denominators_name_their_section(tmp_path):
+    tok = tknz.RawTokenizer(200)
+    with pytest.raises(NotImplementedError, match="§A.6"):
+        asr.build_den(str(tmp_path), {}, tok, None)
+    np.savez(tmp_path / "graph.npz", arcs=np.zeros(3))
+    with pytest.raises(NotImplementedError, match="§A.6"):
+        asr.build_den(str(tmp_path), {"den_lm": {"path": str(
+            tmp_path / "graph.npz")}}, tknz.RawTokenizer(8), None)
+
+
+def test_pipeline_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asr.main([str(tmp_path)])
+
+
+def test_config_perf_is_read_and_ignored(yesno, tmp_path, capsys):
+    def edit(hyper, config):
+        config["perf"] = {"fused_ffn": "1"}
+
+    expdir, _, _ = _expdir(tmp_path / "exp", yesno, "asr-ctc", edit)
+    asr.main([expdir, "--stop_stage", "1", "--device", "cpu"])
+    assert "config.perf" in capsys.readouterr().out
+
+
+def test_one_bin_map_serves_the_pipeline_and_both_clis(tmp_path,
+                                                       monkeypatch):
+    from cat_tpu_torch.ctc import decode as ctc_decode
+    from cat_tpu_torch.ctc import train as ctc_train
+    from cat_tpu_torch.rnnt import decode as rnnt_decode
+    from cat_tpu_torch.rnnt import train as rnnt_train
+    for pkg in ("cat_tpu", "cat_tpu_torch"):
+        assert tasks.train_module(f"{pkg}.ctc.train") is ctc_train
+        assert tasks.train_module(f"{pkg}.rnnt.train") is rnnt_train
+    with pytest.raises(ValueError, match="not a ctc trainer"):
+        tasks.train_module("cat_tpu.rnnt.train", "ctc")
+    assert not hasattr(ctc_decode, "_TRAIN_BINS")
+    assert not hasattr(rnnt_decode, "_TRAIN_BINS")
+
+    asked = []
+
+    class Asked(Exception):
+        pass
+
+    def train_module(name, want_family=None):
+        asked.append((name, want_family))
+        raise Asked
+
+    monkeypatch.setattr(tasks, "train_module", train_module)
+    tknz.SimpleTokenizer(["a"]).save(str(tmp_path / "tokenizer.tknz"))
+    for cli, family in ((ctc_decode, "ctc"), (rnnt_decode, "rnnt")):
+        with open(tmp_path / "hyper-p.json", "w") as f:
+            json.dump({"tokenizer": {"file": "tokenizer.tknz"},
+                       "train": {"bin": f"cat_tpu.{family}.train"}}, f)
+        with open(tmp_path / "config.json", "w") as f:
+            json.dump({}, f)
+        with pytest.raises(Asked):
+            cli.main([str(tmp_path), "--device", "cpu"])
+        assert asked[-1] == (f"cat_tpu.{family}.train", family)
+        with pytest.raises(Asked):
+            asr.main([str(tmp_path), "--device", "cpu"])
+        assert asked[-1] == (f"cat_tpu.{family}.train", None)
+
+
+def _train_to_the_end(yesno, tmp_path, template):
+    expdir, _, _ = _expdir(tmp_path / "exp", yesno, template)
+    asr.main([expdir, "--device", "cpu"])
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.slow
+def test_asr_ctc_template_trains_to_at_most_2_word_errors(yesno, tmp_path):
+    res = _train_to_the_end(yesno, tmp_path, "asr-ctc")
+    assert res["errors"] <= 2 and res["num_words"] == 37, res
+
+
+@pytest.fixture(scope="module")
+def yesno_big(tmp_path_factory):
+    """The JAX package's larger toy set for transducers
+    (`tests/test_pipeline.py` `yesno_data_big`: 160 train and 20 dev
+    utterances, seed 7)."""
+    sys.path.insert(0, os.path.join(REPO, "egs", "template", "local"))
+    import make_data
+
+    rng = np.random.default_rng(7)
+    root = tmp_path_factory.mktemp("yesno_big")
+    for split, n in (("train", 160), ("dev", 20)):
+        d = root / split
+        (d / "wav").mkdir(parents=True)
+        scp, text = [], []
+        for i in range(n):
+            words = list(rng.choice(["yes", "no"],
+                                    size=int(rng.integers(1, 4))))
+            uid = f"{split}_{i:03d}"
+            write_wav(str(d / "wav" / (uid + ".wav")),
+                      make_data.make_utt(rng, words), make_data.SR)
+            scp.append(f"{uid} {d / 'wav' / (uid + '.wav')}")
+            text.append(f"{uid} {' '.join(words)}")
+        (d / "wav.scp").write_text("\n".join(scp) + "\n")
+        (d / "text").write_text("\n".join(text) + "\n")
+    return root
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_rnnt_toy_trains_to_at_most_2_word_errors(yesno_big, tmp_path,
+                                                  monkeypatch, seed):
+    """The asr-rnnt template with the JAX package's own converging toy
+    transducer (`tests/test_pipeline.py` `test_pipeline_yesno_rnnt_simple`:
+    a 16-wide predictor, the LogAdd joiner, the patient scheduler, up to
+    150 epochs), from four random initialisations (`build_model`'s seed);
+    the JAX package's run reaches 2 dev errors of 42. The template's own
+    15 epochs on 64 utterances stop short of convergence."""
+    from cat_tpu_torch.rnnt import train as rnnt_train
+    build = rnnt_train.build_model
+    monkeypatch.setattr(rnnt_train, "build_model",
+                        lambda *a, **kw: build(*a, **kw, seed=seed))
+
+    def edit(hyper, config):
+        hyper["train"]["option"].update(frame_budget=500, max_epochs=150)
+        config["predictor"]["kwargs"]["hdim"] = 16
+        config["joiner"] = {"type": "LogAdd", "kwargs": {}}
+        config["scheduler"]["kwargs"] = {"min_step": 1600, "stop_lr": 5e-5,
+                                         "n_tol": 6, "gamma": 0.5}
+
+    expdir, _, _ = _expdir(tmp_path / "exp", yesno_big, "asr-rnnt", edit)
+    asr.main([expdir, "--device", "cpu"])
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        res = json.load(f)
+    print(f"seed {seed}: {res['errors']} dev word errors of "
+          f"{res['num_words']}")
+    assert res["errors"] <= 2, res
