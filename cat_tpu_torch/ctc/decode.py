@@ -2,14 +2,20 @@
 the host (counterpart of `cat_tpu/ctc/decode.py`).
 
 `decode_batch` runs one padded batch through the encoder and searches
-each utterance; `main` is the decode CLI:
+each utterance: greedily, by prefix beam (fused with an n-gram when `lm`
+is given) or through a TLG graph (`fst.decode.WfstDecoder`); `main` is
+the decode CLI:
 
-    python -m cat_tpu_torch.ctc.decode <expdir> --mode beam
+    python -m cat_tpu_torch.ctc.decode <expdir> --mode beam [--lm LM.arpa]
+    python -m cat_tpu_torch.ctc.decode <expdir> --mode wfst \
+        --graph TLG.npz [--words WORDS.txt]
 
 reading the experiment's `hyper-p.json`, `config.json`, tokenizer,
 `pkl/<split>` dataset and best checkpoint, as written by `cat_tpu` or by
-the port's `Manager`. The n-gram fusion CLI option (`--lm`) and WFST
-decoding need the `fst` modules, a later slice of the port (ROADMAP.md).
+the port's `Manager`. `--lm` is a token ARPA file (tokens read as ids);
+`--words` holds "word id" lines. The CLI's WFST search is the Python
+`WfstDecoder.decode` at beam 17 and max_active 7000, as in the JAX
+package; the pipeline's stage 4 takes the C++ core.
 """
 from __future__ import annotations
 
@@ -130,11 +136,13 @@ def batch_prefix_beam_search(log_probs, lengths, **kw):
 
 
 def decode_batch(model, feats, lengths, mode="greedy", beam_width=16,
-                 nbest=1, alpha=0.0, beta=0.0):
+                 nbest=1, alpha=0.0, beta=0.0, lm=None, wfst=None):
     """Decode one padded batch: feats (N, T, F), lengths (N,), tensors or
     arrays. The encoder and log-softmax run on the model's device; the
-    search runs on the host. Returns, per utterance, a list of
-    (score, token-id tuple) best-first (greedy gives one, scored 0.0)."""
+    search runs on the host: "greedy", "beam" (fused with the n-gram `lm`
+    when given) or "wfst" (the Python search of the `WfstDecoder`
+    `wfst`). Returns, per utterance, a list of (score, token-id tuple)
+    best-first (greedy gives one, scored 0.0); "wfst" gives word ids."""
     device = next(model.parameters()).device
     if not torch.is_tensor(feats):
         feats = np.array(feats, np.float32)  # a writable copy of a memmap
@@ -148,9 +156,14 @@ def decode_batch(model, feats, lengths, mode="greedy", beam_width=16,
     if mode == "beam":
         return batch_prefix_beam_search(
             lp.cpu().numpy(), olen.cpu().numpy(), beam_width=beam_width,
-            alpha=alpha, beta=beta, nbest=nbest)
-    raise ValueError(f"decode_batch: mode must be 'greedy' or 'beam', got "
-                     f"{mode!r}")
+            lm=lm, alpha=alpha, beta=beta, nbest=nbest)
+    if mode == "wfst":
+        lp, olen = lp.cpu().numpy(), olen.cpu().numpy()
+        return [[(s, tuple(w)) for s, w in
+                 wfst.decode(lp[n], int(olen[n]), nbest=nbest)]
+                for n in range(lp.shape[0])]
+    raise ValueError(f"decode_batch: mode must be 'greedy', 'beam' or "
+                     f"'wfst', got {mode!r}")
 
 
 def main(argv=None):
@@ -183,10 +196,8 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="device of the encoder (default cuda)")
     args = p.parse_args(argv)
-    if args.mode == "wfst" or args.lm:
-        raise NotImplementedError(
-            "WFST decoding and --lm fusion need the fst modules, which are "
-            "not ported to cat_tpu_torch yet; see ROADMAP.md")
+    if args.mode == "wfst" and not args.graph:
+        raise SystemExit("--graph TLG.npz required for wfst mode")
 
     def load_json(name):
         with open(os.path.join(args.expdir, name)) as f:
@@ -202,6 +213,25 @@ def main(argv=None):
     ckpt = CheckpointManager(os.path.join(args.expdir, "check"))
     model.load_state_dict(model_weights(model, ckpt.path(ckpt.best())))
     ds = SpeechDataset(os.path.join(args.expdir, "pkl", args.split))
+    lm = wfst = None
+    if args.lm:
+        from cat_tpu_torch.fst.ngram import read_arpa
+        lm = read_arpa(args.lm, to_int=True)
+    id2word = {}
+    if args.mode == "wfst":
+        from cat_tpu_torch.fst.decode import WfstDecoder
+        from cat_tpu_torch.fst.fst import Fst
+        wfst = WfstDecoder(Fst.load(args.graph), beam=17.0, max_active=7000)
+        if args.words:
+            with open(args.words) as fh:
+                for line in fh:
+                    w, i = line.split()
+                    id2word[int(i)] = w
+
+    def text(seq):
+        if args.mode == "wfst":
+            return " ".join(id2word.get(w, str(w)) for w in seq)
+        return tok.decode(list(seq))
 
     t0 = time.time()
     audio_s = 0.0
@@ -211,11 +241,11 @@ def main(argv=None):
         audio_s += f.shape[0] * 0.01
         res = decode_batch(model, f[None], [f.shape[0]], args.mode,
                            beam_width=args.beam_width, nbest=args.nbest,
-                           alpha=args.alpha, beta=args.beta)[0]
+                           alpha=args.alpha, beta=args.beta, lm=lm,
+                           wfst=wfst)[0]
         uid = ds.uids[i]
-        hyps[uid] = tok.decode(list(res[0][1]))
-        nbest_out[uid] = {b: (s, tok.decode(list(pre)))
-                          for b, (s, pre) in enumerate(res)}
+        hyps[uid] = text(res[0][1])
+        nbest_out[uid] = {b: (s, text(pre)) for b, (s, pre) in enumerate(res)}
     wall = time.time() - t0
     out = args.output or os.path.join(args.expdir,
                                       f"decode_{args.split}.txt")

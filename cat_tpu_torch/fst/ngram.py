@@ -1,10 +1,13 @@
-"""N-gram language model training (counterpart of `NGramLM` and
-`train_ngram` in `cat_tpu/fst/ngram.py`): interpolated Kneser-Ney with
-Good-Turing-estimated discounts, and a backoff scorer. The port keeps its
-own copy; ARPA IO is not ported yet (ROADMAP.md).
+"""N-gram language models (counterpart of `cat_tpu/fst/ngram.py`):
+interpolated Kneser-Ney training with Good-Turing-estimated discounts, a
+backoff scorer for shallow fusion and rescoring, and ARPA read/write in
+the log10 convention (plain or `.gz`). A file written by either package
+reads back equal in the other: log10 values to 6 decimals, n-grams
+sorted by their tokens as strings.
 """
 from __future__ import annotations
 
+import gzip
 import math
 from collections import Counter
 
@@ -37,6 +40,31 @@ class NGramLM:
             context = context[1:]
             # accumulate backoff weight and recurse iteratively
             return bow + self.logp(context, word)
+
+    def score_sentence(self, tokens):
+        """Total log10 prob of a sentence (tokens w/o <s>/</s>)."""
+        ctx = (BOS,) * (self.order - 1) if self.order > 1 else ()
+        total = 0.0
+        for w in list(tokens) + [EOS]:
+            total += self.logp(ctx, w)
+            ctx = (ctx + (w,))[-(self.order - 1):] if self.order > 1 else ()
+        return total
+
+    def perplexity(self, sentences):
+        total, count = 0.0, 0
+        for s in sentences:
+            total += self.score_sentence(s)
+            count += len(s) + 1
+        return 10.0 ** (-total / max(count, 1))
+
+    def ngrams_iter(self):
+        """(k, ngram, log10 p, log10 backoff or None) of every entry."""
+        for k in range(1, self.order + 1):
+            for ng, lp in self.probs[k].items():
+                bow = None
+                if k < self.order and ng in self.bows[k]:
+                    bow = self.bows[k][ng]
+                yield k, ng, lp, bow
 
 
 def train_ngram(sentences, order=3, vocab=None):
@@ -139,4 +167,84 @@ def train_ngram(sentences, order=3, vocab=None):
                 lam = d * ctx_distinct[ctx] / tot
                 if lam > 0:
                     lm.bows[k - 1][ctx] = math.log10(lam)
+    return lm
+
+
+def _open(fileobj, mode):
+    """(file object, whether to close it): a path opens, `.gz` through
+    gzip."""
+    if isinstance(fileobj, str):
+        opener = gzip.open if fileobj.endswith(".gz") else open
+        return opener(fileobj, mode), True
+    return fileobj, False
+
+
+def write_arpa(lm: NGramLM, fileobj):
+    """ARPA text: log10 probabilities and backoffs to 6 decimals, each
+    order's n-grams sorted by their tokens as strings."""
+    fileobj, close = _open(fileobj, "wt")
+    fileobj.write("\\data\\\n")
+    for k in range(1, lm.order + 1):
+        fileobj.write(f"ngram {k}={len(lm.probs[k])}\n")
+    for k in range(1, lm.order + 1):
+        fileobj.write(f"\n\\{k}-grams:\n")
+        for ng in sorted(lm.probs[k], key=lambda x: tuple(map(str, x))):
+            line = f"{lm.probs[k][ng]:.6f}\t{' '.join(map(str, ng))}"
+            if k < lm.order and ng in lm.bows[k]:
+                line += f"\t{lm.bows[k][ng]:.6f}"
+            fileobj.write(line + "\n")
+    fileobj.write("\n\\end\\\n")
+    if close:
+        fileobj.close()
+
+
+def read_arpa(fileobj, to_int=False):
+    """Read an ARPA file (tab- or space-separated). If to_int, tokens
+    parse as ints where possible."""
+    fileobj, close = _open(fileobj, "rt")
+
+    def conv(tok):
+        if to_int:
+            try:
+                return int(tok)
+            except ValueError:
+                return tok
+        return tok
+
+    lines = [line.rstrip("\n") for line in fileobj]
+    if close:
+        fileobj.close()
+    order = 0
+    for line in lines:
+        line = line.strip()
+        if line.startswith("ngram "):
+            order = max(order, int(line.split()[1].split("=")[0]))
+    lm = NGramLM(order)
+    cur = 0
+    for line in lines:
+        ls = line.strip()
+        if not ls:
+            continue
+        if ls.startswith("\\") and ls.endswith("-grams:"):
+            cur = int(ls[1:].split("-")[0])
+            continue
+        if ls.startswith("\\"):
+            cur = 0
+            continue
+        if cur == 0:
+            continue
+        if "\t" in ls:
+            parts = ls.split("\t")
+            lp = float(parts[0])
+            toks = parts[1].split()
+            bow = float(parts[2]) if len(parts) > 2 else None
+        else:
+            parts = ls.split()
+            lp = float(parts[0])
+            toks = parts[1:1 + cur]
+            bow = float(parts[1 + cur]) if len(parts) > 1 + cur else None
+        ng = tuple(conv(t) for t in toks)
+        lm.probs[cur][ng] = lp
+        if bow is not None and cur < order:
+            lm.bows[cur][ng] = bow
     return lm

@@ -26,19 +26,23 @@ trainer (`pipeline/tasks.py`).
     train labels (cached as den_dense.npz), resume, the dev WER as the
     scheduler's metric when asked (`eval_wer`), and readme.md.
   4 decode: the chosen checkpoints averaged (best-N or last-N), CTC by
-    the batched prefix beam on the device (`ctc/decode_device.py`) or
-    greedily, RNN-T by `RNNTBeamDecoder`; nbest_<split>.pkl,
+    the batched prefix beam on the device (`ctc/decode_device.py`),
+    greedily, through a TLG graph (mode "wfst": the encoder on the card,
+    the Viterbi search on the host in C++, `native/wfst_decoder.cpp`), or
+    by the host prefix beam fused with a token n-gram (decode.lm); RNN-T
+    by `RNNTBeamDecoder`, fused with decode.lm when it is set; n-best
+    rescoring with a word n-gram (decode.rescore); nbest_<split>.pkl,
     decode_<split>.txt and wer_<split>.json with the real-time factor.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md
-section: WFST decoding, decode-time LM fusion and n-best rescoring, and
-ARPA or FST denominator files (§A.3); streaming decoding and the unified
-trainers (§A.4); the arc-table denominator for orders above 3 or more
-than 128 units (§A.6); sharded data and `config.parallel` (§A.7); more
-than one train set and the task bins (§A.8). The JAX package's monitor
-plot after training waits for `utils/plot.py` (§A.8) and is left out;
-`config.perf` is read and ignored, since the port has no implementation
-switches: every op runs its kernel on a CUDA tensor.
+section: streaming decoding and the unified trainers (§A.4); neural LM
+fusion, LODR and neural rescoring (§A.5); the arc-table denominator for
+orders above 3, more than 128 units or an FST file (§A.6); sharded data
+and `config.parallel` (§A.7); more than one train set and the task bins
+(§A.8). The JAX package's monitor plot after training waits for
+`utils/plot.py` (§A.8) and is left out; `config.perf` is read and
+ignored, since the port has no implementation switches: every op runs
+its kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -143,8 +147,19 @@ def _check_data(hyper):
 
 
 def _check_den_path(path):
-    if str(path).lower().endswith((".arpa", ".fst")):
-        raise _todo(f"a denominator LM from {path!r} (ARPA/FST IO)", "§A.3")
+    if str(path).lower().endswith(".fst"):
+        raise _todo(f"the arc-table denominator of the FST {path!r}",
+                    "§A.6")
+
+
+def _check_lm(cfg, what):
+    """Raise for an LM config the port cannot build yet: only n-grams
+    (type "ngram") are ported."""
+    kind = (cfg or {}).get("type", "ngram")
+    if kind in ("nn", "lodr"):
+        raise _todo(f"{what} with a neural LM (type {kind!r})", "§A.5")
+    if kind != "ngram":
+        raise ValueError(f"unknown {what} lm type {kind}")
 
 
 def check_train(hyper, config):
@@ -165,14 +180,13 @@ def check_decode(hyper):
     tasks.train_module(hyper["train"]["bin"])
     dec = hyper.get("inference", {}).get("decode", {})
     mode = dec.get("mode", "beam")
-    if mode == "wfst":
-        raise _todo('decode mode "wfst"', "§A.3")
     if mode == "streaming":
         raise _todo('decode mode "streaming"', "§A.4")
     if dec.get("lm"):
-        raise _todo("decode-time LM fusion (decode.lm)", "§A.3")
+        _check_lm(dec["lm"], "decode-time LM fusion (decode.lm)")
     if dec.get("rescore"):
-        raise _todo("n-best rescoring (decode.rescore)", "§A.3")
+        _check_lm(dec["rescore"].get("lm"),
+                  "n-best rescoring (decode.rescore)")
 
 
 def stage_pack(expdir, hyper, tok, device="cpu"):
@@ -370,13 +384,23 @@ def _write_exp_readme(expdir, config, model, tok):
         f.write("\n".join(lines) + "\n")
 
 
-def _den_from_path(path):
-    """An explicit denominator LM (hyper["den_lm"]["path"]): a `DenseDen`
-    .npz. ARPA and FST files (§A.3) and arc-table (DenGraph) caches
-    (§A.6) raise."""
+def _den_from_path(path, tok):
+    """An explicit denominator LM (hyper["den_lm"]["path"]): a unit n-gram
+    .arpa of order <= 3 expanded into a `DenseDen`, or a `DenseDen` .npz.
+    An FST file, an ARPA of a higher order and an arc-table (DenGraph)
+    cache need the arc-table denominator (§A.6) and raise."""
     from cat_tpu_torch.ops.crf_dense import DenseDen
 
     _check_den_path(path)
+    if str(path).lower().endswith(".arpa"):
+        from cat_tpu_torch.fst.ngram import read_arpa
+
+        with open(path) as f:
+            lm = read_arpa(f, to_int=True)
+        if lm.order > 3:
+            raise _todo(f"the arc-table denominator of {path!r} (order "
+                        f"{lm.order})", "§A.6")
+        return DenseDen.from_ngram(lm, num_classes=tok.vocab_size)
     with np.load(path) as z:
         keys = set(z.files)
     if "logw" not in keys:
@@ -402,7 +426,7 @@ def build_den(expdir, hyper, tok, tr_ds):
     if os.path.exists(dense_path):
         return DenseDen.load(dense_path)
     if den_cfg.get("path"):
-        return _den_from_path(den_cfg["path"])
+        return _den_from_path(den_cfg["path"], tok)
     lm = train_ngram([[int(x) for x in tr_ds[i][1]]
                       for i in range(len(tr_ds))], order=order)
     den = DenseDen.from_ngram(lm, num_classes=tok.vocab_size)
@@ -436,12 +460,140 @@ def _load_decode_state(expdir, hyper, model):
     return model_weights(model, ckpt.path(best))
 
 
+def _train_text(hyper):
+    """The transcripts of the first train set, {uid: text}."""
+    return read_scp(os.path.join(_train_sets(hyper)[0][0], "text"))
+
+
+def _build_wfst_decoder(expdir, hyper, tok, dec_cfg):
+    """The TLG decoder of decode mode "wfst": G a word n-gram of
+    decode.wfst.order (2) over the train transcripts, L each word's
+    tokenizer units (unit ids double as phone symbols, mapped onto the AM
+    outputs as they are), T the CTC topology. The graph is cached as
+    expdir/tlg.npz with its words, one a line (id = line + 1), in
+    tlg_words.txt: the JAX package's files, either package reads the
+    other's. Returns (decoder, {word id: word})."""
+    from cat_tpu_torch.fst.decode import WfstDecoder, build_tlg
+    from cat_tpu_torch.fst.fst import Fst
+    from cat_tpu_torch.fst.ngram import train_ngram
+
+    wf = dec_cfg.get("wfst", {})
+    tlg_path = os.path.join(expdir, "tlg.npz")
+    word_list_path = os.path.join(expdir, "tlg_words.txt")
+    if os.path.exists(tlg_path) and os.path.exists(word_list_path):
+        tlg = Fst.load(tlg_path)
+        with open(word_list_path) as f:
+            words = [w.rstrip("\n") for w in f]
+    else:
+        sents = [t.split() for t in _train_text(hyper).values()]
+        words = sorted({w for s in sents for w in s})
+        word2id = {w: i + 1 for i, w in enumerate(words)}
+        wlm = train_ngram(sents, order=wf.get("order", 2))
+        lexicon = [(w, [int(t) for t in tok.encode(w)]) for w in words]
+        phone2id = {i: i for i in range(1, tok.vocab_size)}
+        tlg = build_tlg(lexicon, wlm, phone2id=phone2id, word2id=word2id,
+                        num_classes=tok.vocab_size)
+        tlg.save(tlg_path)
+        with open(word_list_path, "w") as f:
+            f.write("\n".join(words) + "\n")
+    id2word = {i + 1: w for i, w in enumerate(words)}
+    dec = WfstDecoder(tlg, beam=wf.get("beam", 17.0),
+                      max_active=wf.get("max_active", 7000),
+                      acoustic_scale=wf.get("acoustic_scale", 1.0),
+                      lm_scale=wf.get("lm_scale", 1.0))
+    return dec, id2word
+
+
+def _build_decode_lm(hyper, tok, dec_cfg):
+    """The LM of shallow fusion at decode, decode.lm: {"type": "ngram",
+    "order": N (3)}, a token n-gram over the train transcripts tokenized
+    with the AM's tokenizer; log10 scores. None when decode.lm is not
+    set; neural LMs and LODR raise (§A.5)."""
+    cfg = dec_cfg.get("lm")
+    if not cfg:
+        return None
+    _check_lm(cfg, "decode-time LM fusion (decode.lm)")
+    from cat_tpu_torch.fst.ngram import train_ngram
+
+    seqs = [[int(t) for t in tok.encode(s)]
+            for s in _train_text(hyper).values()]
+    return train_ngram(seqs, order=cfg.get("order", 3))
+
+
+def _maybe_rescore(hyper, nbest, dec_cfg):
+    """n-best rescoring, decode.rescore = {"alpha", "beta", "lm": {"type":
+    "ngram", "order": N}}: score = am + α·lm + β·len with a word n-gram
+    over the train transcripts (the n-best hypotheses are text). Returns
+    {uid: rescored 1-best text}, or None when decode.rescore is not set;
+    a neural LM raises (§A.5)."""
+    rs = dec_cfg.get("rescore")
+    if not rs:
+        return None
+    from cat_tpu_torch.fst.ngram import train_ngram
+    from cat_tpu_torch.lm.rescore import ngram_nll, rescore_nbest
+
+    lm_cfg = rs.get("lm", {"type": "ngram", "order": 3})
+    _check_lm(lm_cfg, "n-best rescoring (decode.rescore)")
+    lm = train_ngram([s.split() for s in _train_text(hyper).values()],
+                     order=lm_cfg.get("order", 3))
+    scored = rescore_nbest(nbest, ngram_nll(lm, nbest),
+                           alpha=rs.get("alpha", 1.0),
+                           beta=rs.get("beta", 0.0))
+    return {uid: hyp for uid, (score, hyp) in scored.items()}
+
+
+def _wfst_search(wfst_dec, id2word, lp, olens, weight, nbest_n, native):
+    """Each utterance of a batch through the TLG decoder on the host:
+    `wfst_viterbi` at n-best 1, `wfst_nbest` above, the Python search
+    when decode.native is false; utterances of weight 0 are skipped.
+    Returns per utterance [(score, [word])]."""
+    lp_np, ol_np = lp.float().cpu().numpy(), olens.cpu().numpy()
+    per_utt = []
+    for n in range(lp_np.shape[0]):
+        if weight[n] <= 0:
+            per_utt.append([(0.0, [])])
+            continue
+        if native and nbest_n == 1:
+            hyp = [wfst_dec.decode_native(lp_np[n], ol_np[n])]
+        elif native:
+            hyp = wfst_dec.decode_native_nbest(lp_np[n], ol_np[n],
+                                               nbest=nbest_n)
+        else:
+            hyp = wfst_dec.decode(lp_np[n], ol_np[n], nbest=nbest_n)
+        per_utt.append([(s, [id2word[i] for i in wids if i in id2word])
+                        for s, wids in hyp])
+    return per_utt
+
+
+def _fused_search(lp, olens, weight, lm, dec_cfg, beam, nbest_n):
+    """Each utterance of a batch through the host prefix beam fused with
+    `lm` (decode.alpha 0.3, decode.beta 0); utterances of weight 0 are
+    skipped. Returns per utterance [(score, [token])]."""
+    from cat_tpu_torch.ctc.decode import prefix_beam_search
+
+    lp_np, ol_np = lp.float().cpu().numpy(), olens.cpu().numpy()
+    per_utt = []
+    for n in range(lp_np.shape[0]):
+        if weight[n] <= 0:
+            per_utt.append([(0.0, [])])
+            continue
+        nb = prefix_beam_search(
+            lp_np[n], int(ol_np[n]), beam_width=beam, lm=lm,
+            alpha=float(dec_cfg.get("alpha", 0.3)),
+            beta=float(dec_cfg.get("beta", 0.0)), nbest=nbest_n)
+        per_utt.append([(s, list(pre)) for s, pre in nb])
+    return per_utt
+
+
 def stage_decode(expdir, hyper, config, tok, device="cpu"):
     """Stage 4: decode the inference split batch by batch, write the
-    n-best lists, the 1-best hypotheses and the WER with the real-time
-    factor. decode "mode": "beam" (default; CTC: the batched prefix beam
-    on the device) or "greedy"; RNN-T takes `RNNTBeamDecoder` whatever
-    the mode, as in JAX."""
+    n-best lists, the 1-best hypotheses (rescored when decode.rescore is
+    set) and the WER with the real-time factor. decode "mode": "beam"
+    (default; CTC: the batched prefix beam on the device, or the host
+    prefix beam fused with decode.lm when it is set), "greedy" or "wfst"
+    (the TLG graph; decode.native false takes the Python search); RNN-T
+    takes `RNNTBeamDecoder`, with decode.lm, whatever the mode, as in
+    JAX."""
     from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
 
     check_decode(hyper)
@@ -460,9 +612,17 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
     loader = BucketedLoader(ds, shuffle=False,
                             frame_budget=dec_cfg.get("frame_budget", 20000),
                             num_buckets=dec_cfg.get("num_buckets", 4))
+    wfst_dec = id2word = None
+    native = bool(dec_cfg.get("native", True))
+    if mode == "wfst":
+        wfst_dec, id2word = _build_wfst_decoder(expdir, hyper, tok, dec_cfg)
+        if native:
+            from cat_tpu_torch.native import wfst_lib
+            wfst_lib()  # a failed build raises here, before any decoding
+    fusion_lm = _build_decode_lm(hyper, tok, dec_cfg)
     if _is_rnnt(hyper):
         from cat_tpu_torch.rnnt.decode import RNNTBeamDecoder
-        decoder = RNNTBeamDecoder(model, beam_width=beam,
+        decoder = RNNTBeamDecoder(model, beam_width=beam, lm=fusion_lm,
                                   alpha=dec_cfg.get("alpha", 0.0),
                                   beta=dec_cfg.get("beta", 0.0),
                                   ilm_weight=dec_cfg.get("ilm_weight", 0.0))
@@ -479,6 +639,12 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
             lp, olens = ctc_log_probs(model, b.feats, b.feat_lengths)
             if mode == "greedy":
                 per_utt = [[(0.0, seq)] for seq in greedy_decode(lp, olens)]
+            elif mode == "wfst":
+                per_utt = _wfst_search(wfst_dec, id2word, lp, olens,
+                                       b.weight, nbest_n, native)
+            elif fusion_lm is not None:
+                per_utt = _fused_search(lp, olens, b.weight, fusion_lm,
+                                        dec_cfg, beam, nbest_n)
             else:
                 prefixes, plens, scores = \
                     decode_device.ctc_beam_search_device(
@@ -496,7 +662,9 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
                 continue
             uid = b.uids[n]
             audio_s += float(b.feat_lengths[n]) * 0.01
-            entry = {k: (float(score), tok.decode([int(t) for t in toks]))
+            entry = {k: (float(score), " ".join(toks)
+                         if toks and isinstance(toks[0], str)
+                         else tok.decode([int(t) for t in toks]))
                      for k, (score, toks) in enumerate(per_utt[n])}
             all_nbest[uid] = entry
             hyps[uid] = entry[0][1]
@@ -505,6 +673,9 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t0
+    rescored = _maybe_rescore(hyper, all_nbest, dec_cfg)
+    if rescored is not None:
+        hyps = rescored
     return finalize_decode(expdir, test_split, refs, hyps, all_nbest, wall,
                            audio_s, mode, dec_cfg)
 

@@ -18,9 +18,9 @@ builds its own `RNNTBeamDecoder` over padded batches):
 
 reading a `cat_tpu.rnnt.train` experiment (`hyper-p.json`,
 `config.json`, tokenizer, `pkl/<split>`, best checkpoint, of either
-package). `--lm` needs
-ARPA IO and `--mode streaming` the unified trainer, both later slices
-(ROADMAP.md).
+package). `--lm LM.arpa` fuses a token n-gram (tokens read as ids) into
+the beam with weight `--alpha`. `--mode streaming` needs the unified
+trainer, a later slice (ROADMAP.md §A.4).
 """
 from __future__ import annotations
 
@@ -262,11 +262,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="device of the model (default cuda)")
     args = p.parse_args(argv)
-    if args.mode == "streaming" or args.lm:
+    if args.mode == "streaming":
         raise NotImplementedError(
-            "streaming decoding needs the unified transducer and --lm "
-            "fusion ARPA IO, neither ported to cat_tpu_torch yet; see "
-            "ROADMAP.md")
+            "streaming decoding needs the unified transducer, not ported "
+            "to cat_tpu_torch yet; see ROADMAP.md §A.4")
 
     def load_json(name):
         with open(os.path.join(args.expdir, name)) as f:
@@ -285,7 +284,11 @@ def main(argv=None):
     if args.mode == "greedy":
         greedy = make_greedy_decoder(model)
     else:
-        beam = RNNTBeamDecoder(model, beam_width=args.beam_width,
+        lm = None
+        if args.lm:
+            from cat_tpu_torch.fst.ngram import read_arpa
+            lm = read_arpa(args.lm, to_int=True)
+        beam = RNNTBeamDecoder(model, beam_width=args.beam_width, lm=lm,
                                alpha=args.alpha, beta=args.beta,
                                ilm_weight=args.ilm_weight)
 

@@ -108,7 +108,10 @@ Phases, any failure exits non-zero:
    the crf-v1 encoder without its classifier, a 640-wide LSTM predictor,
    a 512-wide "add" joiner, V = 1024) greedy-decodes the serving batch
    and beam-searches (width 16) two of its utterances; the counters must
-   show the four encoder forward kernels and nothing else;
+   show the four encoder forward kernels and nothing else; the same beam
+   fused with a token 3-gram over V = 1024 (trained on seeded random
+   sequences, written to ARPA and read back): two calls alike bit for
+   bit, and at alpha = beta = 0 equal to the unfused beam;
 9. RNN-T train vs plain: one rnnt-v1 train step on the serving batch, as
    phase 4 (the encoder output in place of the logits);
 10. RNN-T training: `cat_tpu_torch.rnnt.train.make_train_step` trains the
@@ -140,6 +143,25 @@ Phases, any failure exits non-zero:
    4, and the RTF. (B) egs/template/exp/asr-ctc as its files stand on
    yes/no tones (64 train, 20 dev, seed 0) until its run ends: at most 2
    word errors on the dev set, 1 CTC alpha and 1 beta a step;
+11b. wfst: on (A)'s trained expdir, stage 4 with
+   egs/wenetspeech/exp/crf-wds's decode block (mode "wfst": a word
+   3-gram TLG over the train transcripts, built and cached as tlg.npz;
+   beam 17, max_active 7000), cut from n-best 8 to 1 over the 32 dev
+   utterances through the C++ `wfst_viterbi`: every forward the four
+   encoder kernels and nothing else; then `wfst_nbest` at K = 8 on two
+   dev utterances (its first entry the 1-best, scores sorted, hypotheses
+   distinct) and the Python `WfstDecoder.decode` on their first 30
+   frames (the native 1-best's words, scores within 1e-3). Stage 4 again
+   on a split of the first 4 dev utterances (cut from 32: the host beam
+   takes seconds an utterance) with decode.lm (a token 3-gram, alpha
+   0.3, beam 17, n-best 8) and decode.rescore (a word 3-gram, alpha 0.2,
+   beta 0.5): its files, the rescored hypotheses, the fused beam alike
+   bit for bit over two runs and, at alpha = beta = 0, equal to the
+   unfused host beam. The crf-v1 denominator's 3-gram written to ARPA
+   and read back through `den_lm.path` into a `DenseDen`: the den
+   forward kernel's logZ on the training batch within 1e-5 relative of
+   the cached den_dense.npz's. TLG build and load seconds, states and
+   arcs, native ms an utterance, the host share of stage 4 and its RTF;
 12. device: the card's name and power limit.
 With --profile, one serving forward and the two train steps also run
 under torch.profiler; the device time by kernel is printed and written to
@@ -2148,8 +2170,58 @@ def phase_rnnt_serving(cfg):
         f"{beam_s * 1e3:.1f} ms host wall; best scores "
         f"{[round(b[0][0], 3) for b in beam]}, "
         f"{[len(b[0][1]) for b in beam]} tokens")
+    rnnt_fusion(model, feats[:2], lengths[:2], beam)
     del model
     torch.cuda.empty_cache()
+
+
+def token_lm(V, seed, path):
+    """A token 3-gram over ids 1..V-1 trained on 400 seeded random
+    sequences of 5-40 tokens, written to the ARPA file `path` and read
+    back (tokens as ids), as `rnnt.decode --lm` reads it."""
+    import numpy as np
+    from cat_tpu_torch.fst.ngram import read_arpa, train_ngram, write_arpa
+    rng = np.random.default_rng(seed)
+    seqs = [list(map(int, rng.integers(1, V, size=int(rng.integers(5, 41)))))
+            for _ in range(400)]
+    write_arpa(train_ngram(seqs, order=3), path)
+    return read_arpa(path, to_int=True)
+
+
+def rnnt_fusion(model, feats, lengths, unfused):
+    """rnnt-v1's width-16 beam over two utterances fused with a token
+    3-gram (alpha 0.3, beta 0.5): two calls alike bit for bit; at alpha
+    = beta = 0 the unfused beam's result."""
+    import tempfile
+    from cat_tpu_torch.rnnt.decode import RNNTBeamDecoder
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        t = time.perf_counter()
+        lm = token_lm(RNNT_V, 20, os.path.join(d, "tokens.arpa"))
+        lm_s = time.perf_counter() - t
+    fused, walls = [], []
+    for _ in range(2):
+        reset_counts()
+        t = time.perf_counter()
+        fused.append(RNNTBeamDecoder(model, beam_width=16, lm=lm, alpha=0.3,
+                                     beta=0.5).decode(feats, lengths))
+        walls.append(time.perf_counter() - t)
+        if counts() != SERVE:
+            fail(f"rnnt fused beam launch counts {counts()} != {SERVE}")
+    zero = RNNTBeamDecoder(model, beam_width=16, lm=lm, alpha=0.0,
+                           beta=0.0).decode(feats, lengths)
+    if fused[0] != fused[1]:
+        fail("rnnt fused beam: two calls differ")
+    if zero != unfused:
+        fail("rnnt beam fused at alpha = beta = 0 differs from the unfused "
+             "beam")
+    log(f"[rnnt-serve] beam16 fused with a token 3-gram over V={RNNT_V} "
+        f"({sum(len(lm.probs[k]) for k in (1, 2, 3))} n-grams, trained, "
+        f"written to ARPA and read back in {lm_s:.2f} s; alpha 0.3, beta "
+        f"0.5): {[round(w * 1e3 / 2, 1) for w in walls]} ms an utterance "
+        f"(host wall, encoder included); best scores "
+        f"{[round(b[0][0], 3) for b in fused[0]]}; two calls alike bit for "
+        f"bit; alpha = beta = 0 gives the unfused beam's result")
 
 
 def phase_rnnt_train_vs_plain(cfg):
@@ -2292,6 +2364,10 @@ PIPE_FOLD = 2       # crf-v1 trains at grad_accum_fold 16: cut to 2
 # largest mel power of a float64 witness
 FEAT_ATOL, FEAT_RTOL, FEAT_POWER = 1e-3, 1e-4, 1e-9
 BEAM_ATOL, BEAM_RTOL = 1e-4, 1e-5   # device beam scores, card vs CPU
+WFST_SCORE_ATOL = 1e-3  # native vs Python WFST search scores (f32 vs f64)
+WFST_NBEST = 8      # crf-wds's n-best, min(beam 16, 8); cut to 1 over dev
+WFST_FRAMES = 30    # frames of the Python search's gate
+FUSION_UTTS = 4     # the host-fused beam decodes 4 dev utterances, not 32
 TOY_MAX_ERRORS = 2  # asr-ctc on the yes/no dev set: word errors at most
 YESNO_SR = 8000
 YESNO_TONES = {"yes": 440.0, "no": 880.0}
@@ -2447,8 +2523,8 @@ class Stopwatch:
         return timed_fn
 
 
-def run_pipeline(expdir, watch, extra=None):
-    """`cat_tpu_torch.pipeline.asr.main([expdir])` with its stages, the
+def run_pipeline(expdir, watch, extra=None, args=()):
+    """`cat_tpu_torch.pipeline.asr.main([expdir, *args])` with its stages, the
     feature extraction, the denominator and the averaging timed by
     `watch`, and every Manager it builds probed (`Probe`); `extra`: more
     patches. Returns the probes and the launch counts of the run, set to 0
@@ -2472,32 +2548,33 @@ def run_pipeline(expdir, watch, extra=None):
     torch.cuda.synchronize()
     reset_counts()
     t = time.perf_counter()
-    patched(patches, lambda: asr.main([expdir]))
+    patched(patches, lambda: asr.main([expdir, *args]))
     torch.cuda.synchronize()
     watch.s["main"] = time.perf_counter() - t
     return probes, counts()
 
 
-def check_outputs(expdir, n_dev, what):
-    """The four stages' files, one hypothesis and one n-best entry per dev
-    utterance, every number of wer_dev.json finite; returns the WER
-    record."""
+def check_outputs(expdir, n_dev, what, split="dev"):
+    """The four stages' files, one hypothesis and one n-best entry per
+    utterance of the decoded split, every number of wer_<split>.json
+    finite; returns the WER record."""
     from cat_tpu_torch.utils.nbest import read_nbest
-    for name in ("tokenizer.tknz", "pkl/train/meta.npz", "pkl/dev/meta.npz",
-                 "check/checkpoint.list", "check/metrics.jsonl", "readme.md",
-                 "decode_dev.txt", "nbest_dev.pkl", "wer_dev.json"):
+    for name in ("tokenizer.tknz", "pkl/train/meta.npz",
+                 f"pkl/{split}/meta.npz", "check/checkpoint.list", "check/metrics.jsonl", "readme.md",
+                 f"decode_{split}.txt", f"nbest_{split}.pkl",
+                 f"wer_{split}.json"):
         if not os.path.exists(os.path.join(expdir, name)):
             fail(f"{what}: no {name}")
-    with open(os.path.join(expdir, "decode_dev.txt")) as f:
+    with open(os.path.join(expdir, f"decode_{split}.txt")) as f:
         lines = f.read().splitlines()
-    nbest = read_nbest(os.path.join(expdir, "nbest_dev.pkl"))
-    with open(os.path.join(expdir, "wer_dev.json")) as f:
+    nbest = read_nbest(os.path.join(expdir, f"nbest_{split}.pkl"))
+    with open(os.path.join(expdir, f"wer_{split}.json")) as f:
         res = json.load(f)
     nums = [v for v in res.values() if isinstance(v, (int, float))]
     if len(lines) != n_dev or len(nbest) != n_dev or not all(
             math.isfinite(v) for v in nums):
         fail(f"{what}: {len(lines)} hypotheses, {len(nbest)} n-best entries "
-             f"for {n_dev} dev utterances; wer_dev.json {res}")
+             f"for {n_dev} {split} utterances; wer_{split}.json {res}")
     return res
 
 
@@ -2517,7 +2594,8 @@ def phase_pipeline(card):
     """[pipeline] `python -m cat_tpu_torch.pipeline.asr` in-process on
     synthesized data in a temporary directory under build/, removed at the
     end: crf-v1's recipe at full width through its four stages, then the
-    asr-ctc toy recipe to the end of its training."""
+    asr-ctc toy recipe to the end of its training, then [wfst] on the
+    crf-v1 expdir (the phase's seconds include it)."""
     import shutil
     import tempfile
     t_phase = time.perf_counter()
@@ -2527,6 +2605,9 @@ def phase_pipeline(card):
     try:
         pipeline_crf_v1(os.path.join(root, "crf-v1"), card)
         pipeline_toy(os.path.join(root, "asr-ctc"), card)
+        t = time.perf_counter()
+        pipeline_wfst(os.path.join(root, "crf-v1"), card)
+        log(f"[wfst] phase {time.perf_counter() - t:.1f} s ({card})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[pipeline] phase {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -2744,6 +2825,231 @@ def pipeline_toy(root, card):
     if res["errors"] > TOY_MAX_ERRORS:
         fail(f"asr-ctc pipeline: {res['errors']} word errors on the dev set "
              f"(at most {TOY_MAX_ERRORS})")
+
+
+def pipeline_wfst(root, card):
+    """[wfst] on `pipeline_crf_v1`'s trained expdir under root: stage 4
+    with crf-wds's decode block (egs/wenetspeech/exp/crf-wds: mode
+    "wfst", a word 3-gram TLG, beam 17; max_active 7000, its default,
+    written out); then fusion and rescoring on a split of the first
+    FUSION_UTTS dev utterances; then the crf-v1 denominator read from an
+    ARPA file through row 22. Cuts: n-best 8 -> 1 over the 32 dev
+    utterances (`wfst_nbest` at K = 8 runs on two of them), the fused
+    decode on FUSION_UTTS utterances."""
+    import numpy as np
+    import torch
+    from cat_tpu_torch.ctc.decode import prefix_beam_search
+    from cat_tpu_torch.fst.decode import WfstDecoder
+    from cat_tpu_torch.fst.fst import Fst
+    from cat_tpu_torch.fst.ngram import train_ngram, write_arpa
+    from cat_tpu_torch.ops import crf_dense
+    from cat_tpu_torch.pipeline import asr
+    from cat_tpu_torch.utils import tokenizer as tknz
+    from cat_tpu_torch.utils.data import SpeechDataset, pack_speech_data
+    from cat_tpu_torch.utils.nbest import read_nbest
+
+    expdir = os.path.join(root, "exp")
+    hyper_path = os.path.join(expdir, "hyper-p.json")
+    with open(hyper_path) as f:
+        hyper = json.load(f)
+    with open(os.path.join(REPO, "egs", "wenetspeech", "exp", "crf-wds",
+                           "hyper-p.json")) as f:
+        wds = json.load(f)["inference"]["decode"]
+    dec = dict(wds, nbest=1, wfst=dict(wds["wfst"], max_active=7000))
+    hyper["inference"]["decode"] = dec
+    with open(hyper_path, "w") as f:
+        json.dump(hyper, f, indent=1)
+
+    # (A) crf-wds's WFST decode of the 32 dev utterances, 1-best
+    watch = Stopwatch()
+    forwards, kept, rows = [], {}, []
+
+    def before_forward(model, feats, flens):
+        forwards.append(counts())
+
+    def after_forward(out, model, feats, flens):
+        before = forwards.pop()
+        forwards.append({k: v - before[k] for k, v in counts().items()})
+        for i in range(min(2 - len(rows), len(out[1]))):
+            rows.append((out[0][i].float().cpu().numpy(), int(out[1][i])))
+
+    def keep_decoder(out, *args):
+        kept["dec"] = out
+
+    extra = {asr: {
+        "ctc_log_probs": watch.wrap("forward", asr.ctc_log_probs,
+                                    before=before_forward,
+                                    after=after_forward),
+        "_build_wfst_decoder": watch.wrap("tlg", asr._build_wfst_decoder,
+                                          after=keep_decoder),
+        "_wfst_search": watch.wrap("search", asr._wfst_search)},
+        WfstDecoder: {
+        "decode_native": watch.wrap("native", WfstDecoder.decode_native),
+        "native_tables": watch.wrap("tables", WfstDecoder.native_tables)}}
+    _, total = run_pipeline(expdir, watch, extra, ["--start_stage", "4"])
+    res = check_outputs(expdir, 32, "crf-wds decode")
+    n_fw = len(forwards)
+    if res["mode"] != "wfst" or n_fw == 0 or any(
+            d != SERVE for d in forwards) or total != {
+                k: n_fw * v for k, v in SERVE.items()}:
+        fail(f"crf-wds decode: mode {res['mode']}, launches a forward "
+             f"{forwards}, in all {total}")
+    s, n = watch.s, watch.n
+    if n["native"] != 32:
+        fail(f"crf-wds decode: {n['native']} native decodes for 32 "
+             f"utterances")
+    t = time.perf_counter()
+    tlg = Fst.load(os.path.join(expdir, "tlg.npz"))
+    load_s = time.perf_counter() - t
+    log(f"[wfst] crf-wds decode ({card}): TLG of a word 3-gram over the "
+        f"train transcripts built in {s['tlg']:.1f} s ({tlg.num_states} "
+        f"states, {tlg.num_arcs} arcs), tlg.npz loads in {load_s:.2f} s; "
+        f"stage 4 {s['stage_decode']:.1f} s: {n_fw} forwards "
+        f"{s['forward']:.2f} s, each {SERVE} launches as in [pipeline]; the "
+        f"native tables built once in {s['tables']:.2f} s; wfst_viterbi "
+        f"{1e3 * (s['native'] - s['tables']) / n['native']:.1f} ms an "
+        f"utterance (beam 17, max_active 7000); the host search "
+        f"{s['search']:.1f} s = "
+        f"{100 * s['search'] / s['stage_decode']:.1f} % of stage 4; WER "
+        f"{res['wer']:.2f} % ({res['errors']} errors of {res['num_words']} "
+        f"words, a random model after 4 updates), RTF {res['rtf']:.4f}")
+
+    # n-best at K = 8 and the Python search, on two dev utterances
+    wdec, id2word = kept["dec"]
+    lp, lens = [r[0] for r in rows], [r[1] for r in rows]
+    t = time.perf_counter()
+    nbests = [wdec.decode_native_nbest(lp[i], lens[i], nbest=WFST_NBEST)
+              for i in range(2)]
+    nbest_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ones = [wdec.decode_native(lp[i], lens[i]) for i in range(2)]
+    one_s = time.perf_counter() - t
+    for i, (nb, one) in enumerate(zip(nbests, ones)):
+        scores = [sc for sc, _ in nb]
+        if not nb or nb[0][1] != one[1] or abs(nb[0][0] - one[0]) > \
+                WFST_SCORE_ATOL or scores != sorted(scores, reverse=True) \
+                or len({tuple(w) for _, w in nb}) != len(nb):
+            fail(f"wfst_nbest of utterance {i}: {nb[:2]}... against the "
+                 f"1-best {one}")
+    t = time.perf_counter()
+    py = [wdec.decode(lp[i], WFST_FRAMES)[0] for i in range(2)]
+    py_s = time.perf_counter() - t
+    nat = [wdec.decode_native(lp[i], WFST_FRAMES) for i in range(2)]
+    for i in range(2):
+        if nat[i][1] != py[i][1] or abs(nat[i][0] - py[i][0]) > \
+                WFST_SCORE_ATOL:
+            fail(f"wfst native vs Python on {WFST_FRAMES} frames of "
+                 f"utterance {i}: {nat[i]} != {py[i]}")
+    log(f"[wfst] wfst_nbest K={WFST_NBEST} on 2 utterances ({lens} "
+        f"frames): {1e3 * nbest_s / 2:.1f} ms an utterance ("
+        f"{[len(nb) for nb in nbests]} hypotheses, the first the 1-best of "
+        f"wfst_viterbi, {1e3 * one_s / 2:.1f} ms; scores sorted, hypotheses "
+        f"distinct); the Python search on their first {WFST_FRAMES} frames "
+        f"{py_s / 2:.2f} s an utterance gives the native words and scores "
+        f"within {WFST_SCORE_ATOL} (max diff "
+        f"{max(abs(a[0] - b[0]) for a, b in zip(nat, py)):.3g}); 1-best "
+        f"word counts {[len(o[1]) for o in ones]}")
+
+    # (B) fusion and rescoring on the first FUSION_UTTS dev utterances
+    dev = SpeechDataset(os.path.join(expdir, "pkl", "dev"))
+    split = f"dev{FUSION_UTTS}"
+    pack_speech_data(os.path.join(expdir, "pkl", split),
+                     [(dev.uids[i], *dev[i]) for i in range(FUSION_UTTS)])
+    dec = {"beam_width": 17, "nbest": WFST_NBEST,
+           "lm": {"type": "ngram", "order": 3}, "alpha": 0.3,
+           "rescore": {"alpha": 0.2, "beta": 0.5,
+                       "lm": {"type": "ngram", "order": 3}}}
+    hyper["inference"].update(split=split, decode=dec)
+    with open(hyper_path, "w") as f:
+        json.dump(hyper, f, indent=1)
+    watch, fused = Stopwatch(), []
+    extra = {asr: {
+        "_fused_search": watch.wrap(
+            "fused", asr._fused_search,
+            after=lambda out, *args: fused.append((args, out))),
+        "_maybe_rescore": watch.wrap("rescore", asr._maybe_rescore)}}
+    _, total = run_pipeline(expdir, watch, extra, ["--start_stage", "4"])
+    res = check_outputs(expdir, FUSION_UTTS, "fused decode", split)
+    t = time.perf_counter()
+    again = [asr._fused_search(*args) for args, _ in fused]
+    again_s = time.perf_counter() - t
+    if again != [out for _, out in fused]:
+        fail("fused beam: two runs differ")
+    args = fused[0][0]
+    lp0 = args[0][0].float().cpu().numpy()
+    L0 = int(args[1][0])
+    t = time.perf_counter()
+    zero = prefix_beam_search(lp0, L0, beam_width=17, lm=args[3], alpha=0.0,
+                              beta=0.0, nbest=WFST_NBEST)
+    plain = prefix_beam_search(lp0, L0, beam_width=17, nbest=WFST_NBEST)
+    zero_s = time.perf_counter() - t
+    if zero != plain:
+        fail("fused beam at alpha = beta = 0 differs from the unfused beam")
+    nbest = read_nbest(os.path.join(expdir, f"nbest_{split}.pkl"))
+    want = asr._maybe_rescore(hyper, nbest, dec)
+    with open(os.path.join(expdir, f"decode_{split}.txt")) as f:
+        got = dict(line.split("\t", 1) for line in f.read().splitlines())
+    if got != want or any(not 1 <= len(v) <= WFST_NBEST
+                          for v in nbest.values()):
+        fail(f"rescored hypotheses {got} != {want}")
+    log(f"[wfst] fused decode of {FUSION_UTTS} dev utterances ({card}; a "
+        f"token 3-gram, alpha 0.3, beam 17, n-best {WFST_NBEST}): stage 4 "
+        f"{watch.s['stage_decode']:.1f} s, the host beam "
+        f"{1e3 * watch.s['fused'] / FUSION_UTTS:.0f} ms an utterance, "
+        f"rescoring (a word 3-gram, alpha 0.2, beta 0.5) "
+        f"{watch.s['rescore']:.2f} s; launches {total}; two runs of the "
+        f"fused beam alike bit for bit (the second {again_s:.1f} s); alpha "
+        f"= beta = 0 gives the unfused beam ({L0} frames, both "
+        f"{zero_s:.1f} s); the rescored 1-best written; WER "
+        f"{res['wer']:.2f} %, RTF {res['rtf']:.4f}")
+
+    # (C) the crf-v1 denominator read from ARPA, through row 22. An ARPA
+    # file holds a backoff only beside an n-gram of its own, so the
+    # (<s>, <s>) context's backoff of the trained 3-gram has no line (in
+    # either package): the file's denominator is held to the trained LM
+    # without it, and its distance to den_dense.npz is printed
+    tok = tknz.load(os.path.join(expdir, "tokenizer.tknz"))
+    tr = SpeechDataset(os.path.join(expdir, "pkl", "train"))
+    lm = train_ngram([[int(x) for x in tr[i][1]] for i in range(len(tr))],
+                     order=3)
+    arpa = os.path.join(root, "den_lm.arpa")
+    write_arpa(lm, arpa)
+    os.makedirs(os.path.join(root, "den"))
+    t = time.perf_counter()
+    den_arpa = asr.build_den(os.path.join(root, "den"),
+                             {"den_lm": {"path": arpa}}, tok, None)
+    arpa_s = time.perf_counter() - t
+    dropped = [(ng, b) for k in range(lm.order) for ng, b in
+               lm.bows[k].items() if ng not in lm.probs[k]]
+    for ng, _ in dropped:
+        del lm.bows[len(ng)][ng]
+    den_held = crf_dense.DenseDen.from_ngram(lm, tok.vocab_size)
+    den_npz = crf_dense.DenseDen.load(os.path.join(expdir, "den_dense.npz"))
+    tl = [subsampled(f) for f in TRAIN_FRAMES]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lps = torch.log_softmax(_rnd(gen, len(tl), max(tl), tok.vocab_size,
+                                 s=2.0), -1)
+    lens_t = torch.tensor(tl, device="cuda")
+    reset_counts()
+    z_arpa = crf_dense.den_forward(lps, lens_t, den_arpa)[1]
+    z_held = crf_dense.den_forward(lps, lens_t, den_held)[1]
+    z_npz = crf_dense.den_forward(lps, lens_t, den_npz)[1]
+    if counts()["den_fwd"] != 3:
+        fail(f"ARPA denominator: den_fwd launches {counts()['den_fwd']}")
+    e_z = close_rel("logZ of the ARPA denominator", z_arpa, z_held)
+    e_w = float(np.abs(den_arpa.logw - den_held.logw).max())
+    rest = np.ones(den_npz.logw.shape, bool)
+    rest[0, 0] = False
+    e_npz = float(np.abs(den_arpa.logw - den_npz.logw)[rest].max())
+    r_npz = ((z_arpa - z_npz).abs() / z_npz.abs()).max().item()
+    log(f"[wfst] crf-v1 denominator 3-gram written to ARPA and read through "
+        f"den_lm.path in {arpa_s:.2f} s; backoffs without a line of their "
+        f"own {[(ng, round(b, 6)) for ng, b in dropped]}; den_fwd (row 22) "
+        f"on the training batch (N={len(tl)}, T'={min(tl)}..{max(tl)}): "
+        f"against the trained LM without them, tables within {e_w:.3g}, "
+        f"logZ max abs diff {e_z:.3g}, within {LL_RTOL} relative; against "
+        f"den_dense.npz, tables outside the (<s>, <s>) row within "
+        f"{e_npz:.3g}, logZ max relative diff {r_npz:.3g}")
 
 
 def phase_profile(fn, what, path):

@@ -112,8 +112,62 @@ def test_decode_cli_matches_jax(tmp_path, mode):
 
 
 def test_decode_cli_refuses_unported_options(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every option of the CLI is ported; what still stops it is a WFST
+    decode without its graph, as in JAX, before anything is read."""
+    with pytest.raises(SystemExit, match="--graph"):
         decode.main([str(tmp_path), "--mode", "wfst", "--device", "cpu"])
+
+
+def _tlg_files(root):
+    """A TLG over the tiny experiment's char units (JAX's `build_tlg`),
+    saved as tlg.npz with its "word id" lines in words.txt."""
+    from cat_tpu.fst.decode import build_tlg
+    from cat_tpu.utils import tokenizer as tknz
+    tok = tknz.load(os.path.join(root, "tokenizer.tknz"))
+    words = ["bad", "cab", "face", "hedge", "dig", "gag"]
+    word2id = {w: i + 1 for i, w in enumerate(words)}
+    lm = train_ngram([["bad", "cab"], ["face"], ["dig", "gag", "bad"],
+                      ["hedge", "cab"], ["gag"]], order=2)
+    tlg = build_tlg([(w, tok.encode(w)) for w in words], lm,
+                    {i: i for i in range(1, tok.vocab_size)}, word2id,
+                    num_classes=tok.vocab_size)
+    tlg.save(os.path.join(root, "tlg.npz"))
+    with open(os.path.join(root, "words.txt"), "w") as f:
+        f.writelines(f"{w} {i}\n" for w, i in word2id.items())
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mode", "wfst", "--graph", "tlg.npz", "--words", "words.txt"],
+    ["--mode", "wfst", "--graph", "tlg.npz"],
+    ["--mode", "beam", "--lm", "lm.arpa", "--alpha", "0.6", "--beta",
+     "0.4"],
+    ["--mode", "greedy", "--lm", "lm.arpa"]])
+def test_decode_cli_wfst_and_lm_match_jax(tmp_path, extra):
+    from cat_tpu.fst.ngram import write_arpa
+    _expdir(str(tmp_path))
+    _tlg_files(str(tmp_path))
+    write_arpa(train_ngram([[2, 3, 4], [3, 4, 5, 2], [2, 2, 3]], order=3),
+               str(tmp_path / "lm.arpa"))
+    extra = [str(tmp_path / a) if a.endswith((".npz", ".txt", ".arpa"))
+             else a for a in extra]
+    args = [str(tmp_path), "--beam-width", "4", "--nbest", "3", *extra]
+    jax_decode.main(args + ["--output", str(tmp_path / "jax.txt")])
+    decode.main(args + ["--output", str(tmp_path / "port.txt"),
+                        "--device", "cpu"])
+    got = (tmp_path / "port.txt").read_text()
+    assert got == (tmp_path / "jax.txt").read_text()
+    assert len(got.splitlines()) == 2
+    with open(tmp_path / "port.txt.nbest.pkl", "rb") as f:
+        nb_got = pickle.load(f)
+    with open(tmp_path / "jax.txt.nbest.pkl", "rb") as f:
+        nb_want = pickle.load(f)
+    assert nb_got.keys() == nb_want.keys()
+    for uid in nb_want:
+        assert [h for _, h in nb_got[uid].values()] == \
+            [h for _, h in nb_want[uid].values()]
+        np.testing.assert_allclose([s for s, _ in nb_got[uid].values()],
+                                   [s for s, _ in nb_want[uid].values()],
+                                   rtol=1e-4, atol=1e-3)
 
 
 def test_port_imports_nothing_of_jax():
@@ -127,7 +181,9 @@ for m in ("ops.dropout", "ops.semiring", "ops.ctc", "ops.crf_dense",
           "utils.tolerance", "ctc.train", "ops.rnnt", "ops.rnnt_simple",
           "rnnt.train", "rnnt.decode", "pipeline.asr", "pipeline.tasks",
           "ctc.decode_device", "ops.fbank", "utils.audio", "utils.wer",
-          "utils.nbest", "utils.data_prep"):
+          "utils.nbest", "utils.data_prep", "fst.fst", "fst.graph",
+          "fst.decode", "fst.g2p", "native", "lm.rescore", "pipeline.ngram",
+          "pipeline.text"):
     assert "cat_tpu_torch." + m in sys.modules, m
 import runpy
 for tool in ("torch_step_diag", "torch_ffn_ab", "torch_ffn_ablate",

@@ -299,13 +299,14 @@ def _hyper(**kw):
 
 
 UNPORTED = [
-    (_hyper(inference__decode__mode="wfst"), {}, "§A.3"),
-    (_hyper(inference__decode__lm={"type": "ngram"}), {}, "§A.3"),
-    (_hyper(inference__decode__rescore={"alpha": 0.2}), {}, "§A.3"),
-    (_hyper(den_lm={"path": "den.arpa"}), {"trainer": {"loss": "crf"}},
-     "§A.3"),
+    (_hyper(inference__decode__lm={"type": "nn", "exp": "lm"}), {}, "§A.5"),
+    (_hyper(inference__decode__lm={"type": "lodr", "nn": {"exp": "lm"}}),
+     {}, "§A.5"),
+    (_hyper(inference__decode__rescore={"alpha": 0.2, "lm": {
+        "type": "nn", "exp": "lm"}}), {}, "§A.5"),
+    (_hyper(train__bin="cat_tpu.lm.train_trf"), {}, "§A.5"),
     (_hyper(den_lm={"path": "den.fst"}), {"trainer": {"loss": "crf"}},
-     "§A.3"),
+     "§A.6"),
     (_hyper(inference__decode__mode="streaming"), {}, "§A.4"),
     (_hyper(train__bin="cat_tpu.ctc.train_unified"), {}, "§A.4"),
     (_hyper(train__bin="cat_tpu.rnnt.train_unified"), {}, "§A.4"),

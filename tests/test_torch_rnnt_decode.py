@@ -159,6 +159,35 @@ def test_decode_cli_matches_jax(tmp_path, models, mode):
 
 
 def test_decode_cli_refuses_unported_options(tmp_path):
-    for extra in (["--mode", "streaming"], ["--lm", "lm.arpa"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            decode.main([str(tmp_path), "--device", "cpu", *extra])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.4"):
+        decode.main([str(tmp_path), "--device", "cpu", "--mode",
+                     "streaming"])
+
+
+@pytest.mark.parametrize("gz", [False, True])
+def test_decode_cli_with_an_arpa_lm_matches_jax(tmp_path, models, gz):
+    """`--lm` reads a token ARPA file (ids) into the beam: the n-best of
+    JAX's `RNNTBeamDecoder` with the same LM read by the JAX package."""
+    from cat_tpu.fst.ngram import read_arpa, write_arpa
+    model, variables, _ = models
+    tok, utts = _expdir(str(tmp_path), variables)
+    arpa = str(tmp_path / ("lm.arpa.gz" if gz else "lm.arpa"))
+    write_arpa(jax_train_ngram(SEQS, order=3), arpa)
+    out = tmp_path / "port.txt"
+    decode.main([str(tmp_path), "--beam-width", "4", "--nbest", "2",
+                 "--lm", arpa, "--alpha", "0.8", "--beta", "0.2",
+                 "--output", str(out), "--device", "cpu"])
+    with open(str(out) + ".nbest.pkl", "rb") as f:
+        nbest = pickle.load(f)
+    beam = jax_decode.RNNTBeamDecoder(model, variables, beam_width=4,
+                                      lm=read_arpa(arpa, to_int=True),
+                                      alpha=0.8, beta=0.2)
+    lines = []
+    for uid, f, _ in utts:
+        want = beam.decode(f[None], np.array([len(f)]), nbest=2)[0]
+        lines.append(f"{uid}\t{tok.decode(want[0][1])}\n")
+        assert [h for _, h in nbest[uid].values()] == [
+            tok.decode(p) for _, p in want]
+        np.testing.assert_allclose([s for s, _ in nbest[uid].values()],
+                                   [s for s, _ in want], rtol=1e-4)
+    assert out.read_text() == "".join(sorted(lines))
