@@ -1,8 +1,11 @@
 """Encoders in PyTorch: the conformer (counterpart of `ConformerNet` in
 `cat_tpu/models/encoders.py`), conv2d subsampling, eval and training
 mode (`.train()`: dropout and batch statistics, see `models/layers.py`),
-and the (B)LSTM encoder (counterpart of `LSTM` and its `LSTMStack`).
-Each encoder's `odim` is the width of its output without the classifier.
+the (B)LSTM encoder (counterpart of `LSTM` and its `LSTMStack`), the
+TDNN stack `TDNN_NAS`, and the JoinAP output layers
+(`JoinAPLinearEncoder`, `JoinAPNonLinearEncoder`) over any registered
+encoder as their head. Each encoder's `odim` is the width of its output
+without the classifier (a JoinAP encoder's is its number of phones).
 
 The JAX module's `remat`, `scan_layers`, `subsampling_remat` and
 `remat_policy` are accepted and ignored: they change how training keeps
@@ -14,8 +17,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import numpy as np
+
 from cat_tpu_torch.models.layers import (ConformerCell, Conv2dSubsampling,
-                                         Dense, Dropout)
+                                         Dense, Dropout, TDNNLayer)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -183,6 +188,118 @@ class LSTM(nn.Module):
         if self.classifier is not None:
             h = self.classifier(h, torch.float32)
         return h, lengths
+
+
+class TDNN_NAS(nn.Module):
+    """The NAS-derived TDNN stack (counterpart of the JAX `TDNN_NAS`):
+    seven `TDNNLayer`s of (half_context, dilation, stride) (1, 1, 1),
+    (1, 1, 1), (1, 1, 2), (1, 1, 1), (1, 1, 1), (1, 3, 1), (1, 3, 1), each
+    followed by dropout, then the classifier; float32 throughout. The
+    dropout is the port's `Dropout` (row 1's kernel on the card), drawn
+    over the (N, hdim, T) layout the convolutions keep, where the JAX
+    module takes flax's `nn.Dropout`: the two agree at rate 0 only. `idim`
+    is the port's own argument (the JAX module infers it)."""
+
+    SPECS = ((1, 1, 1), (1, 1, 1), (1, 1, 2), (1, 1, 1), (1, 1, 1),
+             (1, 3, 1), (1, 3, 1))
+
+    def __init__(self, hdim=640, num_classes=0, dropout_rate=0.5,
+                 with_head=True, idim=80, generator=None):
+        super().__init__()
+        self.idim = idim
+        self.odim = hdim
+        self.layers = nn.ModuleList(
+            TDNNLayer(idim if i == 0 else hdim, hdim, hc, dil, stride)
+            for i, (hc, dil, stride) in enumerate(self.SPECS))
+        self.dropout = Dropout(dropout_rate)
+        self.classifier = (Dense(hdim, num_classes)
+                           if with_head and num_classes > 0 else None)
+        init_weights(self, generator)
+
+    def forward(self, x, lengths, gen=None):
+        """x (N, T, idim), lengths (N,) -> (logits (N, T', V) or features
+        (N, T', hdim), float32; lengths), T' = ceil(T / 2)."""
+        if x.shape[-1] != self.idim:
+            raise ValueError(f"TDNN_NAS expects {self.idim} features, got "
+                             f"{x.shape[-1]}")
+        h = x.float().transpose(1, 2).contiguous()
+        for layer in self.layers:
+            h, lengths = layer(h, lengths)
+            h = self.dropout(h, gen)
+        h = h.transpose(1, 2)
+        if self.classifier is not None:
+            h = self.classifier(h, torch.float32)
+        return h, lengths
+
+
+class JoinAPLinearEncoder(nn.Module):
+    """The JoinAP output layer over a head encoder (counterpart of the JAX
+    `JoinAPLinearEncoder`): logits = head(x) @ (A·P)ᵀ, P (Np, Dp) the fixed
+    phonological matrix of `pv_path` (float32), A a learned Dense (Dp ->
+    H), H the head's output width. The product runs in float32 (a
+    bfloat16 head times the float32 A·P promotes to float32 in JAX). P is
+    a non-persistent buffer, outside the state_dict as it is outside the
+    JAX module's params, so checkpoints of both packages hold the same
+    weights. The head is any registered encoder, built with
+    `enc_head_kwargs` and no classifier; `num_classes`, when given, must
+    equal Np. `with_head` is accepted and ignored, as in JAX: the output
+    is always the logits."""
+
+    def __init__(self, pv_path="", enc_head_type="LSTM",
+                 enc_head_kwargs=None, num_classes=0, with_head=True,
+                 generator=None):
+        super().__init__()
+        from cat_tpu_torch.models import get_encoder
+
+        P = np.load(pv_path).astype(np.float32)
+        if num_classes and num_classes != P.shape[0]:
+            raise ValueError(f"{type(self).__name__}: num_classes "
+                             f"{num_classes} != {P.shape[0]} phones of "
+                             f"{pv_path} (P {P.shape})")
+        kw = dict(enc_head_kwargs or {})
+        kw["with_head"] = False
+        kw.pop("num_classes", None)
+        self.enc_head = get_encoder(enc_head_type)(**kw, generator=generator)
+        self.register_buffer("P", torch.from_numpy(P), persistent=False)
+        self.odim = P.shape[0]
+        self._build_ap(P.shape[1], self.enc_head.odim, generator)
+
+    def _build_ap(self, dp, h, generator):
+        self.A = Dense(dp, h)
+        init_weights(self.A, generator)
+
+    def ap(self):
+        """A·P (Np, H) in float32."""
+        return self.A(self.P, torch.float32)
+
+    def forward(self, x, lengths, gen=None):
+        """x (N, T, idim), lengths (N,) -> (logits (N, T', Np) float32,
+        lengths); `gen` seeds the head's dropout in training mode."""
+        h, lengths = self.enc_head(x, lengths, gen)
+        return h.float() @ self.ap().t(), lengths
+
+
+class JoinAPNonLinearEncoder(JoinAPLinearEncoder):
+    """The nonlinear JoinAP layer (counterpart of the JAX
+    `JoinAPNonLinearEncoder`): A·P is A2(sigmoid(A1·P)), A1 (Dp ->
+    ap_hdim) and A2 (ap_hdim -> H)."""
+
+    def __init__(self, pv_path="", ap_hdim=512, enc_head_type="LSTM",
+                 enc_head_kwargs=None, num_classes=0, with_head=True,
+                 generator=None):
+        self.ap_hdim = ap_hdim
+        super().__init__(pv_path, enc_head_type, enc_head_kwargs,
+                         num_classes, with_head, generator)
+
+    def _build_ap(self, dp, h, generator):
+        self.A1 = Dense(dp, self.ap_hdim)
+        self.A2 = Dense(self.ap_hdim, h)
+        init_weights(self.A1, generator)
+        init_weights(self.A2, generator)
+
+    def ap(self):
+        return self.A2(torch.sigmoid(self.A1(self.P, torch.float32)),
+                       torch.float32)
 
 
 @torch.no_grad()

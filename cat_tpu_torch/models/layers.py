@@ -262,3 +262,26 @@ class ConformerCell(nn.Module):
         x = self.ff2(x, gen)
         x = self.norm_out(x.float()).to(dtype)
         return x * mask[..., None].to(dtype)
+
+
+class TDNNLayer(nn.Module):
+    """Dilated 1-D conv over frames, then ReLU (counterpart of the JAX
+    `TDNNLayer`): kernel 2·half_context + 1, symmetric padding
+    half_context·dilation, lengths ceil(len / stride), at least 1. Takes
+    and returns the (N, C, T) layout of `F.conv1d` in float32. Padded
+    frames are not masked, as in the JAX module: the convolutions carry
+    them into the last valid frames alike in both packages."""
+
+    def __init__(self, idim, odim, half_context=1, dilation=1, stride=1):
+        super().__init__()
+        self.stride = stride
+        self.conv = nn.Conv1d(idim, odim, 2 * half_context + 1, stride=stride,
+                              padding=half_context * dilation,
+                              dilation=dilation)
+
+    def forward(self, x, lengths):
+        h = F.relu(self.conv(x))
+        if self.stride > 1:
+            lengths = torch.clamp(
+                (lengths + self.stride - 1) // self.stride, min=1)
+        return h, lengths

@@ -19,12 +19,17 @@ trainer (`pipeline/tasks.py`).
 
   1 tokenizer: built from the first train set's transcripts, or loaded.
   2 pack: wav.scp + text -> fbank + CMVN on the device -> pkl/<split>
-    (a data dir that is packed already is linked).
+    (a data dir that is packed already is linked); dev only when the
+    train set streams from shards (train.option.sharded_data).
   3 train: the `Manager` over `BucketedLoader`s (one card: batches of
-    any size), the recipe's scheduler and optimizer, `grad_accum_fold`,
-    clipping, the dense CTC-CRF denominator estimated from the packed
-    train labels (cached as den_dense.npz), resume, the dev WER as the
-    scheduler's metric when asked (`eval_wer`), and readme.md.
+    any size), or over a `StreamingBucketLoader` of npz shards
+    (`utils/data_sharded.py`: sharded_data a shard dir, glob or brace
+    pattern; shuffle_buffer, buckets, label_caps, frame_budget, seed),
+    the recipe's scheduler and optimizer, `grad_accum_fold`, clipping,
+    the dense CTC-CRF denominator estimated from the packed train labels
+    or a label-only pass over the shards (cached as den_dense.npz),
+    resume, the dev WER as the scheduler's metric when asked
+    (`eval_wer`), and readme.md.
   4 decode: the chosen checkpoints averaged (best-N or last-N), CTC by
     the batched prefix beam on the device (`ctc/decode_device.py`),
     greedily, through a TLG graph (mode "wfst": the encoder on the card,
@@ -37,10 +42,12 @@ trainer (`pipeline/tasks.py`).
 Not ported yet, each raising NotImplementedError with its ROADMAP.md
 section: streaming decoding and the unified trainers (§A.4); neural LM
 fusion, LODR and neural rescoring (§A.5); the arc-table denominator for
-orders above 3, more than 128 units or an FST file (§A.6); sharded data
-and `config.parallel` (§A.7); more than one train set and the task bins
-(§A.8). The JAX package's monitor plot after training waits for
-`utils/plot.py` (§A.8) and is left out; `config.perf` is read and
+orders above 3, more than 128 units or an FST file (§A.6); the encoders
+`VGGLSTM`, `BLSTMN`, `LSTMrowCONV`, `TDNN_LSTM` and `ConformerLSTM`
+(§A.6b); `config.parallel` (§A.7); more than one train set, the task bins
+and the `EmbeddingEncoder` and `Wav2Vec2Encoder` encoders (§A.8). The JAX
+package's monitor plot after training waits for `utils/plot.py` (§A.8)
+and is left out; `config.perf` is read and
 ignored, since the port has no implementation switches: every op runs
 its kernel on a CUDA tensor.
 """
@@ -137,10 +144,17 @@ def _train_sets(hyper):
             if isinstance(item, dict) else (str(item), 1.0) for item in tr]
 
 
+def _sharded(hyper):
+    """The shard pattern of train.option.sharded_data (a dir means its
+    shard-*.npz), or None when the train set is packed."""
+    from cat_tpu_torch.utils.data_sharded import shard_pattern
+
+    sharded = hyper["train"].get("option", {}).get("sharded_data")
+    return shard_pattern(sharded) if sharded else None
+
+
 def _check_data(hyper):
     """Raise for the train data stages 2 and 3 cannot take yet."""
-    if hyper["train"].get("option", {}).get("sharded_data"):
-        raise _todo("training from sharded data (sharded_data)", "§A.7")
     if len(_train_sets(hyper)) > 1:
         raise _todo("more than one train set (WeightedConcatDataset)",
                     "§A.8")
@@ -162,10 +176,24 @@ def _check_lm(cfg, what):
         raise ValueError(f"unknown {what} lm type {kind}")
 
 
+def _check_encoder(config):
+    """Raise for an encoder type the port has not registered, a JoinAP
+    encoder's head included."""
+    from cat_tpu_torch import models
+
+    enc = config.get("encoder")
+    if not enc:
+        return
+    models.get_encoder(enc["type"])
+    if enc["type"].startswith("JoinAP"):
+        models.get_encoder(enc.get("kwargs", {}).get("enc_head_type", "LSTM"))
+
+
 def check_train(hyper, config):
     """Raise for what stage 3 of the port cannot do yet."""
     tasks.train_module(hyper["train"]["bin"])
     _check_data(hyper)
+    _check_encoder(config)
     if config.get("parallel"):
         raise _todo("config.parallel (tensor parallelism)", "§A.7")
     den_cfg = hyper.get("den_lm", {})
@@ -175,9 +203,10 @@ def check_train(hyper, config):
         raise _todo("the arc-table denominator (order > 3)", "§A.6")
 
 
-def check_decode(hyper):
+def check_decode(hyper, config=None):
     """Raise for what stage 4 of the port cannot do yet."""
     tasks.train_module(hyper["train"]["bin"])
+    _check_encoder(config or {})
     dec = hyper.get("inference", {}).get("decode", {})
     mode = dec.get("mode", "beam")
     if mode == "streaming":
@@ -195,8 +224,10 @@ def stage_pack(expdir, hyper, tok, device="cpu"):
     _check_data(hyper)
     pkl_dir = os.path.join(expdir, "pkl")
     feat_cfg = hyper.get("feature", {})
-    for split, datadir in (("dev", hyper["data"]["dev"]),
-                           ("train", _train_sets(hyper)[0][0])):
+    splits = [("dev", hyper["data"]["dev"])]
+    if _sharded(hyper) is None:  # shards are read as they are
+        splits.append(("train", _train_sets(hyper)[0][0]))
+    for split, datadir in splits:
         out = os.path.join(pkl_dir, split)
         if os.path.exists(os.path.join(out, "meta.npz")):
             continue
@@ -212,9 +243,12 @@ def stage_pack(expdir, hyper, tok, device="cpu"):
 
 def _with_feat_dim(config, feat_dim):
     """The config with the encoder's `idim` (the port's own argument; the
-    JAX modules infer it) set to the data's feature width."""
+    JAX modules infer it) set to the data's feature width: a JoinAP
+    encoder's head takes it."""
     config = copy.deepcopy(config)
     kw = config["encoder"].setdefault("kwargs", {})
+    if config["encoder"]["type"].startswith("JoinAP"):
+        kw = kw.setdefault("enc_head_kwargs", {})
     kw.setdefault("idim", int(feat_dim))
     return config
 
@@ -229,9 +263,13 @@ def stage_train(expdir, hyper, config, tok, device="cpu"):
     task = tasks.train_module(hyper["train"]["bin"])
     opts = hyper["train"].get("option", {})
     pkl_dir = os.path.join(expdir, "pkl")
+    pattern = _sharded(hyper)
     dv_ds = SpeechDataset(os.path.join(pkl_dir, "dev"))
-    tr_ds = SpeechDataset(os.path.join(pkl_dir, "train"))
-    config = _with_feat_dim(config, tr_ds.feat_dim)
+    # streamed from shards: the feature width comes from dev
+    tr_ds = (SpeechDataset(os.path.join(pkl_dir, "train")) if pattern is None
+             else None)
+    feat_dim = (dv_ds if tr_ds is None else tr_ds).feat_dim
+    config = _with_feat_dim(config, feat_dim)
 
     model = task.build_model(config, num_classes=tok.vocab_size,
                              device=device)
@@ -242,14 +280,15 @@ def stage_train(expdir, hyper, config, tok, device="cpu"):
                                opts.get("grad_accum_fold", 1)))
     grad_clip = float(trainer_cfg.get("grad_clip", 5.0))
     state = task.init_state(model, opt)
-    den = build_den(expdir, hyper, tok, tr_ds) if loss_type == "crf" \
-        else None
+    den = (build_den(expdir, hyper, tok, tr_ds, shard_pattern=pattern)
+           if loss_type == "crf" else None)
     specaug_cfg = config.get("specaug")
 
     loader_kw = dict(frame_budget=opts.get("frame_budget", 20000),
                      num_buckets=opts.get("num_buckets", 4))
-    train_loader = BucketedLoader(tr_ds, seed=opts.get("seed", 0),
-                                  **loader_kw)
+    train_loader = (BucketedLoader(tr_ds, seed=opts.get("seed", 0),
+                                   **loader_kw) if pattern is None
+                    else shard_loader(hyper, feat_dim))
     eval_loader = BucketedLoader(dv_ds, shuffle=False, **loader_kw)
 
     if _is_rnnt(hyper):
@@ -282,6 +321,24 @@ def stage_train(expdir, hyper, config, tok, device="cpu"):
         mgr.resume(opts["resume"])
     mgr.run()
     return mgr
+
+
+def shard_loader(hyper, feat_dim):
+    """The train loader of a sharded train set: a `StreamingBucketLoader`
+    over train.option.sharded_data with the options shuffle_buffer
+    (1024), seed (0), frame_budget (20000), buckets (400, 800, 1200, 1700)
+    and label_caps, on one card (multiple_of 1)."""
+    from cat_tpu_torch.utils.data_sharded import (ShardedSpeechDataset,
+                                                  StreamingBucketLoader)
+
+    opts = hyper["train"].get("option", {})
+    return StreamingBucketLoader(
+        ShardedSpeechDataset(_sharded(hyper),
+                             shuffle_buffer=opts.get("shuffle_buffer", 1024),
+                             seed=opts.get("seed", 0)),
+        frame_budget=opts.get("frame_budget", 20000),
+        buckets=tuple(opts.get("buckets", (400, 800, 1200, 1700))),
+        label_caps=opts.get("label_caps"), feat_dim=feat_dim)
 
 
 def ctc_log_probs(model, feats, flens):
@@ -408,12 +465,28 @@ def _den_from_path(path, tok):
     return DenseDen.load(path)
 
 
-def build_den(expdir, hyper, tok, tr_ds):
+def _shard_label_seqs(pattern):
+    """Each utterance's label ids, shard by shard in file order, reading
+    only the label arrays of the shards."""
+    from cat_tpu_torch.utils.data_sharded import expand_shards
+
+    shards = expand_shards(pattern)
+    if not shards:
+        raise FileNotFoundError(pattern)
+    for sh in shards:
+        with np.load(sh) as z:
+            labels, loffs = z["labels"], z["label_offsets"]
+        for i in range(len(loffs) - 1):
+            yield [int(x) for x in labels[loffs[i]:loffs[i + 1]]]
+
+
+def build_den(expdir, hyper, tok, tr_ds, shard_pattern=None):
     """The CTC-CRF denominator LM: the cached expdir/den_dense.npz, else
     hyper["den_lm"]["path"], else an n-gram of hyper["den_lm"]["order"]
-    (3) estimated from the packed train labels and cached. The dense
-    tables take orders up to 3 and up to 128 units; the arc-table
-    denominator beyond them is not ported (§A.6)."""
+    (3) estimated from the packed train labels, or from a label-only pass
+    over the shards of `shard_pattern` when the train set streams, and
+    cached. The dense tables take orders up to 3 and up to 128 units; the
+    arc-table denominator beyond them is not ported (§A.6)."""
     from cat_tpu_torch.fst.ngram import train_ngram
     from cat_tpu_torch.ops.crf_dense import DenseDen
 
@@ -427,8 +500,16 @@ def build_den(expdir, hyper, tok, tr_ds):
         return DenseDen.load(dense_path)
     if den_cfg.get("path"):
         return _den_from_path(den_cfg["path"], tok)
-    lm = train_ngram([[int(x) for x in tr_ds[i][1]]
-                      for i in range(len(tr_ds))], order=order)
+    if tr_ds is not None:
+        seqs = [[int(x) for x in tr_ds[i][1]] for i in range(len(tr_ds))]
+    elif shard_pattern is not None:
+        seqs = list(_shard_label_seqs(shard_pattern))
+    else:
+        raise ValueError(
+            "CTC-CRF needs a denominator LM: give hyper den_lm.path, a "
+            "cached den_dense.npz under the expdir, or a packed or sharded "
+            "train set to estimate one from")
+    lm = train_ngram(seqs, order=order)
     den = DenseDen.from_ngram(lm, num_classes=tok.vocab_size)
     den.save(dense_path)
     return den
@@ -596,7 +677,7 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
     JAX."""
     from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
 
-    check_decode(hyper)
+    check_decode(hyper, config)
     task = tasks.train_module(hyper["train"]["bin"])
     inf = hyper.get("inference", {})
     test_split = inf.get("split", "dev")
@@ -719,7 +800,7 @@ def main(argv=None):
     if args.start_stage <= 3 <= args.stop_stage:
         check_train(hyper, config)
     if args.start_stage <= 4 <= args.stop_stage:
-        check_decode(hyper)
+        check_decode(hyper, config)
 
     toks = load_tokenizers(args.expdir, hyper)
     tok = toks.get("tokenizer")

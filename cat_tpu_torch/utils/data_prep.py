@@ -1,5 +1,5 @@
 """Offline data preparation: a manifest -> fbank + CMVN (+ speed
-perturbation) -> the packed format (counterpart of
+perturbation) -> the packed format or npz shards (counterpart of
 `cat_tpu/utils/data_prep.py`).
 
 Manifest layout (what every egs/<dataset>/local/prepare.py writes):
@@ -9,16 +9,18 @@ Manifest layout (what every egs/<dataset>/local/prepare.py writes):
 
 Usage:
     python -m cat_tpu_torch.utils.data_prep <datadir> <out> \\
-        --tokenizer exp/tokenizer.tknz [--num-mel-bins 80] \\
-        [--speed-perturb 0.9 1.1] [--device cuda|cpu]
+        --tokenizer exp/tokenizer.tknz [--format packed|shards] \\
+        [--shard-size 500] [--num-mel-bins 80] [--speed-perturb 0.9 1.1] \\
+        [--device cuda|cpu]
 
 The features are `ops/fbank.py`'s, computed on the card unless
 `--device cpu` is given; the output is the packed format of
-`utils/data.py` that both packages read. Speed-perturbed copies get the
-uid prefix `sp{factor}-` and are meant for training sets only. The npz
-shards of streaming training (`--format shards`, ROADMAP.md §A.7) and
-the raw multichannel waves of ME2E prep (`--channels`, §A.8) are not
-ported yet and raise.
+`utils/data.py`, or with `--format shards` the npz shards of streaming
+training (`utils/data_sharded.py`, `--shard-size` utterances a shard),
+both read by either package. Speed-perturbed copies get the uid prefix
+`sp{factor}-` and are meant for training sets only. The raw multichannel
+waves of ME2E prep (`--channels`, ROADMAP.md §A.8) are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -109,10 +111,8 @@ def features_iter(entries, num_mel_bins=80, speed_perturb=(),
 
 def check_format(fmt="packed", channels=0):
     """Raise for the outputs not ported yet."""
-    if fmt != "packed":
-        raise NotImplementedError("npz shards (--format shards, "
-                                  "utils/data_sharded.py) are not ported to "
-                                  "cat_tpu_torch yet; see ROADMAP.md §A.7")
+    if fmt not in ("packed", "shards"):
+        raise ValueError(f"unknown format {fmt!r}")
     if channels > 0:
         raise NotImplementedError("raw multichannel prep (--channels, the "
                                   "ME2E front end) is not ported to "
@@ -120,16 +120,24 @@ def check_format(fmt="packed", channels=0):
 
 
 def prepare(datadir, out, tokenizer, fmt="packed", num_mel_bins=80,
-            speed_perturb=(), channels=0, device=None):
+            speed_perturb=(), shard_size=500, channels=0, device=None):
+    """Write `out` as packed data or npz shards; returns the number of
+    shards (1 for packed data)."""
     check_format(fmt, channels)
     device = check_device(device)
     entries = read_manifest(datadir)
     if not entries:
         raise FileNotFoundError(f"no utterances under {datadir}")
+    it = features_iter(entries, num_mel_bins, speed_perturb, device)
+    if fmt == "shards":
+        from cat_tpu_torch.utils.data_sharded import write_shards
+
+        n = write_shards(out, it, tokenizer, shard_size=shard_size)
+        print(f"{out}: {n} shards")
+        return n
     from cat_tpu_torch.utils.data import pack_speech_data
 
-    pack_speech_data(out, features_iter(entries, num_mel_bins,
-                                        speed_perturb, device), tokenizer)
+    pack_speech_data(out, it, tokenizer)
     print(f"{out}: packed")
     return 1
 
@@ -138,7 +146,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(
         "cat_tpu_torch.utils.data_prep",
         description="manifest dir (wav.scp/text[/segments]) -> fbank+CMVN "
-                    "-> packed data")
+                    "-> packed data or npz shards")
     p.add_argument("datadir")
     p.add_argument("out")
     p.add_argument("--tokenizer", required=True,
@@ -148,6 +156,8 @@ def main(argv=None):
     p.add_argument("--num-mel-bins", type=int, default=80)
     p.add_argument("--speed-perturb", type=float, nargs="*", default=[],
                    help="e.g. 0.9 1.1 (train sets only)")
+    p.add_argument("--shard-size", type=int, default=500,
+                   help="utterances a shard (--format shards)")
     p.add_argument("--channels", type=int, default=0,
                    help=">0: raw multichannel waves (not ported)")
     p.add_argument("--device", default="cuda",
@@ -158,8 +168,8 @@ def main(argv=None):
 
     prepare(a.datadir, a.out, tknz.load(a.tokenizer), fmt=a.format,
             num_mel_bins=a.num_mel_bins,
-            speed_perturb=tuple(a.speed_perturb), channels=a.channels,
-            device=a.device)
+            speed_perturb=tuple(a.speed_perturb), shard_size=a.shard_size,
+            channels=a.channels, device=a.device)
 
 
 if __name__ == "__main__":

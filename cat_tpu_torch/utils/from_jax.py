@@ -1,5 +1,5 @@
-"""Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s or
-`TransducerModel`'s variables (nested dicts of numpy arrays, as in its
+"""Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s,
+`TDNN_NAS`'s, JoinAP encoder's or `TransducerModel`'s variables (nested dicts of numpy arrays, as in its
 checkpoints) to the port's state_dict (`model_state_dict` picks the
 converter by the port's model class).
 
@@ -9,6 +9,7 @@ Layouts handled:
 - the subsampling is `Conv2dSubsampling_0`, or
   `CheckpointConv2dSubsampling_0` under `remat`;
 - conv kernels HWIO -> OIHW; the depthwise kernel (k, 1, D) -> (D, 1, k);
+  a TDNN layer's (k, in, out) -> (out, in, k);
 - DenseGeneral kernels (D, H, Dh) and (H, Dh, D), and the projection's
   (F', C, D), flatten to (in, out) matrices in the same element order.
 """
@@ -161,14 +162,49 @@ def lstm_encoder_state_dict(params, bidirectional=True):
     return sd
 
 
+def tdnn_state_dict(params):
+    """The port's `TDNN_NAS` state_dict from a `cat_tpu` TDNN_NAS's
+    `params`: the layers `tdnn_{i}/Conv_0`, then the classifier."""
+    sd = {}
+    idx = sorted(int(m.group(1)) for k in params
+                 if (m := re.fullmatch(r"tdnn_(\d+)", k)))
+    for i in idx:
+        conv = params[f"tdnn_{i}"]["Conv_0"]
+        k = np.asarray(conv["kernel"])                  # (k, in, out)
+        sd[f"layers.{i}.conv.weight"] = _t(np.transpose(k, (2, 1, 0)))
+        sd[f"layers.{i}.conv.bias"] = _t(conv["bias"])
+    if "classifier" in params:
+        _dense(sd, "classifier.", params["classifier"])
+    return sd
+
+
+def joinap_state_dict(encoder, params, batch_stats):
+    """The port's JoinAP encoder's state_dict from a `cat_tpu`
+    JoinAPLinearEncoder's or JoinAPNonLinearEncoder's variables: the
+    `enc_head` subtree through the converter of the port's head, then `A`,
+    or `A1` and `A2`. P is no parameter in either package."""
+    head = encoder_state_dict(encoder.enc_head, params["enc_head"],
+                              (batch_stats or {}).get("enc_head", {}))
+    sd = {"enc_head." + k: v for k, v in head.items()}
+    for name in ("A", "A1", "A2"):
+        if name in params:
+            _dense(sd, name + ".", params[name])
+    return sd
+
+
 def encoder_state_dict(encoder, params, batch_stats):
-    """The state_dict of the port's `encoder` (a `ConformerNet` or an
-    `LSTM`) from the JAX encoder's `params` and `batch_stats` trees."""
+    """The state_dict of the port's `encoder` (a `ConformerNet`, an
+    `LSTM`, a `TDNN_NAS` or a JoinAP encoder) from the JAX encoder's
+    `params` and `batch_stats` trees."""
     name = type(encoder).__name__
     if name == "ConformerNet":
         return conformer_state_dict(params, batch_stats)
     if name == "LSTM":
         return lstm_encoder_state_dict(params, encoder.bidirectional)
+    if name == "TDNN_NAS":
+        return tdnn_state_dict(params)
+    if name in ("JoinAPLinearEncoder", "JoinAPNonLinearEncoder"):
+        return joinap_state_dict(encoder, params, batch_stats)
     raise NotImplementedError(f"no converter of JAX weights for {name}")
 
 

@@ -87,6 +87,24 @@ Phases, any failure exits non-zero:
    Manager steps (1 CTC alpha and 1 beta a step) until a fixed stop.
    Step ms (CUDA events) and host wall, the Manager's data_s and step_s,
    collate ms a batch and the phase's seconds are printed;
+6c. encoders: the recipes' encoders at full width, random weights, each
+   train step (CTC-CRF over the 3-gram of phase 2, the recipe's lambda,
+   SpecAugment and scheduler) against its plain versions as in phase 4:
+   egs/iumien/exp/crf-joinap (`JoinAPLinearEncoder` over a 14-cell, d =
+   512, 8-head, conv kernel 15, dropout 0.1 bf16 conformer; P a seeded
+   (72, 51) matrix, so V = 72; its logits in float32), launches pinned
+   (JOINAP_STEP: 14 cells' encoder kernels, 2 dropout, the loss kernels
+   once each), then 2 warm-up and 5 timed steps on the training batch;
+   `JoinAPNonLinearEncoder` (ap_hdim 512) on the same head, its eval
+   forward (JOINAP_SERVE launches) against the plain forward (the head's
+   output within LOGIT_TOL, A·P bit for bit, the logits' difference
+   printed) and one step; the JoinAP steps' per-tensor cosines judged by
+   the float32 step where the two bf16 steps disagree (`steps_agree`
+   judge_float32: the random JoinAP logits reach ~37, crf-v1's ~3);
+   egs/wsj/exp/crf-tdnn (`TDNN_NAS`, hdim 640, dropout 0.5,
+   float32, the convolutions cuDNN with TF32 off; 7 dropouts both ways
+   and the loss kernels a step, TDNN_STEP; its plain step is the float32
+   step, held within STEP_F32_REL), then timed the same way;
 7. RNN-T kernels: the lattice recursions of `ops/rnnt.py` against their
    plain versions at the rnnt-v1 training batch (the training batch's
    T' = 299..493, labels U = T'//6 ids in 1..1023, V = 1024, tables of
@@ -143,7 +161,23 @@ Phases, any failure exits non-zero:
    4, and the RTF. (B) egs/template/exp/asr-ctc as its files stand on
    yes/no tones (64 train, 20 dev, seed 0) until its run ends: at most 2
    word errors on the dev set, 1 CTC alpha and 1 beta a step;
-11b. wfst: on (A)'s trained expdir, stage 4 with
+11a. sharded: (A)'s corpus as npz shards of 32 utterances (6 shards),
+   written by `python -m cat_tpu_torch.utils.data_prep --format shards`
+   in-process with the fbank on the card, the train text beside them, and
+   egs/wenetspeech/exp/crf-wds (17 cells, d = 512, bf16, CTC-CRF) through
+   stages 1-3 from them with its loader options (shuffle buffer 4000,
+   frame budget 40,960, seed 0, the default buckets): only dev packed;
+   den_dense.npz of the label-only pass over the shards within 1e-6 of
+   (A)'s; epoch 1 alike bit for bit over two iterations, each utterance
+   at most once, exactly those of at most 1700 frames with frames // 4 >
+   labels, in the Manager's order; `PER_STEP` a micro-step and `EVAL` an
+   eval batch, none skipped; dropped utterances, cut labels, data_s
+   against step_s. Then egs/wenetspeech/exp/rnnt-wds (12 cells, d = 512,
+   JointNet) on shards written with a BPE of the train text (V printed)
+   through stage 3: RNNT_WDS_STEP a step, checkpoints written. Cuts: fold
+   16 -> 2, max_epochs 3 -> 1, check_freq 5000 -> at most 3 rounds, the
+   BPE's V;
+11b. wfst: on 11a's trained crf-wds expdir, stage 4 with
    egs/wenetspeech/exp/crf-wds's decode block (mode "wfst": a word
    3-gram TLG over the train transcripts, built and cached as tlg.npz;
    beam 17, max_active 7000), cut from n-best 8 to 1 over the 32 dev
@@ -157,7 +191,7 @@ Phases, any failure exits non-zero:
    0.3, beam 17, n-best 8) and decode.rescore (a word 3-gram, alpha 0.2,
    beta 0.5): its files, the rescored hypotheses, the fused beam alike
    bit for bit over two runs and, at alpha = beta = 0, equal to the
-   unfused host beam. The crf-v1 denominator's 3-gram written to ARPA
+   unfused host beam. The expdir's denominator 3-gram written to ARPA
    and read back through `den_lm.path` into a `DenseDen`: the den
    forward kernel's logZ on the training batch within 1e-5 relative of
    the cached den_dense.npz's. TLG build and load seconds, states and
@@ -227,9 +261,34 @@ RNNT_V = 1024  # rnnt-v1's unigram vocabulary (hyper-p.json)
 # at or below LOG_EPS / 2 are zeros
 STATE_ATOL, STATE_RTOL, LL_RTOL, GRAD_TOL = 1e-3, 2e-6, 1e-5, 1e-3
 # biases whose exact gradient is 0, so both steps hold rounding noise
-# there: the depthwise conv bias (re-centred by batch normalisation) and
-# the key bias (the softmax cancels a score shared by every key)
-NOISE_GRADS = ("conv.depthwise.bias", "mhsa.k.bias")
+# there: the depthwise conv bias (re-centred by batch normalisation), the
+# key bias (the softmax cancels a score shared by every key) and the
+# JoinAP layers' last bias (A·P's bias adds h·b to every class's logit,
+# which the log-softmax cancels)
+NOISE_GRADS = ("conv.depthwise.bias", "mhsa.k.bias", "A.bias", "A2.bias")
+# a float32 model's kernel train step (the dropout and the loss kernels)
+# against its plain step, which is the float32 step: relative distance of
+# the gradient and of the logits (the loss kernels' gradient rows agree
+# within 1e-3 + 1e-3·|plain| elementwise)
+STEP_F32_REL = 1e-3
+# output length of T input frames, and receptive field (window, stride,
+# left pad) of an output frame: the conv2d subsampling, TDNN_NAS
+CONV2D_FIELD = (lambda T: subsampled(T), 7, 4, 0)
+TDNN_FIELD = (lambda T: (T + 1) // 2, 39, 2, 19)
+JOINAP_CELLS = 14   # egs/iumien/exp/crf-joinap's head: 14 cells, kernel 15
+JOINAP_V = 72       # P drawn (72, 51) as tests/test_recipes.py draws it
+# launches per train step: crf-joinap (the encoder kernels of 14 cells),
+# crf-tdnn (the dropout after each of its 7 layers, both ways, and the
+# loss kernels), a 12-cell rnnt-wds step and eval batch
+JOINAP_STEP = {k: (v // 17 * JOINAP_CELLS if k in KERNELS[:8] else v)
+               for k, v in PER_STEP.items()}
+TDNN_STEP = {k: {"dropout": 14, "ctc_alpha": 1, "ctc_beta": 1, "den_fwd": 1,
+                 "den_bwd": 1}.get(k, 0) for k in KERNELS}
+JOINAP_SERVE = {k: v // 17 * JOINAP_CELLS for k, v in SERVE.items()}
+RNNT_WDS_STEP = {k: (v // 17 * 12 if k in KERNELS[:8] else v)
+                 for k, v in RNNT_STEP.items()}
+RNNT_WDS_EVAL = {k: (v // 17 * 12 if k in KERNELS[:4] else
+                     int(k == "rnnt_alpha")) for k, v in SERVE.items()}
 
 
 def log(*a):
@@ -1211,14 +1270,19 @@ def make_den():
     return DenseDen.from_ngram(train_ngram(seqs, order=3), num_classes=72)
 
 
-def time_masked(masks, frames, Tp):
-    """(N, T') bool on the CPU: the subsampled frames whose whole receptive
-    field (input frames 4t'..4t'+6) lies in a SpecAugment time mask."""
+def time_masked(masks, frames, Tp, field=None):
+    """(N, T') bool on the CPU: the output frames whose whole receptive
+    field lies in a SpecAugment time mask. field = (output length of T
+    frames, window, stride, left pad): output frame t' sees input frames
+    stride·t' - pad .. stride·t' - pad + window - 1 (CONV2D_FIELD: 4t' ..
+    4t' + 6)."""
     import torch
+    import torch.nn.functional as F
+    _, window, stride, pad = field or CONV2D_FIELD
     pos = torch.arange(max(frames))[None, None, :]
     s, w = masks["time_starts"][:, :, None], masks["time_widths"][:, :, None]
-    tm = ((pos >= s) & (pos < s + w)).any(1).float()
-    win = tm.unfold(1, 7, 4).amin(-1) > 0
+    tm = F.pad(((pos >= s) & (pos < s + w)).any(1).float(), (pad, pad))
+    win = tm.unfold(1, window, stride).amin(-1) > 0
     out = torch.zeros(tm.shape[0], Tp, dtype=torch.bool)
     n = min(Tp, win.shape[1])
     out[:, :n] = win[:, :n]
@@ -1227,8 +1291,17 @@ def time_masked(masks, frames, Tp):
 
 def forward32(encoder):
     """The ConformerNet `encoder`'s forward in float32 throughout (its fused
-    ops then take their plain versions in float32)."""
+    ops then take their plain versions in float32); a JoinAP encoder's,
+    its conformer head's."""
     import torch
+    if hasattr(encoder, "enc_head"):
+        head = forward32(encoder.enc_head)
+
+        def joinap(x, lengths, gen=None):
+            h, lengths = head(x, lengths, gen)
+            return h.float() @ encoder.ap().t(), lengths
+
+        return joinap
 
     def forward(x, lengths, gen=None):
         h, lengths = encoder.subsampling(x, lengths, torch.float32)
@@ -1302,13 +1375,23 @@ def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
     return step_once(model, start, make_step, batch, model, patches, f32)
 
 
-def steps_agree(what, run, batch, specaug_cfg, per_step, out_name):
+def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
+                field=None, float32_model=False, judge_float32=False):
     """One train step with the kernels, `run(None, False)`, against the
     same step on every kernel's plain version (the encoder's fused ops,
     the dropout and the losses) in bf16, `run(plain_patches(), False)`,
     and in float32, `run(plain_patches(), True)`, all from the same
     weights and generator (the same SpecAugment masks and dropout seeds);
-    fails unless they meet the gates of STEP_* and STEP_CONTROL."""
+    fails unless they meet the gates of STEP_* and STEP_CONTROL. A model
+    that computes in float32 (`float32_model`) has no bf16 step: its plain
+    step is the float32 step, and the kernel step's distance to it is held
+    to STEP_F32_REL. `field` is the encoder's receptive field
+    (`time_masked`). With `judge_float32`, a tensor whose gradient
+    cosine to the plain bf16 step is below STEP_COS passes only if its
+    cosine to the float32 step is at least STEP_COS and at least the
+    plain bf16 step's: the float32 step judges where the two bf16 steps
+    disagree (the random JoinAP models, whose logits are an order of
+    magnitude larger than crf-v1's)."""
     import torch
     from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops.specaug import draw_masks
@@ -1318,7 +1401,7 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name):
     if counts() != per_step:
         fail(f"{what} train step launch counts {counts()} != {per_step}")
     p = run(plain_patches(), False)
-    r = run(plain_patches(), True)
+    r = p if float32_model else run(plain_patches(), True)
     if counts() != per_step:
         fail("a kernel launched while every kernel wrapper was patched to "
              "its plain version")
@@ -1332,6 +1415,11 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name):
     names = [n for n in k["grads"] if not n.endswith(NOISE_GRADS)]
     cos = {n: cosine(k["grads"][n], p["grads"][n]) for n in names}
     worst = min(cos, key=cos.get)
+    low = {n: (cosine(k["grads"][n], r["grads"][n]),
+               cosine(p["grads"][n], r["grads"][n]))
+           for n in names if cos[n] < STEP_COS}
+    unjudged = [n for n, (ck, cp) in low.items() if not (
+        judge_float32 and ck >= STEP_COS and ck >= cp)]
     flat = lambda d: torch.cat([d["grads"][n].flatten() for n in names])
     gk, gp, gr = flat(k), flat(p), flat(r)
     dist = {"kernels": (gk - gr).norm().item() / gr.norm().item(),
@@ -1341,21 +1429,25 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name):
     # generator) and in the other valid frames
     frames = batch["feat_lengths"].tolist()
     Tp = k["logits"].shape[1]
-    valid = length_mask(torch.tensor([subsampled(f) for f in frames],
+    out_len = (field or CONV2D_FIELD)[0]
+    valid = length_mask(torch.tensor([out_len(f) for f in frames],
                                      device="cuda"), Tp)
     masks = draw_masks(torch.Generator().manual_seed(5),
                        batch["feat_lengths"], 80, **specaug_cfg)
-    tm = time_masked(masks, frames, Tp).to("cuda")
+    tm = time_masked(masks, frames, Tp, field).to("cuda")
     out_dist = {}
     for region, m in (("time-masked", tm & valid), ("other", ~tm & valid)):
+        if not m.any():
+            continue
         ref = r["logits"][m]
         ek, ep = ((d["logits"][m] - ref).norm() / ref.norm() for d in (k, p))
         out_dist[region] = (int(m.sum()), ek.item(), ep.item())
-    stats_rel = max(((k["buffers"][n] - p["buffers"][n]).norm()
-                     / p["buffers"][n].norm()).item() for n in k["buffers"])
+    stats_rel = max((((k["buffers"][n] - p["buffers"][n]).norm()
+                      / p["buffers"][n].norm()).item() for n in k["buffers"]),
+                    default=0.0)
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
     gn_rel = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
-    log(f"[step] {what} train step on the serving batch (dropout 0.1, "
+    log(f"[step] {what} train step on the serving batch (dropout, "
         f"SpecAugment), kernels / plain bf16 / plain float32: loss "
         f"{k['loss']:.6g} / {p['loss']:.6g} / {r['loss']:.6g} (kernels vs "
         f"plain rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); grad norm "
@@ -1363,19 +1455,36 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name):
         f"{r['grad_norm']:.6g} (rel {gn_rel:.3g}, tol {STEP_GNORM_REL}); "
         f"running statistics rel {stats_rel:.3g} (tol {STEP_STATS_REL})")
     log(f"[step] {what} gradient cosine, kernels vs plain bf16, over "
-        f"{len(cos)} tensors: min {cos[worst]:.5f} ({worst}), median "
-        f"{sorted(cos.values())[len(cos) // 2]:.5f} (tol {STEP_COS}; "
+        f"{len(cos)} tensors: min {cos[worst]:.5f} ({worst}; against the "
+        f"float32 step: kernels {cosine(k['grads'][worst], r['grads'][worst]):.5f}"
+        f", plain {cosine(p['grads'][worst], r['grads'][worst]):.5f}), "
+        f"median {sorted(cos.values())[len(cos) // 2]:.5f} (tol {STEP_COS}; "
         f"exact-zero bias gradients not gated)")
+    if low:
+        log(f"[step] {what} {len(low)} tensors below {STEP_COS} against "
+            f"plain bf16; their cosines to the float32 step, kernels / "
+            f"plain bf16: " + ", ".join(
+                f"{n} {ck:.5f} / {cp:.5f}" for n, (ck, cp) in low.items())
+            + (f" (judged by the float32 step: each kernel cosine at least "
+               f"{STEP_COS} and at least the plain one's)" if judge_float32
+               else ""))
     log(f"[step] {what} distance to the float32 step: gradient kernels "
         f"{dist['kernels']:.4g}, plain bf16 {dist['plain']:.4g}; {out_name} "
         + "; ".join(f"{reg} frames ({n}) kernels {ek:.4g}, plain {ep:.4g}"
                     for reg, (n, ek, ep) in out_dist.items())
-        + f" (kernels within {STEP_CONTROL}x plain)")
+        + (f" (kernels within {STEP_F32_REL}: the model is float32, its "
+           f"plain step the float32 step)" if float32_model
+           else f" (kernels within {STEP_CONTROL}x plain)"))
     if loss_rel > STEP_LOSS_REL or gn_rel > STEP_GNORM_REL \
-            or stats_rel > STEP_STATS_REL or cos[worst] < STEP_COS:
+            or stats_rel > STEP_STATS_REL or unjudged:
         fail(f"the {what} kernel train step does not agree with the plain "
              "one")
-    if dist["kernels"] > STEP_CONTROL * dist["plain"] or any(
+    if float32_model:
+        if dist["kernels"] > STEP_F32_REL or any(
+                ek > STEP_F32_REL for _, ek, _ in out_dist.values()):
+            fail(f"the {what} kernel train step is farther than "
+                 f"{STEP_F32_REL} from the float32 step")
+    elif dist["kernels"] > STEP_CONTROL * dist["plain"] or any(
             ek > STEP_CONTROL * ep for _, ek, ep in out_dist.values()):
         fail(f"the {what} kernel train step is farther from the float32 step "
              f"than {STEP_CONTROL}x the plain bf16 step")
@@ -1436,6 +1545,56 @@ def phase_fold(cfg, den):
     torch.cuda.empty_cache()
 
 
+def time_train_steps(tag, what, step, state, sched, batch, gen, per_step):
+    """2 warm-up and 5 timed train steps of `step` on `batch`: each step's
+    launches must equal `per_step`, its loss and grad norm be finite and
+    nothing be skipped. Returns (state, the launches of the 7 steps, the
+    CUDA-event ms and host wall ms of each timed step, peak GiB)."""
+    import torch
+    reset_counts()
+    events, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(7):
+        sched.update_lr_step(state.step + 1)
+        before = counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        state, m = step(state, batch, sched.lr, gen)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ms = start.elapsed_time(end)
+        per = {k: v - before[k] for k, v in counts().items()}
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        log(f"[{tag}] {what}step {i + 1} "
+            f"({'warm-up' if i < 2 else 'timed'}): loss {loss:.5g}, grad "
+            f"norm {gn:.5g}, skipped {m['skipped']}, {ms:.1f} ms (CUDA "
+            f"events), {wall * 1e3:.1f} ms host wall")
+        if per != per_step:
+            fail(f"{what}train step launch counts {per} != {per_step}")
+        if m["skipped"] or not (torch.isfinite(m["loss"])
+                                and torch.isfinite(m["grad_norm"])):
+            fail(f"{what}train step {i + 1}: non-finite loss or grad norm")
+        if i >= 2:
+            events.append(ms)
+            walls.append(wall)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return state, counts(), events, [1e3 * w for w in walls], peak
+
+
+def steps_line(events, walls, audio_s, peak):
+    """The summary of `time_train_steps`' timed steps."""
+    mean_ms = sum(events) / len(events)
+    return (f"{len(events)} timed steps: {mean_ms:.1f} ms per step (CUDA "
+            f"events; {min(events):.1f}..{max(events):.1f}), host wall "
+            f"{sum(walls) / len(walls):.1f} ms; "
+            f"{audio_s / (mean_ms / 1e3):.1f} audio-s/s trained; peak memory "
+            f"{peak:.2f} GiB")
+
+
 def phase_training(cfg, den, profile):
     """The main path: train steps of the full crf-v1 model."""
     import torch
@@ -1460,43 +1619,10 @@ def phase_training(cfg, den, profile):
         f"{batch['label_lengths'].max().item()}")
     state = init_state(model, opt)
     gen = torch.Generator().manual_seed(7)
-    reset_counts()
-    events, walls = [], []
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(7):
-        sched.update_lr_step(state.step + 1)
-        before = counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        start.record()
-        state, m = step(state, batch, sched.lr, gen)
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        ms = start.elapsed_time(end)
-        per = {k: v - before[k] for k, v in counts().items()}
-        loss, gn = m["loss"].item(), m["grad_norm"].item()
-        log(f"[train] step {i + 1} ({'warm-up' if i < 2 else 'timed'}): "
-            f"loss {loss:.5g}, grad norm {gn:.5g}, skipped {m['skipped']}, "
-            f"{ms:.1f} ms (CUDA events), {wall * 1e3:.1f} ms host wall")
-        if per != PER_STEP:
-            fail(f"train step launch counts {per} != {PER_STEP}")
-        if m["skipped"] or not (torch.isfinite(m["loss"])
-                                and torch.isfinite(m["grad_norm"])):
-            fail(f"train step {i + 1}: non-finite loss or grad norm")
-        if i >= 2:
-            events.append(ms)
-            walls.append(wall)
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    mean_ms = sum(events) / len(events)
-    log(f"[train] {len(events)} timed steps: {mean_ms:.1f} ms per step "
-        f"(CUDA events; {min(events):.1f}..{max(events):.1f}), host wall "
-        f"{1e3 * sum(walls) / len(walls):.1f} ms; "
-        f"{audio_s / (mean_ms / 1e3):.1f} audio-s/s trained; peak memory "
-        f"{peak:.2f} GiB; launches per step {PER_STEP}")
+    state, launches, events, walls, peak = time_train_steps(
+        "train", "", step, state, sched, batch, gen, PER_STEP)
+    log(f"[train] {steps_line(events, walls, audio_s, peak)}; launches per "
+        f"step {PER_STEP}")
 
     # the split of one step: encoder forward, loss forward, loss backward
     # (to the log-probs), encoder backward
@@ -1935,6 +2061,152 @@ def phase_manager_lstm(root):
         f"launches a step {dict((k, v) for k, v in step.items() if v)}, an "
         f"eval batch {dict((k, v) for k, v in ev.items() if v)}; stopped at "
         f"step 3 by SchedulerFixedStop ({len(probe.evals)} eval batches)")
+
+
+def recipe_config(name, **kwargs):
+    """egs/<name>/config.json with `kwargs` set in its encoder's kwargs."""
+    with open(os.path.join(REPO, "egs", name, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["encoder"]["kwargs"].update(kwargs)
+    return cfg
+
+
+def write_phono_vec(path):
+    """A seeded (JOINAP_V, 51) float32 P, drawn as tests/test_recipes.py
+    draws it (the recipes' phono_vec.npy is corpus data, not in the repo)."""
+    import numpy as np
+    np.save(path, np.random.default_rng(0).standard_normal(
+        (JOINAP_V, 51)).astype(np.float32))
+    return path
+
+
+def encoder_timing(tag, cfg, den, per_step):
+    """`time_train_steps` of the recipe model of `cfg` (seed 0, not
+    perturbed) with CTC-CRF over `den` on the training batch; logs the
+    summary."""
+    import torch
+    from cat_tpu_torch.ctc.train import (build_model, init_state,
+                                         make_train_step)
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+    model = build_model(cfg, num_classes=JOINAP_V, device="cuda", seed=0)
+    sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+    tr = cfg["trainer"]
+    step = make_train_step(model, opt, tr["loss"], den, tr["lamb"],
+                           cfg["specaug"], grad_clip=5.0)
+    batch = make_batch(TRAIN_FRAMES, seed=6)
+    _, _, events, walls, peak = time_train_steps(
+        "encoders", tag + " ", step, init_state(model, opt), sched, batch,
+        torch.Generator().manual_seed(7), per_step)
+    log(f"[encoders] {tag} on the training batch ({len(TRAIN_FRAMES)} "
+        f"utterances, {sum(TRAIN_FRAMES)} frames): "
+        f"{steps_line(events, walls, sum(TRAIN_FRAMES) * 0.01, peak)}; "
+        f"launches per step {per_step}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
+def eval_vs_plain(what, model, feats, lengths):
+    """The eval forward of `model`, a JoinAP encoder over the crf-joinap
+    head (JOINAP_SERVE launches: the four encoder forward kernels of each
+    cell), against the same forward on the plain versions. The kernels
+    compute the head's output h, which is gated within LOGIT_TOL (the
+    serving gate); the logits are h @ (A·P)ᵀ with A·P the same float32
+    product in both forwards (checked bit for bit), so their difference is
+    h's scaled by A·P, whose logits are an order of magnitude larger than
+    a conformer classifier's at this random init (P and A drawn as the JAX
+    package draws them): it is printed."""
+    import torch
+    model.eval()
+    heads = []
+    hook = model.enc_head.register_forward_hook(
+        lambda m, i, out: heads.append(out[0].float()))
+    try:
+        reset_counts()
+        with torch.inference_mode():
+            logits, olen = model(feats, lengths)
+            ap = model.ap()
+            torch.cuda.synchronize()
+            if counts() != JOINAP_SERVE:
+                fail(f"{what}: eval forward launches {counts()} != "
+                     f"{JOINAP_SERVE}")
+            plain, plain_len = patched(plain_patches(),
+                                       lambda: model(feats, lengths))
+            plain_ap = patched(plain_patches(), model.ap)
+    finally:
+        hook.remove()
+    valid = torch.arange(logits.shape[1], device="cuda")[None, :] \
+        < olen[:, None]
+    h_diff = (heads[0] - heads[1]).abs()[valid].max().item()
+    diff = (logits - plain).abs()[valid].max().item()
+    scale = plain.abs()[valid].max().item()
+    log(f"[encoders] {what} eval forward vs plain forward: head output "
+        f"max abs diff {h_diff:.4g} (tol {LOGIT_TOL}; max |h| "
+        f"{heads[1].abs()[valid].max().item():.3g}); A·P alike bit for bit; "
+        f"logits max abs diff {diff:.4g} ({diff / scale:.3%} of max |logit| "
+        f"{scale:.3g}), {tuple(logits.shape)} {logits.dtype}")
+    if not (torch.equal(olen, plain_len) and torch.equal(ap, plain_ap)
+            and logits.dtype == torch.float32 and torch.isfinite(logits).all()
+            and h_diff <= LOGIT_TOL):
+        fail(f"{what}: eval forward differs from the plain forward (head "
+             f"output by {h_diff})")
+
+
+def phase_encoders(den, card):
+    """[encoders] The recipes' encoders at full width, each train step
+    against its plain versions (`steps_agree`; CTC-CRF over `den`, the
+    recipe's lambda, SpecAugment and scheduler): crf-joinap
+    (egs/iumien/exp/crf-joinap: `JoinAPLinearEncoder` over a 14-cell, d =
+    512, kernel-15 bf16 conformer, V = 72), then timed on the training
+    batch; `JoinAPNonLinearEncoder` (ap_hdim 512) on the same head, its
+    eval forward against the plain forward and one step; crf-tdnn
+    (egs/wsj/exp/crf-tdnn: `TDNN_NAS`, hdim 640, dropout 0.5, float32),
+    then timed. P is written under build/ and removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from cat_tpu_torch.ctc.train import build_model
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="encoders-",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        pv = write_phono_vec(os.path.join(root, "phono_vec.npy"))
+        batch = make_batch(FRAMES, seed=3)
+        joinap = recipe_config("iumien/exp/crf-joinap", pv_path=pv)
+        nonlinear = recipe_config("iumien/exp/crf-joinap", pv_path=pv,
+                                  ap_hdim=512)
+        nonlinear["encoder"]["type"] = "JoinAPNonLinearEncoder"
+        tdnn = recipe_config("wsj/exp/crf-tdnn")
+        for name, cfg, per_step, field in (
+                ("crf-joinap", joinap, JOINAP_STEP, None),
+                ("JoinAPNonLinearEncoder", nonlinear, JOINAP_STEP, None),
+                ("crf-tdnn", tdnn, TDNN_STEP, TDNN_FIELD)):
+            t = time.perf_counter()
+            model = build_model(cfg, num_classes=JOINAP_V, device="cuda",
+                                seed=0)
+            perturb(model, torch.Generator().manual_seed(1))
+            kw = cfg["encoder"]["kwargs"]
+            log(f"[encoders] {name}: {cfg['encoder']['type']} "
+                f"{ {k: v for k, v in kw.items() if k != 'pv_path'} }, "
+                f"V={JOINAP_V}: "
+                f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+                f"params, built in {time.perf_counter() - t:.1f} s")
+            if name == "JoinAPNonLinearEncoder":
+                eval_vs_plain(name, model, batch["feats"],
+                              batch["feat_lengths"])
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+            steps_agree(name, lambda patches, f32: train_step_once(
+                model, start, cfg, den, batch, patches, f32), batch,
+                cfg["specaug"], per_step, "logits", field,
+                float32_model=field is TDNN_FIELD,
+                judge_float32=field is None)
+            del model, start
+            torch.cuda.empty_cache()
+            if name != "JoinAPNonLinearEncoder":
+                encoder_timing(name, cfg, den, per_step)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[encoders] phase {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def rnnt_edge_tables(gen, U1, T, N, V=9):
@@ -2554,13 +2826,16 @@ def run_pipeline(expdir, watch, extra=None, args=()):
     return probes, counts()
 
 
-def check_outputs(expdir, n_dev, what, split="dev"):
-    """The four stages' files, one hypothesis and one n-best entry per
-    utterance of the decoded split, every number of wer_<split>.json
-    finite; returns the WER record."""
+def check_outputs(expdir, n_dev, what, split="dev", train_packed=True):
+    """The four stages' files (pkl/train unless the train set streams from
+    shards), one hypothesis and one n-best entry per utterance of the
+    decoded split, every number of wer_<split>.json finite; returns the
+    WER record."""
     from cat_tpu_torch.utils.nbest import read_nbest
-    for name in ("tokenizer.tknz", "pkl/train/meta.npz",
-                 f"pkl/{split}/meta.npz", "check/checkpoint.list", "check/metrics.jsonl", "readme.md",
+    for name in ("tokenizer.tknz",
+                 *(("pkl/train/meta.npz",) if train_packed else ()),
+                 f"pkl/{split}/meta.npz", "check/checkpoint.list",
+                 "check/metrics.jsonl", "readme.md",
                  f"decode_{split}.txt", f"nbest_{split}.pkl",
                  f"wer_{split}.json"):
         if not os.path.exists(os.path.join(expdir, name)):
@@ -2594,8 +2869,9 @@ def phase_pipeline(card):
     """[pipeline] `python -m cat_tpu_torch.pipeline.asr` in-process on
     synthesized data in a temporary directory under build/, removed at the
     end: crf-v1's recipe at full width through its four stages, then the
-    asr-ctc toy recipe to the end of its training, then [wfst] on the
-    crf-v1 expdir (the phase's seconds include it)."""
+    asr-ctc toy recipe to the end of its training, then [sharded] (crf-wds
+    and rnnt-wds from shards of crf-v1's corpus), then [wfst] on the
+    crf-wds expdir (the phase's seconds include both)."""
     import shutil
     import tempfile
     t_phase = time.perf_counter()
@@ -2605,8 +2881,9 @@ def phase_pipeline(card):
     try:
         pipeline_crf_v1(os.path.join(root, "crf-v1"), card)
         pipeline_toy(os.path.join(root, "asr-ctc"), card)
+        pipeline_sharded(root, card)
         t = time.perf_counter()
-        pipeline_wfst(os.path.join(root, "crf-v1"), card)
+        pipeline_wfst(os.path.join(root, "crf-wds"), card)
         log(f"[wfst] phase {time.perf_counter() - t:.1f} s ({card})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2827,15 +3104,203 @@ def pipeline_toy(root, card):
              f"(at most {TOY_MAX_ERRORS})")
 
 
+SHARD_SIZE = 32     # 192 train utterances -> 6 shards (the shard shuffle)
+WDS_FOLD = 2        # crf-wds trains at grad_accum_fold 16: cut to 2
+WDS_ROUNDS = 3      # checkpoint rounds at most (check_freq 5000 cut)
+
+
+def write_recipe_shards(data, shard_dir, expdir):
+    """`python -m cat_tpu_torch.utils.data_prep --format shards` (in this
+    process; the features on the card) of data/train into shard_dir, with
+    the expdir's tokenizer, SHARD_SIZE utterances a shard; returns its
+    seconds and the shard count."""
+    import torch
+    from cat_tpu_torch.utils import data_prep
+    from cat_tpu_torch.utils.data_sharded import expand_shards
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    data_prep.main([os.path.join(data, "train"), shard_dir, "--tokenizer",
+                    os.path.join(expdir, "tokenizer.tknz"), "--format",
+                    "shards", "--shard-size", str(SHARD_SIZE)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t,
+            len(expand_shards(os.path.join(shard_dir, "shard-*.npz"))))
+
+
+def sharded_recipe(name, root, data, edit):
+    """The recipe egs/<name> in root/exp with its train set streamed from
+    shards in root/shards (`recipe`; data.train and sharded_data both that
+    dir, data/train's text beside the shards, where stage 1 and stage 4's
+    graph read it; max_epochs 1), `edit`(hyper, config) applied; stage 1
+    run. Returns (expdir, shard dir, hyper, config)."""
+    import shutil
+    shard_dir = os.path.join(root, "shards")
+    os.makedirs(shard_dir)
+    shutil.copy(os.path.join(data, "train", "text"), shard_dir)
+
+    def edit_all(hyper, config):
+        hyper["data"]["train"] = shard_dir
+        hyper["train"]["option"].update(sharded_data=shard_dir, max_epochs=1)
+        edit(hyper, config)
+
+    expdir = os.path.join(root, "exp")
+    hyper, config = recipe(name, expdir, data, edit_all)
+    run_pipeline(expdir, Stopwatch(), args=["--stop_stage", "1"])
+    return expdir, shard_dir, hyper, config
+
+
+def epoch_one(expdir, hyper):
+    """Epoch 1 of the StreamingBucketLoader the pipeline builds for
+    `hyper` (`asr.shard_loader`), iterated twice: fails unless the two give the same batches
+    bit for bit, or unless it yields each train utterance at most once and
+    exactly those of at most the largest bucket's frames with frames // 4
+    > labels. Sets check_freq so that the epoch makes at most WDS_ROUNDS
+    checkpoint rounds. Returns (uids of its batches, the loader's counts,
+    the number of utterances)."""
+    import numpy as np
+    from cat_tpu_torch.pipeline import asr
+    from cat_tpu_torch.utils.data_sharded import ShardedSpeechDataset
+    first, again = asr.shard_loader(hyper, 80), asr.shard_loader(hyper, 80)
+    a, b = list(first.epoch(1)), list(again.epoch(1))
+    same = len(a) == len(b) and all(
+        x.uids == y.uids and all(np.array_equal(getattr(x, k), getattr(y, k))
+                                 for k in x.asdict()) for x, y in zip(a, b))
+    uids = [u for x in a for u in x.uids]
+    items = list(ShardedSpeechDataset(asr._sharded(hyper),
+                                      shuffle_shards=False).epoch(0))
+    want = {u for u, f, l in items
+            if len(f) <= first.buckets[-1] and len(f) // 4 > len(l)}
+    if not same or len(uids) != len(set(uids)) or set(uids) != want:
+        fail(f"{expdir}: epoch 1 of the shards: two iterations alike "
+             f"{same}; {len(uids)} utterances yielded, {len(set(uids))} "
+             f"distinct, {len(want)} expected")
+    hyper["train"]["option"]["check_freq"] = -(-len(a) // WDS_ROUNDS)
+    with open(os.path.join(expdir, "hyper-p.json"), "w") as f:
+        json.dump(hyper, f, indent=1)
+    return [x.uids for x in a], first.stats, len(items)
+
+
+def check_sharded_run(what, expdir, probes, total, batches, step_want,
+                      eval_want):
+    """The Manager of a sharded stage 3: one, every micro-step `step_want`
+    launches and every eval batch `eval_want`, nothing skipped, the
+    batches of `epoch_one`, the run's launches all accounted for, only dev
+    packed, checkpoints written. Returns (probe, the epoch's metrics)."""
+    if len(probes) != 1:
+        fail(f"{what}: {len(probes)} Managers")
+    pr = probes[0]
+    check_probe(pr, step_want, eval_want, what)
+    want = {k: len(pr.train) * step_want[k] + len(pr.evals) * eval_want[k]
+            for k in KERNELS}
+    if total != want or pr.uids != batches or not pr.saves:
+        fail(f"{what}: launches {total} != {want}; the Manager's batches "
+             f"are epoch 1's: {pr.uids == batches}; {len(pr.saves)} "
+             f"checkpoints")
+    if sorted(os.listdir(os.path.join(expdir, "pkl"))) != ["dev"]:
+        fail(f"{what}: stage 2 packed {os.listdir(os.path.join(expdir, 'pkl'))}")
+    with open(os.path.join(expdir, "check", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    return pr, [m for m in logged if "data_s" in m][-1]
+
+
+def pipeline_sharded(root, card):
+    """[sharded] crf-wds (egs/wenetspeech/exp/crf-wds: 17 x 512 bf16
+    CTC-CRF) and rnnt-wds (12 x 512, JointNet, V of the BPE) through
+    stages 1-3 from npz shards of the phone corpus of `pipeline_crf_v1`
+    (root/crf-v1/data), written by `cat_tpu_torch.utils.data_prep --format
+    shards`, with the recipes' loader options (shuffle_buffer 4000,
+    frame_budget 40,960, seed 0, the default buckets). Cuts: the data and
+    lexicon paths, grad_accum_fold 16 -> 2 (crf-wds), max_epochs 3 -> 1,
+    check_freq 5000 -> at most WDS_ROUNDS rounds, the BPE's vocab_size
+    5538 -> what the corpus gives."""
+    import numpy as np
+    from cat_tpu_torch.utils import tokenizer as tknz
+    data = os.path.join(root, "crf-v1", "data")
+    lexicon = os.path.join(data, "lexicon.txt")
+
+    # crf-wds, stages 1-3
+    def edit(hyper, config):
+        hyper["tokenizer"]["option-init"]["lexicon"] = lexicon
+        config["trainer"]["grad_accum_fold"] = WDS_FOLD
+
+    t = time.perf_counter()
+    expdir, shard_dir, hyper, _ = sharded_recipe(
+        "wenetspeech/exp/crf-wds", os.path.join(root, "crf-wds"), data, edit)
+    write_s, n_shards = write_recipe_shards(data, shard_dir, expdir)
+    batches, stats, n_utts = epoch_one(expdir, hyper)
+    watch = Stopwatch()
+    probes, total = run_pipeline(expdir, watch, args=[
+        "--start_stage", "2", "--stop_stage", "3"])
+    pr, ep = check_sharded_run("crf-wds", expdir, probes, total, batches,
+                               PER_STEP, EVAL)
+    got = np.load(os.path.join(expdir, "den_dense.npz"))
+    want = np.load(os.path.join(root, "crf-v1", "exp", "den_dense.npz"))
+    den_err = max(float(np.abs(got[k] - want[k]).max()) for k in want.files)
+    if sorted(got.files) != sorted(want.files) or den_err > 1e-6:
+        fail(f"crf-wds: the shards' denominator differs from crf-v1's by "
+             f"{den_err}")
+    ms = [r["ms"] for r in pr.train]
+    log(f"[sharded] crf-wds ({card}): {n_utts} train utterances written as "
+        f"{n_shards} shards of {SHARD_SIZE} in {write_s:.2f} s (fbank on the "
+        f"card); epoch 1: {len(batches)} batches of "
+        f"{sorted({len(b) for b in batches})} utterances, "
+        f"{sum(len(b) for b in batches)} utterances, each at most once, "
+        f"alike bit for bit over two iterations; dropped "
+        f"{stats['too_long']} longer than the largest bucket and "
+        f"{stats['infeasible']} infeasible, labels cut at their bucket's "
+        f"cap in {stats['labels_cut']}")
+    log(f"[sharded] crf-wds stages 2-3 {watch.s['main']:.1f} s (pack, dev "
+        f"only, {watch.s['stage_pack']:.1f}; train "
+        f"{watch.s['stage_train']:.1f}); den_dense.npz of the label pass "
+        f"over the shards in {watch.s['build_den']:.2f} s, within "
+        f"{den_err:.3g} of crf-v1's; {len(pr.train)} micro-steps at fold "
+        f"{WDS_FOLD} (ms {[round(x, 1) for x in ms]}, CUDA events; launches "
+        f"{PER_STEP} each, none skipped), {len(pr.evals)} eval batches, "
+        f"{len(pr.saves)} checkpoint writes s "
+        f"{[round(x, 2) for x in pr.saves]}; the Manager's data_s "
+        f"{ep['data_s']:.3f} against step_s {ep['step_s']:.2f}")
+
+    # rnnt-wds, stages 1-3
+    def edit(hyper, config):
+        del hyper["tokenizer"]["option-init"]["corpus"]  # the train text
+
+    expdir, shard_dir, hyper, config = sharded_recipe(
+        "wenetspeech/exp/rnnt-wds", os.path.join(root, "rnnt-wds"), data,
+        edit)
+    V = tknz.load(os.path.join(expdir, "tokenizer.tknz")).vocab_size
+    write_s, n_shards = write_recipe_shards(data, shard_dir, expdir)
+    batches, stats, n_utts = epoch_one(expdir, hyper)
+    watch = Stopwatch()
+    probes, total = run_pipeline(expdir, watch, args=[
+        "--start_stage", "2", "--stop_stage", "3"])
+    pr, ep = check_sharded_run("rnnt-wds", expdir, probes, total, batches,
+                               RNNT_WDS_STEP, RNNT_WDS_EVAL)
+    ms = [r["ms"] for r in pr.train]
+    log(f"[sharded] rnnt-wds ({card}): BPE of the train text V = {V} "
+        f"(the recipe asks for "
+        f"{hyper['tokenizer']['option-init']['vocab_size']}: the BPE stops "
+        f"when no pair repeats); "
+        f"{n_shards} shards in {write_s:.2f} s; epoch 1 {len(batches)} "
+        f"batches, dropped {stats['too_long']} too long and "
+        f"{stats['infeasible']} infeasible, labels cut in "
+        f"{stats['labels_cut']}; stages 2-3 {watch.s['main']:.1f} s (train "
+        f"{watch.s['stage_train']:.1f}); {len(pr.train)} steps (ms "
+        f"{[round(x, 1) for x in ms]}; launches {RNNT_WDS_STEP} each, none "
+        f"skipped), {len(pr.evals)} eval batches, {len(pr.saves)} "
+        f"checkpoints; data_s {ep['data_s']:.3f} against step_s "
+        f"{ep['step_s']:.2f}")
+    log(f"[sharded] both recipes {time.perf_counter() - t:.1f} s ({card})")
+
+
 def pipeline_wfst(root, card):
-    """[wfst] on `pipeline_crf_v1`'s trained expdir under root: stage 4
-    with crf-wds's decode block (egs/wenetspeech/exp/crf-wds: mode
-    "wfst", a word 3-gram TLG, beam 17; max_active 7000, its default,
-    written out); then fusion and rescoring on a split of the first
-    FUSION_UTTS dev utterances; then the crf-v1 denominator read from an
-    ARPA file through row 22. Cuts: n-best 8 -> 1 over the 32 dev
-    utterances (`wfst_nbest` at K = 8 runs on two of them), the fused
-    decode on FUSION_UTTS utterances."""
+    """[wfst] on the trained expdir under root (crf-wds's of
+    `pipeline_sharded`): stage 4 with crf-wds's decode block
+    (egs/wenetspeech/exp/crf-wds: mode "wfst", a word 3-gram TLG, beam 17;
+    max_active 7000, its default, written out); then fusion and rescoring
+    on a split of the first FUSION_UTTS dev utterances; then the expdir's
+    denominator 3-gram read from an ARPA file through row 22. Cuts:
+    n-best 8 -> 1 over the 32 dev utterances (`wfst_nbest` at K = 8 runs
+    on two of them), the fused decode on FUSION_UTTS utterances."""
     import numpy as np
     import torch
     from cat_tpu_torch.ctc.decode import prefix_beam_search
@@ -2887,7 +3352,8 @@ def pipeline_wfst(root, card):
         "decode_native": watch.wrap("native", WfstDecoder.decode_native),
         "native_tables": watch.wrap("tables", WfstDecoder.native_tables)}}
     _, total = run_pipeline(expdir, watch, extra, ["--start_stage", "4"])
-    res = check_outputs(expdir, 32, "crf-wds decode")
+    packed = asr._sharded(hyper) is None
+    res = check_outputs(expdir, 32, "crf-wds decode", train_packed=packed)
     n_fw = len(forwards)
     if res["mode"] != "wfst" or n_fw == 0 or any(
             d != SERVE for d in forwards) or total != {
@@ -2912,7 +3378,8 @@ def pipeline_wfst(root, card):
         f"{s['search']:.1f} s = "
         f"{100 * s['search'] / s['stage_decode']:.1f} % of stage 4; WER "
         f"{res['wer']:.2f} % ({res['errors']} errors of {res['num_words']} "
-        f"words, a random model after 4 updates), RTF {res['rtf']:.4f}")
+        f"words, a random model after a few updates), RTF "
+        f"{res['rtf']:.4f}")
 
     # n-best at K = 8 and the Python search, on two dev utterances
     wdec, id2word = kept["dec"]
@@ -2969,7 +3436,8 @@ def pipeline_wfst(root, card):
             after=lambda out, *args: fused.append((args, out))),
         "_maybe_rescore": watch.wrap("rescore", asr._maybe_rescore)}}
     _, total = run_pipeline(expdir, watch, extra, ["--start_stage", "4"])
-    res = check_outputs(expdir, FUSION_UTTS, "fused decode", split)
+    res = check_outputs(expdir, FUSION_UTTS, "fused decode", split,
+                        train_packed=packed)
     t = time.perf_counter()
     again = [asr._fused_search(*args) for args, _ in fused]
     again_s = time.perf_counter() - t
@@ -3003,15 +3471,18 @@ def pipeline_wfst(root, card):
         f"{zero_s:.1f} s); the rescored 1-best written; WER "
         f"{res['wer']:.2f} %, RTF {res['rtf']:.4f}")
 
-    # (C) the crf-v1 denominator read from ARPA, through row 22. An ARPA
+    # (C) the expdir's denominator read from ARPA, through row 22. An ARPA
     # file holds a backoff only beside an n-gram of its own, so the
     # (<s>, <s>) context's backoff of the trained 3-gram has no line (in
     # either package): the file's denominator is held to the trained LM
     # without it, and its distance to den_dense.npz is printed
     tok = tknz.load(os.path.join(expdir, "tokenizer.tknz"))
-    tr = SpeechDataset(os.path.join(expdir, "pkl", "train"))
-    lm = train_ngram([[int(x) for x in tr[i][1]] for i in range(len(tr))],
-                     order=3)
+    if packed:
+        tr = SpeechDataset(os.path.join(expdir, "pkl", "train"))
+        seqs = [[int(x) for x in tr[i][1]] for i in range(len(tr))]
+    else:
+        seqs = list(asr._shard_label_seqs(asr._sharded(hyper)))
+    lm = train_ngram(seqs, order=3)
     arpa = os.path.join(root, "den_lm.arpa")
     write_arpa(lm, arpa)
     os.makedirs(os.path.join(root, "den"))
@@ -3042,8 +3513,8 @@ def pipeline_wfst(root, card):
     rest[0, 0] = False
     e_npz = float(np.abs(den_arpa.logw - den_npz.logw)[rest].max())
     r_npz = ((z_arpa - z_npz).abs() / z_npz.abs()).max().item()
-    log(f"[wfst] crf-v1 denominator 3-gram written to ARPA and read through "
-        f"den_lm.path in {arpa_s:.2f} s; backoffs without a line of their "
+    log(f"[wfst] the expdir's denominator 3-gram written to ARPA and read "
+        f"through den_lm.path in {arpa_s:.2f} s; backoffs without a line of their "
         f"own {[(ng, round(b, 6)) for ng, b in dropped]}; den_fwd (row 22) "
         f"on the training batch (N={len(tl)}, T'={min(tl)}..{max(tl)}): "
         f"against the trained LM without them, tables within {e_w:.3g}, "
@@ -3146,6 +3617,7 @@ def main():
     phase_fold(cfg, den)
     launches = phase_training(cfg, den, profile)
     phase_manager(cfg, den)
+    phase_encoders(den, card())
     rnnt_cfg = load_config("rnnt-v1")
     phase_rnnt_serving(rnnt_cfg)
     phase_rnnt_train_vs_plain(rnnt_cfg)

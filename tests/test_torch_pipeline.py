@@ -14,12 +14,22 @@ utterances of 1-3 words, 8 kHz tones).
   within 1e-4; the train-time dev WER (`eval_wer`) equal for CTC greedy,
   CTC beam 4 and RNN-T greedy.
 - The port's four stages end to end on the CPU (asr-ctc, 2 epochs).
+- Training from shards (`write_shards`, 16 utterances a shard, after
+  stage 1): asr-ctc-crf's stages 2-3 for one epoch; only dev is packed,
+  and the denominator of the label-only pass over the shards,
+  den_dense.npz, is JAX's `build_den(..., shard_pattern=...)` within 1e-6.
+- The five recipes of the JoinAP, TDNN and sharded slice pass
+  `check_train` and `check_decode` on their own files, and their models
+  build on the CPU at the recipes' widths (P drawn from a seed, as
+  `tests/test_recipes.py` draws it).
 - Every path not ported raises NotImplementedError naming its ROADMAP.md
   section; one map of train bins serves the pipeline and both decode
   CLIs.
 - Slow only: the asr-ctc template trained to its end, and the asr-rnnt
   template with the JAX package's converging toy transducer, each to at
-  most 2 dev word errors (absolute counts).
+  most 2 dev word errors (absolute counts); the asr-ctc template trained
+  from shards to `tests/test_pipeline.py`'s WER gate (below 5 %: at most 1
+  error in the 37 dev words).
 """
 import json
 import os
@@ -36,8 +46,10 @@ from cat_tpu.pipeline import asr as jax_asr
 from cat_tpu.utils.audio import write_wav
 from cat_tpu.utils.checkpoint import CheckpointManager as JaxCkpt
 from cat_tpu.utils.data import SpeechDataset
+from cat_tpu.utils import tokenizer as jax_tknz
 from cat_tpu_torch.pipeline import asr, tasks
 from cat_tpu_torch.utils import tokenizer as tknz
+from cat_tpu_torch.utils.data_sharded import write_shards
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -284,6 +296,95 @@ def test_four_stages_end_to_end_on_the_cpu(yesno, tmp_path):
         assert len(f.read().splitlines()) == 20
 
 
+def _sharded_expdir(yesno, tmp_path, template, **opts):
+    """`template` with its train set streamed from npz shards of 16
+    utterances (the options of `tests/test_pipeline.py`'s sharded runs),
+    written with the stage-1 tokenizer; returns (expdir, hyper)."""
+    shards = tmp_path / "shards"
+
+    def edit(hyper, config):
+        hyper["train"]["option"].update(
+            sharded_data=str(shards), shuffle_buffer=32, buckets=[64, 128],
+            frame_budget=800, **opts)
+
+    expdir, hyper, _ = _expdir(tmp_path / "exp", yesno, template, edit)
+    asr.main([expdir, "--stop_stage", "1", "--device", "cpu"])
+    tok = tknz.load(os.path.join(expdir, "tokenizer.tknz"))
+    n = write_shards(str(shards), asr.extract_features(
+        str(yesno / "train"), hyper["feature"], "cpu"), tok, shard_size=16)
+    assert n == 4  # several shards: the shard shuffle is exercised
+    return expdir, hyper
+
+
+def test_sharded_crf_training_packs_dev_only(yesno, tmp_path):
+    expdir, hyper = _sharded_expdir(yesno, tmp_path, "asr-ctc-crf",
+                                    max_epochs=1)
+    asr.main([expdir, "--start_stage", "2", "--stop_stage", "3",
+              "--device", "cpu"])
+    assert os.listdir(os.path.join(expdir, "pkl")) == ["dev"]
+    with open(os.path.join(expdir, "check", "metrics.jsonl")) as f:
+        rounds = [json.loads(line) for line in f if "dev_loss" in line]
+    assert [r["epoch"] for r in rounds] == [1]
+    assert np.isfinite(rounds[0]["dev_loss"])
+    # the denominator of the label-only pass over the shards
+    os.makedirs(tmp_path / "jax")
+    jax_asr.build_den(str(tmp_path / "jax"), hyper, jax_tknz.load(
+        os.path.join(expdir, "tokenizer.tknz")), None,
+        shard_pattern=str(tmp_path / "shards" / "shard-*.npz"))
+    want = np.load(tmp_path / "jax" / "den_dense.npz")
+    got = np.load(os.path.join(expdir, "den_dense.npz"))
+    assert got["logw"].shape == (4, 4, 4)
+    for k in ("logw", "final"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6)
+
+
+@pytest.mark.slow
+def test_asr_ctc_from_shards_reaches_the_wer_gate(yesno, tmp_path):
+    expdir, _ = _sharded_expdir(yesno, tmp_path, "asr-ctc", max_epochs=100)
+    asr.main([expdir, "--start_stage", "2", "--device", "cpu"])
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        res = json.load(f)
+    assert not os.path.exists(os.path.join(expdir, "pkl", "train"))
+    assert res["errors"] <= 1 and res["num_words"] == 37, res
+
+
+RECIPES = ["iumien/exp/crf-joinap", "cv-lang10/exp/multi-phoneme",
+           "wsj/exp/crf-tdnn", "wenetspeech/exp/crf-wds",
+           "wenetspeech/exp/rnnt-wds"]
+
+
+@pytest.mark.parametrize("name", RECIPES)
+def test_recipe_passes_the_checks_and_builds(tmp_path, name):
+    src = os.path.join(REPO, "egs", *name.split("/"))
+    with open(os.path.join(src, "hyper-p.json")) as f:
+        hyper = json.load(f)
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    asr.check_train(hyper, config)
+    asr.check_decode(hyper, config)
+    V = 72
+    kw = config["encoder"]["kwargs"]
+    if "pv_path" in kw:  # the recipe's phonological matrix, stubbed
+        kw["pv_path"] = str(tmp_path / "phono_vec.npy")
+        np.save(kw["pv_path"], np.random.default_rng(0).standard_normal(
+            (V, 51)).astype(np.float32))
+    if hyper["tokenizer"]["type"] == "BpeTokenizer":
+        V = hyper["tokenizer"]["option-init"]["vocab_size"]
+    model = tasks.train_module(hyper["train"]["bin"]).build_model(
+        asr._with_feat_dim(config, 80), num_classes=V, device="cpu")
+    if type(model).__name__ == "TransducerModel":
+        assert model.joiner.fc_out.kernel.shape[-1] == V
+        return
+    if "pv_path" in kw:
+        assert model.P.shape == (V, 51) and "P" not in model.state_dict()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 64, 80)).astype(np.float32))
+    with torch.no_grad():
+        out, olens = model(x, torch.tensor([64]))
+    assert out.dtype == torch.float32 and out.shape[-1] == V
+    assert out.shape[1] == int(olens[0]) and torch.isfinite(out).all()
+
+
 def _hyper(**kw):
     hyper = {"data": {"train": "t", "dev": "d"},
              "tokenizer": {"type": "SimpleTokenizer"},
@@ -312,7 +413,10 @@ UNPORTED = [
     (_hyper(train__bin="cat_tpu.rnnt.train_unified"), {}, "§A.4"),
     (_hyper(train__bin="cat_tpu.lm.train"), {}, "§A.5"),
     (_hyper(den_lm={"order": 4}), {"trainer": {"loss": "crf"}}, "§A.6"),
-    (_hyper(train__option={"sharded_data": "shards/"}), {}, "§A.7"),
+    (_hyper(), {"encoder": {"type": "VGGLSTM"}}, "§A.6"),
+    (_hyper(), {"encoder": {"type": "JoinAPLinearEncoder", "kwargs": {
+        "enc_head_type": "ConformerLSTM"}}}, "§A.6"),
+    (_hyper(), {"encoder": {"type": "EmbeddingEncoder"}}, "§A.8"),
     (_hyper(), {"parallel": {"model": 2}}, "§A.7"),
     (_hyper(data={"train": ["a", "b"], "dev": "d"}), {}, "§A.8"),
     (_hyper(train__bin="cat_tpu.ctc.train_me2e"), {}, "§A.8"),
