@@ -107,9 +107,12 @@ def make_train_step(model, optimizer, loss_type="ctc", den=None, lamb=0.1,
 
 def make_step(model, optimizer, loss_fn, grad_clip=5.0, grad_accum_fold=1):
     """`make_train_step` around any loss_fn(batch, gen, train) ->
-    (weighted mean loss, per-sequence loss): backward, the NaN/Inf guard,
-    clipping and the optimizer step, or one micro-step of the weighted
-    fold when grad_accum_fold > 1. The RNN-T trainer shares it."""
+    (weighted mean loss, per-sequence loss[, {name: 0-dim tensor}]):
+    backward, the NaN/Inf guard, clipping and the optimizer step, or one
+    micro-step of the weighted fold when grad_accum_fold > 1. The RNN-T
+    trainers share it; the optional third item's terms (the unified
+    transducer's "loss_full", "loss_chunk", "loss_simu") join the step's
+    metrics."""
     params = [p for p in model.parameters() if p.requires_grad]
     if grad_accum_fold > 1:
         return _make_accum_train_step(model, loss_fn, WeightedMultiSteps(
@@ -119,7 +122,7 @@ def make_step(model, optimizer, loss_fn, grad_clip=5.0, grad_accum_fold=1):
         stats = [b.detach().clone() for b in model.buffers()]
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(batch, gen, True)
+        loss, _, *terms = loss_fn(batch, gen, True)
         loss.backward()
         gnorm = global_grad_norm(params)
         finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
@@ -137,8 +140,9 @@ def make_step(model, optimizer, loss_fn, grad_clip=5.0, grad_accum_fold=1):
             optimizer.zero_grad(set_to_none=True)
         state.step += 1
         state.skipped += int(not finite)
+        metrics = {k: v.detach() for k, v in (terms or [{}])[0].items()}
         return state, {"loss": loss.detach(), "grad_norm": gnorm,
-                       "skipped": int(not finite)}
+                       "skipped": int(not finite), **metrics}
 
     return train_step
 
@@ -163,7 +167,7 @@ def _make_accum_train_step(model, loss_fn, fold: WeightedMultiSteps):
         stats = [b.detach().clone() for b in model.buffers()]
         model.train()
         fold.optimizer.zero_grad(set_to_none=True)
-        _, per_seq = loss_fn(batch, gen, True)
+        per_seq = loss_fn(batch, gen, True)[1]
         w = batch["weight"].float()
         loss_sum = (per_seq * w).sum()
         loss_sum.backward()

@@ -18,8 +18,14 @@ two 32-bit seed words from the `torch.Generator` handed down from the
 caller (`gen`), so a step is a function of that generator; the masks are
 the Philox masks of `cat_tpu_torch.ops.dropout`.
 
-Left out (a later slice, see ROADMAP.md): the subsampling's `time_chunk`,
-the causal conv and attention context windows.
+The streaming options of the JAX modules: the subsampling's
+`time_chunk` (the convolutions over overlapping input chunks, the same
+output), the causal conv module (the depthwise conv padded (k - 1, 0);
+the fused entry and exit stages are unchanged) and attention context
+windows (a band of keys around each query). With a window the attention
+takes the plain PyTorch version with the band mask on any device, as the
+JAX module takes its unfused attention whenever a window is set; without
+one, the fused kernel.
 """
 from __future__ import annotations
 
@@ -99,20 +105,24 @@ class Dropout(nn.Module):
 
 class Conv2dSubsampling(nn.Module):
     """Two VALID 3x3 stride-2 convs with ReLU, then a projection of the
-    (freq, channel) features: (N, T, idim) -> (N, T', odim)."""
+    (freq, channel) features: (N, T, idim) -> (N, T', odim).
+
+    time_chunk Oc > 0 runs the stack over input chunks of 4·Oc + 3 rows
+    every 4·Oc rows (output row k reads input rows 4k .. 4k + 6), Oc
+    output rows each, the input zero-padded to the last chunk's end, when
+    T > 4·Oc + 3: the unchunked output up to rounding, with the transient
+    of the first conv bounded by the chunk."""
 
     def __init__(self, idim, odim, time_chunk=0):
         super().__init__()
-        if time_chunk:
-            raise NotImplementedError("Conv2dSubsampling time_chunk is not "
-                                      "ported yet; see ROADMAP.md")
+        self.time_chunk = time_chunk
         self.conv_a = nn.Conv2d(1, odim, 3, stride=2)
         self.conv_b = nn.Conv2d(odim, odim, 3, stride=2)
         freq = ((idim - 3) // 2 + 1 - 3) // 2 + 1
         self.proj = Dense(freq * odim, odim)
 
-    def forward(self, x, lengths, dtype):
-        h = x[:, None].to(dtype)                       # (N, 1, T, F)
+    def _stack(self, h, dtype):
+        """(N, 1, Ti, F) -> (N, To, odim)."""
         h = F.relu(F.conv2d(h, self.conv_a.weight.to(dtype),
                             self.conv_a.bias.to(dtype), stride=2))
         h = F.relu(F.conv2d(h, self.conv_b.weight.to(dtype),
@@ -120,18 +130,34 @@ class Conv2dSubsampling(nn.Module):
         N, C, Tp, Fp = h.shape
         # the JAX projection contracts (freq, channel) in that order
         h = h.permute(0, 2, 3, 1).reshape(N, Tp, Fp * C)
+        return self.proj(h, dtype)
+
+    def forward(self, x, lengths, dtype):
+        h = x[:, None].to(dtype)                       # (N, 1, T, F)
+        T, Oc = h.shape[2], self.time_chunk
+        if Oc <= 0 or T <= 4 * Oc + 3:
+            out = self._stack(h, dtype)
+        else:
+            T2 = ((T - 3) // 2 + 1 - 3) // 2 + 1
+            K = -(-T2 // Oc)
+            Ic = 4 * Oc + 3
+            h = F.pad(h, (0, 0, 0, max(0, 4 * (K - 1) * Oc + Ic - T)))
+            out = torch.cat([self._stack(h[:, :, 4 * k * Oc:4 * k * Oc + Ic],
+                                         dtype) for k in range(K)], 1)[:, :T2]
         out_lengths = torch.clamp(((lengths - 1) // 2 - 1) // 2, min=1)
-        return self.proj(h, dtype), out_lengths
+        return out, out_lengths
 
 
 class RelPositionMultiHeadAttention(nn.Module):
-    """Transformer-XL relative-position multi-head self-attention."""
+    """Transformer-XL relative-position multi-head self-attention.
+    context (left, right): each query attends to the keys at most `left`
+    frames before it and `right` after it (-1: unbounded); a window takes
+    the plain `relpos_attention_reference` with the band, the fused kernel
+    none."""
 
     def __init__(self, num_heads, d_model, context=(-1, -1), dropout_rate=0.0):
         super().__init__()
-        if tuple(context) != (-1, -1):
-            raise NotImplementedError("attention context windows are not "
-                                      "ported yet; see ROADMAP.md")
+        self.context = tuple(context)
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.q = Dense(d_model, d_model)
@@ -153,9 +179,13 @@ class RelPositionMultiHeadAttention(nn.Module):
         pe = rel_positional_encoding(T, D, dtype, x.device)
         p = self.pos(pe, dtype).view(2 * T - 1, H, D // H)
         rate, seed = drop_args(self, self.dropout_rate, gen)
-        o = attention.relpos_attention(q, k, v, p, self.u_bias.to(dtype),
-                                       self.v_bias.to(dtype), lengths,
-                                       rate=rate, seed=seed)
+        args = (q, k, v, p, self.u_bias.to(dtype), self.v_bias.to(dtype),
+                lengths)
+        if self.context == (-1, -1):
+            o = attention.relpos_attention(*args, rate=rate, seed=seed)
+        else:  # the JAX module's unfused path, on any device
+            o = attention.relpos_attention_reference(
+                *args, rate=rate, seed=seed, context=self.context)
         o = o.reshape(N, T, D) * length_mask(lengths, T)[..., None].to(dtype)
         return self.out(o, dtype)
 
@@ -188,9 +218,7 @@ class ConvModule(nn.Module):
     def __init__(self, d_model, kernel_size=32, causal=False,
                  dropout_rate=0.0):
         super().__init__()
-        if causal:
-            raise NotImplementedError("the causal conv module is not ported "
-                                      "yet; see ROADMAP.md")
+        self.causal = causal
         self.kernel_size = kernel_size
         self.dropout_rate = dropout_rate
         self.norm = _layer_norm(d_model)
@@ -207,8 +235,10 @@ class ConvModule(nn.Module):
         h = conv_module.fused_glu_in(x, mask, self.norm.weight, self.norm.bias,
                                      self.pw_in.kernel, self.pw_in.bias)
         k = self.kernel_size
-        # asymmetric "same" padding, as the JAX module: (k-1)//2 left
-        h = F.pad(h.transpose(1, 2), ((k - 1) // 2, k - 1 - (k - 1) // 2))
+        # causal: every frame sees the k - 1 before it; otherwise the
+        # asymmetric "same" padding of the JAX module, (k-1)//2 left
+        left = k - 1 if self.causal else (k - 1) // 2
+        h = F.pad(h.transpose(1, 2), (left, k - 1 - left))
         c = F.conv1d(h, self.depthwise.weight.to(dtype),
                      self.depthwise.bias.to(dtype),
                      groups=x.shape[-1]).transpose(1, 2)
@@ -238,16 +268,19 @@ def masked_batch_stats(c, mask):
 
 
 class ConformerCell(nn.Module):
-    """FF/2 -> MHSA -> Conv -> FF/2 -> LN, residual stream in `dtype`."""
+    """FF/2 -> MHSA -> Conv -> FF/2 -> LN, residual stream in `dtype`;
+    `causal_conv` and `attention_context` as the JAX cell's."""
 
     def __init__(self, d_model, num_heads, kernel_size=32, ff_expansion=4,
-                 dropout_rate=0.0):
+                 dropout_rate=0.0, causal_conv=False,
+                 attention_context=(-1, -1)):
         super().__init__()
         self.ff1 = FFModule(d_model, ff_expansion, dropout_rate=dropout_rate)
         self.norm_mhsa = _layer_norm(d_model)
         self.mhsa = RelPositionMultiHeadAttention(num_heads, d_model,
+                                                  attention_context,
                                                   dropout_rate=dropout_rate)
-        self.conv = ConvModule(d_model, kernel_size,
+        self.conv = ConvModule(d_model, kernel_size, causal_conv,
                                dropout_rate=dropout_rate)
         self.ff2 = FFModule(d_model, ff_expansion, dropout_rate=dropout_rate)
         self.norm_out = _layer_norm(d_model)

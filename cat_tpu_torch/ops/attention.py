@@ -188,9 +188,10 @@ def _band_index(T, device):
     return T - 1 - t[:, None] + t[None, :]
 
 
-def _scores(q, k, p, u_bias, v_bias, lengths, scale):
+def _scores(q, k, p, u_bias, v_bias, lengths, scale, context=(-1, -1)):
     """Masked f32 scores (N, H, T, T), the key mask and qu, qv (in q's
-    dtype)."""
+    dtype). context (left, right): keys more than `left` frames before or
+    `right` after a query are masked too (-1: unbounded)."""
     T = q.shape[1]
     dt = q.dtype
     kmask = torch.arange(T, device=q.device)[None, :] < lengths[:, None]
@@ -198,7 +199,14 @@ def _scores(q, k, p, u_bias, v_bias, lengths, scale):
     ac = torch.einsum("nthd,nshd->nhts", qu.float(), k.float())
     bd = torch.einsum("nthd,mhd->nhtm", qv.float(), p.float())
     s = (ac + rel_shift(bd)) * scale
-    return s.masked_fill(~kmask[:, None, None, :], NEG), kmask, qu, qv
+    keep = kmask[:, None, None, :]
+    left, right = context
+    t = torch.arange(T, device=q.device)
+    if left >= 0:
+        keep = keep & (t[None, :] >= t[:, None] - left)
+    if right >= 0:
+        keep = keep & (t[None, :] <= t[:, None] + right)
+    return s.masked_fill(~keep, NEG), kmask, qu, qv
 
 
 def _drop(seed, rate, N, H, T, device):
@@ -208,16 +216,19 @@ def _drop(seed, rate, N, H, T, device):
 
 
 def relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias, lengths,
-                                   scale=None, rate=0.0, seed=None):
+                                   scale=None, rate=0.0, seed=None,
+                                   context=(-1, -1)):
     """Plain PyTorch version of the forward, in the arithmetic of the JAX
     package's `relpos_attention_reference` (scores and softmax in f32,
     probabilities rounded to v.dtype before the value product), with the
-    dropout. Returns (out (N, T, H, Dh), lse (N, H, T) f32); query rows
-    past the length are zeros in out and in lse."""
+    dropout; `context` bands the keys (`_scores`), as the JAX module's
+    unfused path does. Returns (out (N, T, H, Dh), lse (N, H, T) f32);
+    query rows past the length are zeros in out and in lse."""
     N, T, H, Dh = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
-    s, kmask, _, _ = _scores(q, k, p, u_bias, v_bias, lengths, scale)
+    s, kmask, _, _ = _scores(q, k, p, u_bias, v_bias, lengths, scale,
+                             context)
     lse = torch.logsumexp(s, dim=-1)
     attn = torch.exp(s - lse[..., None]) * _drop(seed, rate, N, H, T,
                                                  q.device)
@@ -229,10 +240,12 @@ def relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias, lengths,
 
 
 def relpos_attention_reference(q, k, v, p, u_bias, v_bias, lengths,
-                               scale=None, rate=0.0, seed=None):
+                               scale=None, rate=0.0, seed=None,
+                               context=(-1, -1)):
     """The output of `relpos_attention_reference_lse`."""
     return relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias,
-                                          lengths, scale, rate, seed)[0]
+                                          lengths, scale, rate, seed,
+                                          context)[0]
 
 
 def relpos_attention_backward_reference(q, k, v, p, u_bias, v_bias, lengths,

@@ -14,8 +14,8 @@ reads the two JSON files of a recipe under `egs/` unchanged:
                     "specaug", "scheduler": {..., "optimizer"}}
 
 and runs on the card unless `--device cpu` is given. A "bin" of either
-package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train`) names the port's
-trainer (`pipeline/tasks.py`).
+package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train` and the CUSIDE
+`*.train_unified`) names the port's trainer (`pipeline/tasks.py`).
 
   1 tokenizer: built from the first train set's transcripts, or loaded.
   2 pack: wav.scp + text -> fbank + CMVN on the device -> pkl/<split>
@@ -38,13 +38,18 @@ trainer (`pipeline/tasks.py`).
     by `RNNTBeamDecoder`, fused with decode.lm when it is set; n-best
     rescoring with a word n-gram (decode.rescore); nbest_<split>.pkl,
     decode_<split>.txt and wer_<split>.json with the real-time factor.
+    A unified (CUSIDE) model in mode "streaming": the transducer's beam
+    over its chunked encoding; a unified CTC model always decodes its
+    chunk pass (`chunk_infer`, decode.future), greedily in mode "greedy"
+    or "streaming" at beam <= 1. A model that is not unified decodes
+    mode "streaming" offline, as the JAX package does.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md
-section: streaming decoding and the unified trainers (§A.4); neural LM
-fusion, LODR and neural rescoring (§A.5); the arc-table denominator for
-orders above 3, more than 128 units or an FST file (§A.6); the encoders
-`VGGLSTM`, `BLSTMN`, `LSTMrowCONV`, `TDNN_LSTM` and `ConformerLSTM`
-(§A.6b); `config.parallel` (§A.7); more than one train set, the task bins
+section: neural LM fusion, LODR and neural rescoring (§A.5); the
+arc-table denominator for orders above 3, more than 128 units or an FST
+file (§A.6); the encoders `VGGLSTM`, `BLSTMN`, `LSTMrowCONV`, `TDNN_LSTM`
+and `ConformerLSTM` (§A.6b); `config.parallel` (§A.7); more than one
+train set, the task bins
 and the `EmbeddingEncoder` and `Wav2Vec2Encoder` encoders (§A.8). The JAX
 package's monitor plot after training waits for `utils/plot.py` (§A.8)
 and is left out; `config.perf` is read and
@@ -208,9 +213,6 @@ def check_decode(hyper, config=None):
     tasks.train_module(hyper["train"]["bin"])
     _check_encoder(config or {})
     dec = hyper.get("inference", {}).get("decode", {})
-    mode = dec.get("mode", "beam")
-    if mode == "streaming":
-        raise _todo('decode mode "streaming"', "§A.4")
     if dec.get("lm"):
         _check_lm(dec["lm"], "decode-time LM fusion (decode.lm)")
     if dec.get("rescore"):
@@ -296,11 +298,18 @@ def stage_train(expdir, hyper, config, tok, device="cpu"):
                        eos_id=trainer_cfg.get("eos_id", -1),
                        joiner_normalized=config.get("joiner", {}).get(
                            "type") == "HAT")
+        step_kw = {}
+        if tasks.is_unified(hyper["train"]["bin"]):
+            rnnt_kw.update(lamb_chunk=trainer_cfg.get("lamb_chunk", 0.5),
+                           future=trainer_cfg.get("future", "simu"))
+            step_kw["lamb_simu"] = trainer_cfg.get("lamb_simu", 1.0)
         train_step = task.make_train_step(
             model, opt, specaug_cfg=specaug_cfg, grad_clip=grad_clip,
-            grad_accum_fold=fold, **rnnt_kw)
+            grad_accum_fold=fold, **rnnt_kw, **step_kw)
         eval_step = task.make_eval_step(model, **rnnt_kw)
     else:
+        # the CTC bins, the unified one too, take no trainer.lamb_chunk,
+        # future or lamb_simu here: JAX's stage 3 passes none of them
         lamb = trainer_cfg.get("lamb", 0.1)
         train_step = task.make_train_step(
             model, opt, loss_type, den=den, lamb=lamb,
@@ -341,14 +350,21 @@ def shard_loader(hyper, feat_dim):
         label_caps=opts.get("label_caps"), feat_dim=feat_dim)
 
 
-def ctc_log_probs(model, feats, flens):
+def ctc_log_probs(model, feats, flens, future=None):
     """The CTC model's (N, T', V) f32 log-probs and output lengths in eval
-    mode, on the model's device; feats and flens numpy."""
+    mode, on the model's device; feats and flens numpy. With `future` (a
+    unified model), the chunk pass's (`chunk_infer`)."""
+    from cat_tpu_torch.ctc.streaming import chunk_infer
+
     dev = next(model.parameters()).device
+    x = torch.from_numpy(feats).to(dev)
+    lens = torch.from_numpy(flens).long().to(dev)
     model.eval()
     with torch.inference_mode():
-        logits, olens = model(torch.from_numpy(feats).to(dev),
-                              torch.from_numpy(flens).long().to(dev))
+        if future is None:
+            logits, olens = model(x, lens)
+        else:
+            logits, olens = chunk_infer(model, x, lens, future)
         return torch.log_softmax(logits.float(), -1), olens
 
 
@@ -674,7 +690,9 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
     prefix beam fused with decode.lm when it is set), "greedy" or "wfst"
     (the TLG graph; decode.native false takes the Python search); RNN-T
     takes `RNNTBeamDecoder`, with decode.lm, whatever the mode, as in
-    JAX."""
+    JAX. "streaming": a unified transducer's beam over `encode_streaming`;
+    a unified CTC model decodes its chunk pass in every mode, greedily
+    at beam <= 1 in this one."""
     from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
 
     check_decode(hyper, config)
@@ -701,12 +719,15 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
             from cat_tpu_torch.native import wfst_lib
             wfst_lib()  # a failed build raises here, before any decoding
     fusion_lm = _build_decode_lm(hyper, tok, dec_cfg)
+    unified = tasks.is_unified(hyper["train"]["bin"])
     if _is_rnnt(hyper):
         from cat_tpu_torch.rnnt.decode import RNNTBeamDecoder
         decoder = RNNTBeamDecoder(model, beam_width=beam, lm=fusion_lm,
                                   alpha=dec_cfg.get("alpha", 0.0),
                                   beta=dec_cfg.get("beta", 0.0),
-                                  ilm_weight=dec_cfg.get("ilm_weight", 0.0))
+                                  ilm_weight=dec_cfg.get("ilm_weight", 0.0),
+                                  streaming=mode == "streaming" and unified)
+    future = dec_cfg.get("future", "simu") if unified else None
     from cat_tpu_torch.ctc.decode import greedy_decode
 
     hyps, refs, all_nbest = {}, {}, {}
@@ -717,8 +738,8 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
             res = decoder.decode(b.feats, b.feat_lengths, nbest=nbest_n)
             per_utt = [[(s, list(p)) for s, p in r] for r in res]
         else:
-            lp, olens = ctc_log_probs(model, b.feats, b.feat_lengths)
-            if mode == "greedy":
+            lp, olens = ctc_log_probs(model, b.feats, b.feat_lengths, future)
+            if mode == "greedy" or (mode == "streaming" and beam <= 1):
                 per_utt = [[(0.0, seq)] for seq in greedy_decode(lp, olens)]
             elif mode == "wfst":
                 per_utt = _wfst_search(wfst_dec, id2word, lp, olens,

@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import importlib
 
-PORTED = ("ctc.train", "rnnt.train")
+PORTED = ("ctc.train", "rnnt.train", "ctc.train_unified",
+          "rnnt.train_unified")
 # bins of the JAX package that the port does not have yet, with the
 # ROADMAP.md section that ports them
 NOT_PORTED = {
-    "ctc.train_unified": "§A.4", "rnnt.train_unified": "§A.4",
     "lm.train": "§A.5", "lm.train_trf": "§A.5",
     "ctc.train_me2e": "§A.8", "ctc.train_me2e_chunk": "§A.8",
     "ctc.train_me2e_kaldi": "§A.8", "ctc.train_me2e_kaldi_chunk": "§A.8",
@@ -40,6 +40,11 @@ def family(name: str) -> str:
     """"ctc", "rnnt", "lm" or "p2g": the bin's family (JAX tells the
     transducer bins by the prefix `cat_tpu.rnnt.`)."""
     return bin_key(name).split(".")[0]
+
+
+def is_unified(name: str) -> bool:
+    """A CUSIDE unified trainer's bin (`*.train_unified`)."""
+    return bin_key(name).endswith("train_unified")
 
 
 def _not_ported(name):

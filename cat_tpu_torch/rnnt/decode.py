@@ -19,8 +19,10 @@ builds its own `RNNTBeamDecoder` over padded batches):
 reading a `cat_tpu.rnnt.train` experiment (`hyper-p.json`,
 `config.json`, tokenizer, `pkl/<split>`, best checkpoint, of either
 package). `--lm LM.arpa` fuses a token n-gram (tokens read as ids) into
-the beam with weight `--alpha`. `--mode streaming` needs the unified
-trainer, a later slice (ROADMAP.md §A.4).
+the beam with weight `--alpha`. `--mode streaming` runs the beam over the
+chunked encoding (`encode_streaming`) of a `cat_tpu.rnnt.train_unified`
+experiment; on any other it raises ValueError. `streaming=True` does the
+same in both decoders.
 """
 from __future__ import annotations
 
@@ -43,17 +45,31 @@ def _device(model):
     return next(model.parameters()).device
 
 
-def make_greedy_decoder(model, blank=0, max_symbols=4, max_out=200):
+def _encoder(model, streaming):
+    """The model's full-context encoding, or with `streaming` the chunked
+    one of a unified transducer."""
+    if not streaming:
+        return model.encode
+    if not hasattr(model, "encode_streaming"):
+        raise ValueError(f"streaming decoding needs a unified transducer "
+                         f"(bin cat_tpu.rnnt.train_unified), not a "
+                         f"{type(model).__name__}")
+    return model.encode_streaming
+
+
+def make_greedy_decoder(model, blank=0, max_symbols=4, max_out=200,
+                        streaming=False):
     """Returns decode(feats, flens) -> (tokens (N, max_out), counts (N,)),
     int64 tensors on the model's device; utterance n's hypothesis is
-    tokens[n, :counts[n]]."""
+    tokens[n, :counts[n]]. streaming: encode by `encode_streaming`."""
+    encode = _encoder(model, streaming)
 
     def decode(feats, flens):
         dev = _device(model)
         feats = torch.as_tensor(feats, dtype=torch.float32, device=dev)
         flens = torch.as_tensor(flens, device=dev)
         with torch.inference_mode():
-            enc, olens = model.encode(feats, flens)
+            enc, olens = encode(feats, flens)
             N, T, _ = enc.shape
             state = model.predictor.init_state(N, dev)
             pred, state = model.predict_step(
@@ -100,13 +116,16 @@ class RNNTBeamDecoder:
     model's device. Options: beam width, shallow fusion (`lm` with
     logp(context, tok) in log10, weight `alpha`), length reward `beta`,
     internal-LM subtraction (`ilm_weight`: the joiner with a zero encoder
-    contribution, subtracted from the label scores)."""
+    contribution, subtracted from the label scores); streaming: encode by
+    `encode_streaming`."""
 
     def __init__(self, model, beam_width=8, blank=0, lm=None, alpha=0.0,
-                 beta=0.0, joiner_normalized=False, ilm_weight=0.0):
+                 beta=0.0, joiner_normalized=False, ilm_weight=0.0,
+                 streaming=False):
         from cat_tpu_torch.models.joiner import HAT, LogAdd
 
         self.model = model
+        self.encode = _encoder(model, streaming)
         self.W = beam_width
         self.blank = blank
         self.lm = lm
@@ -152,7 +171,7 @@ class RNNTBeamDecoder:
         """feats (N, T, F), flens (N,), arrays or tensors -> per utterance,
         [(score, [tokens])] best first."""
         with torch.inference_mode():
-            enc, olens = self.model.encode(
+            enc, olens = self.encode(
                 torch.as_tensor(feats, dtype=torch.float32, device=self.dev),
                 torch.as_tensor(flens, device=self.dev))
         enc = enc.float().cpu().numpy()
@@ -262,10 +281,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="device of the model (default cuda)")
     args = p.parse_args(argv)
-    if args.mode == "streaming":
-        raise NotImplementedError(
-            "streaming decoding needs the unified transducer, not ported "
-            "to cat_tpu_torch yet; see ROADMAP.md §A.4")
 
     def load_json(name):
         with open(os.path.join(args.expdir, name)) as f:
@@ -290,7 +305,8 @@ def main(argv=None):
             lm = read_arpa(args.lm, to_int=True)
         beam = RNNTBeamDecoder(model, beam_width=args.beam_width, lm=lm,
                                alpha=args.alpha, beta=args.beta,
-                               ilm_weight=args.ilm_weight)
+                               ilm_weight=args.ilm_weight,
+                               streaming=args.mode == "streaming")
 
     t0 = time.time()
     audio_s = 0.0

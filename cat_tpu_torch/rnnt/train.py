@@ -5,13 +5,14 @@
 without its classifier), the predictor and the joiner; blank = <bos> =
 0. The loss is `ops.rnnt.rnnt_loss` on the (N, T, U+1, V) log-prob
 lattice, or, for a `LogAdd` joiner, the fused
-`ops.rnnt_simple.rnnt_loss_simple`, which never builds it. `make_train_step` wraps the loss in the CTC trainer's step
+`ops.rnnt_simple.rnnt_loss_simple`, which never builds it.
+`make_train_step` wraps the loss in the CTC trainer's step
 (`cat_tpu_torch.ctc.train.make_step`: the NaN/Inf guard, clipping, Adam,
 `grad_accum_fold`). Every random draw (SpecAugment and predictor masks,
 dropout seeds) comes from the `torch.Generator` the caller passes. On the
 card the encoder's fused ops, its dropout and the two lattice recursions
-run their CUDA kernels. The monotonic topologies ("rna"/"ctct",
-`cat_tpu/ops/rnnt_rna.py`) are not ported yet (ROADMAP.md).
+run their CUDA kernels. The monotonic topologies ("rna"/"ctct") take
+`ops.rnnt_rna.rnnt_loss_rna`, a plain PyTorch scan as in the JAX package.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from cat_tpu_torch import models
 from cat_tpu_torch.ctc.train import init_state, make_step  # noqa: F401
 from cat_tpu_torch.models.joiner import LogAdd
 from cat_tpu_torch.ops.rnnt import rnnt_loss
+from cat_tpu_torch.ops.rnnt_rna import rnnt_loss_rna
 from cat_tpu_torch.ops.rnnt_simple import rnnt_loss_simple
 from cat_tpu_torch.ops.specaug import draw_time_masks, mask_time, specaug
 
@@ -53,16 +55,20 @@ class TransducerModel(nn.Module):
         return draw_time_masks(gen, lengths, self.num_predictor_mask, cap,
                                ratio)
 
+    def predict_labels(self, labels, llens, gen=None):
+        """The predictor over <bos> + labels (N, U+1, Dp), with the time
+        masks in training mode."""
+        pred, _ = self.predictor(F.pad(labels.long(), (1, 0)), llens + 1, gen)
+        if self.training and self.num_predictor_mask > 0:
+            pred = mask_time(pred, *self.draw_predictor_masks(
+                gen, llens + 1, pred.shape[1]))
+        return pred
+
     def forward(self, feats, flens, labels, llens, gen=None):
         """-> (logits (N, T', U+1, V) f32, or (f, g) for a LogAdd joiner,
         output lengths)."""
         enc, olens = self.encoder(feats, flens, gen)
-        pred_in = F.pad(labels.long(), (1, 0))
-        pred, _ = self.predictor(pred_in, llens + 1, gen)
-        if self.training and self.num_predictor_mask > 0:
-            pred = mask_time(pred, *self.draw_predictor_masks(
-                gen, llens + 1, pred.shape[1]))
-        return self.joiner(enc, pred), olens
+        return self.joiner(enc, self.predict_labels(labels, llens, gen)), olens
 
     def encode(self, feats, flens):
         return self.encoder(feats, flens)
@@ -120,18 +126,36 @@ def _append_eos(labels, llens, eos_id: int):
     return torch.where(pos == llens[:, None], eos_id, labels), llens + 1
 
 
+TOPOS = ("rnnt", "rna", "ctct")
+
+
+def transducer_nll(model, out, labels, olens, llens, joiner_normalized=False,
+                   topo="rnnt"):
+    """Per-sequence NLL of the joiner's output `out`: a LogAdd joiner's
+    (f, g) go to the fused simple loss; other logits are log-softmaxed
+    (unless the joiner normalises, HAT) and go to `rnnt_loss`, or to the
+    monotonic `rnnt_loss_rna` for topo "rna"/"ctct"."""
+    if topo not in TOPOS:
+        raise ValueError(f"RNN-T topo {topo!r} is not one of {TOPOS}")
+    if isinstance(model.joiner, LogAdd):
+        return rnnt_loss_simple(out[0].float(), out[1].float(), labels, olens,
+                                llens, reduction="none")
+    lp = out.float()
+    if not joiner_normalized:
+        lp = torch.log_softmax(lp, dim=-1)
+    loss = rnnt_loss if topo == "rnnt" else rnnt_loss_rna
+    return loss(lp, labels, olens, llens, reduction="none")
+
+
 def make_loss_fn(model, specaug_cfg: Optional[dict] = None,
                  joiner_normalized: bool = False, topo: str = "rnnt",
                  eos_id: int = -1):
     """Returns loss_fn(batch, gen, train) -> (weighted mean loss, per-
     sequence loss). joiner_normalized: the joiner gives log-probs (HAT).
-    eos_id >= 0 appends <eos> to the targets. A LogAdd joiner goes to the
-    fused simple loss. The caller sets the model's mode."""
-    if topo != "rnnt":
-        raise NotImplementedError(f"RNN-T topo {topo!r} (ops/rnnt_rna.py) is "
-                                  "not ported to cat_tpu_torch yet; see "
-                                  "ROADMAP.md")
-    is_simple = isinstance(model.joiner, LogAdd)
+    eos_id >= 0 appends <eos> to the targets. The loss is
+    `transducer_nll`'s. The caller sets the model's mode."""
+    if topo not in TOPOS:
+        raise ValueError(f"RNN-T topo {topo!r} is not one of {TOPOS}")
 
     def loss_fn(batch, gen, train):
         feats = batch["feats"]
@@ -143,15 +167,8 @@ def make_loss_fn(model, specaug_cfg: Optional[dict] = None,
             labels, llens = _append_eos(labels, llens, eos_id)
         out, olens = model(feats, flens, labels, llens,
                            gen if train else None)
-        if is_simple:
-            per_seq = rnnt_loss_simple(out[0].float(), out[1].float(),
-                                       labels, olens, llens,
-                                       reduction="none")
-        else:
-            lp = out.float()
-            if not joiner_normalized:
-                lp = torch.log_softmax(lp, dim=-1)
-            per_seq = rnnt_loss(lp, labels, olens, llens, reduction="none")
+        per_seq = transducer_nll(model, out, labels, olens, llens,
+                                 joiner_normalized, topo)
         w = batch["weight"].float()
         return (per_seq * w).sum() / torch.clamp_min(w.sum(), 1.0), per_seq
 

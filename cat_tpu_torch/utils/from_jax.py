@@ -1,7 +1,8 @@
 """Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s,
-`TDNN_NAS`'s, JoinAP encoder's or `TransducerModel`'s variables (nested dicts of numpy arrays, as in its
-checkpoints) to the port's state_dict (`model_state_dict` picks the
-converter by the port's model class).
+`TDNN_NAS`'s, JoinAP encoder's, `TransducerModel`'s or CUSIDE unified
+model's (`UnifiedEncoder`, `UnifiedTransducerModel`) variables (nested
+dicts of numpy arrays, as in its checkpoints) to the port's state_dict
+(`model_state_dict` picks the converter by the port's model class).
 
 Layouts handled:
 - cells are `cell_{i}` subtrees, or one `cells` subtree whose leaves carry
@@ -209,11 +210,58 @@ def encoder_state_dict(encoder, params, batch_stats):
 
 
 def model_state_dict(model, params, batch_stats):
-    """The state_dict of the port's `model` (an encoder or a
-    `TransducerModel`) from the JAX model's variables."""
-    if type(model).__name__ == "TransducerModel":
+    """The state_dict of the port's `model` (an encoder, a
+    `TransducerModel` or a unified model) from the JAX model's
+    variables."""
+    name = type(model).__name__
+    if name == "TransducerModel":
         return transducer_state_dict(params, batch_stats, model.encoder)
+    if name in ("UnifiedEncoder", "UnifiedTransducerModel"):
+        return unified_state_dict(model, params, batch_stats)
     return encoder_state_dict(model, params, batch_stats)
+
+
+def simunet_state_dict(params, pre=""):
+    """The port's `SimuNet` state_dict from a JAX SimuNet's params: the
+    GRU cell (`GRUCell_0`, or `RNN_0/cell`) with its kernels transposed
+    and stacked in torch's gate order (r, z, n), bias_ih = (ir, iz, in)
+    and bias_hh = (0, 0, hn), flax's cell having no hr and hz biases;
+    then `Dense_0`, the output layer."""
+    cell = params.get("GRUCell_0") or params["RNN_0"]["cell"]
+    k = lambda g: np.asarray(cell[g]["kernel"]).T
+    b = lambda g: np.asarray(cell[g]["bias"])
+    hn = b("hn")
+    sd = {pre + "gru.weight_ih_l0": _t(np.concatenate([k("ir"), k("iz"),
+                                                       k("in")])),
+          pre + "gru.weight_hh_l0": _t(np.concatenate([k("hr"), k("hz"),
+                                                       k("hn")])),
+          pre + "gru.bias_ih_l0": _t(np.concatenate([b("ir"), b("iz"),
+                                                     b("in")])),
+          pre + "gru.bias_hh_l0": _t(np.concatenate(
+              [np.zeros(2 * hn.shape[0], np.float32), hn]))}
+    _dense(sd, pre + "out.", params["Dense_0"])
+    return sd
+
+
+def unified_state_dict(model, params, batch_stats):
+    """The state_dict of the port's CUSIDE `model` from the JAX one's
+    variables: a `UnifiedEncoder` (the CTC bin: `encoder`, its classifier
+    included, and `simu`) or a `UnifiedTransducerModel` (`uenc` holding
+    both, then the predictor and the joiner)."""
+    stats = batch_stats or {}
+    if type(model).__name__ == "UnifiedTransducerModel":
+        sd = {"uenc." + k: v for k, v in unified_state_dict(
+            model.uenc, params["uenc"], stats.get("uenc", {})).items()}
+        sd.update(predictor_state_dict(params.get("predictor", {}),
+                                       "predictor."))
+        sd.update(joiner_state_dict(params["joiner"], "joiner."))
+        return sd
+    enc = encoder_state_dict(model.encoder, params["encoder"],
+                             stats.get("encoder", {}))
+    sd = {"encoder." + k: v for k, v in enc.items()}
+    if model.simu is not None:
+        sd.update(simunet_state_dict(params["simu"], "simu."))
+    return sd
 
 
 def transducer_state_dict(params, batch_stats, encoder=None):

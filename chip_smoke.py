@@ -138,6 +138,29 @@ Phases, any failure exits non-zero:
    exactly the encoder launches of phase 6, 2 dropout, 1 rnnt_alpha, 1
    rnnt_beta and no CTC or den kernel per step; step time, audio-s/s,
    peak memory and the split of one step;
+10b. cuside: egs/aishell/exp/rnnt-cuside's model (a 12-cell, d = 256,
+   4-head, conv kernel 15, bf16 conformer under CUSIDE chunking: chunk
+   64, left 64, right 16, SimuNet; LSTM predictor of 256, LogAdd joiner;
+   V = CUSIDE_V) with seeded random weights: the encoder kernels (rows
+   2-3, 12-17, fwd and bwd) against their plain versions at its widths
+   (D = 256, F = 1024, H = 4, Dh = 64, the wgmma routes) on the training
+   batch's chunk windows (32 x 31 windows of T' = 35, every row valid)
+   and on its full pass, as phase 2 checks D = 512 (rates 0 and 0.1, two
+   calls bit for bit, each time beside its bound; the profiler's split
+   of the launches only at D = 512); one unified step
+   (`rnnt.train_unified`, dropout 0.1, SpecAugment) on the training
+   batch (U = T'//6 ids) against the plain bf16 and float32 steps with
+   phase 4's gates, loss_full, loss_chunk and loss_simu held as the
+   loss, launches pinned (CUSIDE_STEP: 12 cells x 2 passes of crf-v1's
+   per-cell counts, 4 dropout, 2 rnnt_alpha, 2 rnnt_beta); 2 warm-up and
+   5 timed steps (ms, audio-s/s, peak after reset_peak_memory_stats) and
+   the split of one (SpecAugment, full pass, chunk pass, SimuNet alone,
+   the two losses, backward, Adam); a CUSIDE CTC step
+   (`ctc.train_unified`, the same encoder with a head) against its plain
+   steps (CUSIDE_CTC_STEP: rows 18-19 once a pass); the monotonic RNA
+   loss (topo rna/ctct, a plain PyTorch scan) forward + backward timed
+   at the rnnt-v1 training batch's lattice beside rows 20-21, its NLL
+   within RNA_RTOL of float64;
 11. pipeline: `cat_tpu_torch.pipeline.asr.main` in-process, on data the
    script synthesizes in a temporary directory under build/ (removed at
    the end). (A) egs/libri/exp/crf-v1 at full width (17 cells, d = 512,
@@ -160,7 +183,17 @@ Phases, any failure exits non-zero:
    checkpoint writes, averaging, the beam's ms a batch and share of stage
    4, and the RTF. (B) egs/template/exp/asr-ctc as its files stand on
    yes/no tones (64 train, 20 dev, seed 0) until its run ends: at most 2
-   word errors on the dev set, 1 CTC alpha and 1 beta a step;
+   word errors on the dev set, 1 CTC alpha and 1 beta a step. (C)
+   egs/aishell/exp/rnnt-cuside's own files on (A)'s corpus (its
+   SimpleTokenizer at char level): the four stages, cut to max_epochs 1
+   and check_freq 2; CUSIDE_STEP a step, CUSIDE_EVAL an eval batch, none
+   skipped; stage 4 in mode "streaming" at beam 16 over a split of the
+   first 8 dev utterances in one batch (CUSIDE_UTTS, cut from 32 in 4
+   batches: the host beam),
+   each batch encoded by the chunk pass (CUSIDE_DECODE launches, every
+   attention call at T' = 35); then the averaged checkpoint greedy,
+   offline and streaming, over the same split: both decodes' RTF and
+   the streaming gap printed, no WER gated;
 11a. sharded: (A)'s corpus as npz shards of 32 utterances (6 shards),
    written by `python -m cat_tpu_torch.utils.data_prep --format shards`
    in-process with the fbank on the card, the train text beside them, and
@@ -197,9 +230,10 @@ Phases, any failure exits non-zero:
    the cached den_dense.npz's. TLG build and load seconds, states and
    arcs, native ms an utterance, the host share of stage 4 and its RTF;
 12. device: the card's name and power limit.
-With --profile, one serving forward and the two train steps also run
-under torch.profiler; the device time by kernel is printed and written to
-chiprun_out/profile.txt, profile_train.txt and profile_rnnt_train.txt.
+With --profile, one serving forward and the three train steps (crf-v1,
+rnnt-v1, aishell rnnt-cuside) also run under torch.profiler; the device
+time by kernel is printed and written to chiprun_out/profile.txt,
+profile_train.txt, profile_rnnt_train.txt and profile_cuside_train.txt.
 Annotation ranges on the device's timeline, such as the optimizer step's,
 are printed on a line of their own, outside the device time and the busy
 share.
@@ -289,6 +323,36 @@ RNNT_WDS_STEP = {k: (v // 17 * 12 if k in KERNELS[:8] else v)
                  for k, v in RNNT_STEP.items()}
 RNNT_WDS_EVAL = {k: (v // 17 * 12 if k in KERNELS[:4] else
                      int(k == "rnnt_alpha")) for k, v in SERVE.items()}
+# aishell rnnt-cuside (egs/aishell/exp/rnnt-cuside): 12 cells, d = 256, 4
+# heads, conv kernel 15, chunk 64, left 64, right 16, a SimuNet GRU of 256,
+# LogAdd joiner; V = 4,233: AISHELL-1's 4,231 characters, as the common
+# aishell recipes build the vocabulary, plus blank and <unk>
+CUSIDE_V = 4233
+CUSIDE_CELLS = 12
+# launches per unified step: crf-v1's per-cell counts (two FF launches a
+# cell, one of each other encoder kernel) for 12 cells in each of the two
+# passes, the subsampling's dropout both ways in each pass, and each pass's
+# lattice recursions; the CUSIDE CTC step has the CTC ones instead; an
+# eval batch runs both passes forward and each loss's alphas, a streaming
+# decode batch the chunk pass's forward kernels
+CUSIDE_STEP = {k: (v // 17 * 2 * CUSIDE_CELLS if k in KERNELS[:8] else 0)
+               for k, v in PER_STEP.items()}
+CUSIDE_STEP.update(dropout=4, rnnt_alpha=2, rnnt_beta=2)
+CUSIDE_CTC_STEP = dict(CUSIDE_STEP, rnnt_alpha=0, rnnt_beta=0, ctc_alpha=2,
+                       ctc_beta=2)
+CUSIDE_EVAL = {k: (v if k in KERNELS[:4] else 2 * int(k == "rnnt_alpha"))
+               for k, v in CUSIDE_STEP.items()}
+CUSIDE_DECODE = {k: (v // 2 if k in KERNELS[:4] else 0)
+                 for k, v in CUSIDE_STEP.items()}
+UNIFIED_TERMS = ("loss_full", "loss_chunk", "loss_simu")
+# aishell rnnt-cuside's stage 4 decodes 8 dev utterances in one batch, not
+# 32 in 4: the host beam (width 16) over a random model's long hypotheses
+# takes seconds a batch (stage 4 over 32 took 53.0 s on an H100 80GB HBM3
+# at 700 W)
+CUSIDE_UTTS = 8
+# the f32 RNA scan's NLL against float64 (about 3.4e3 nats at T' = 493,
+# where one f32 rounding is 2.4e-4 and 493 steps add up to 1e-4 relative)
+RNA_RTOL = 1e-4
 
 
 def log(*a):
@@ -580,13 +644,15 @@ def special_rows(t):
     """t (N, T, ...) with, in every utterance, rows 21..59 equal to row 20
     (as frames that a SpecAugment time mask zeroed are after the
     subsampling), rows 60..69 constant across their values and rows
-    70..74 zero."""
+    70..74 zero; below T = 75 the same pattern over rows scaled by T / 75
+    (T = 35: rows 10..27 equal to row 9, 28..31 constant, 32..34 zero)."""
     t = t.clone()
-    N = t.shape[0]
-    t[:, 21:60] = t[:, 20:21]
-    const = t[:, 60:70].reshape(N, 10, -1)
-    t[:, 60:70] = const[..., :1].expand_as(const).reshape(t[:, 60:70].shape)
-    t[:, 70:75] = 0
+    N, T = t.shape[:2]
+    a, b, c, e = (int(r * min(1.0, T / 75)) for r in (20, 60, 70, 75))
+    t[:, a + 1:b] = t[:, a:a + 1]
+    const = t[:, b:c].reshape(N, c - b, -1)
+    t[:, b:c] = const[..., :1].expand_as(const).reshape(t[:, b:c].shape)
+    t[:, c:e] = 0
     return t
 
 
@@ -603,18 +669,36 @@ STAGES = {"relpos_attention_fwd": ("wgmma",),
           "bn_out_bwd": ("prep", "down", "wgrad", "reduce")}
 
 
-def split_and_repro(name, call, what, calls=5):
+def split_and_repro(name, call, what, calls=5, split=True):
     """The launches inside one call of a staged kernel (`STAGES`), device
     ms by kernel name from torch.profiler over `calls` calls, where each
     stage must show device time and no other kernel of its own (named
-    `name`_...) may run; and two calls on the same inputs, which must
-    give the same bits (no atomics)."""
+    `name`_...) may run (skipped when not `split`); and two calls on the
+    same inputs, which must give the same bits (no atomics)."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    if split:
+        profile_split(name, call, what, calls)
+    first, second = call(), call()
+    if isinstance(first, torch.Tensor):
+        first, second = (first,), (second,)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[kernel] {name} bitwise reproducible over two calls ({what}): "
+        f"{same}")
+    if not same:
+        fail(f"{name}: two calls on the same inputs differ")
+
+
+def profile_split(name, call, what, calls):
+    """The device ms of each launch of `name`'s stages over `calls` calls
+    (torch.profiler); fails unless each stage shows device time and no
+    other kernel of its own runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             call()
@@ -646,14 +730,6 @@ def split_and_repro(name, call, what, calls=5):
         if missing or strays:
             fail(f"{name} ({what}): stages without device time {missing}, "
                  f"other kernels of its own {sorted(strays)}")
-    first, second = call(), call()
-    if isinstance(first, torch.Tensor):
-        first, second = (first,), (second,)
-    same = all(torch.equal(a, b) for a, b in zip(first, second))
-    log(f"[kernel] {name} bitwise reproducible over two calls ({what}): "
-        f"{same}")
-    if not same:
-        fail(f"{name}: two calls on the same inputs differ")
 
 
 def ffn_fwd_products(x, ffp, what):
@@ -670,19 +746,28 @@ def ffn_fwd_products(x, ffp, what):
         f"{up:.4f} ms, down {down:.4f} ms, sum {up + down:.4f} ms")
 
 
-def phase_backward_kernels(gen, rec):
+def phase_backward_kernels(gen, rec, D=512, F=2048, H=8, tl=None,
+                           where="training batch", splits=True):
     """Backward kernels, and the forward kernels with dropout, against their
-    plain versions at the training batch's shapes, rates 0 and 0.1, on
-    inputs with identical, constant and zero rows (`special_rows`); the
-    JSON records of all eight kernels are timed here at rate 0.1."""
+    plain versions at the shapes of `where`: model width D, FF width F, H
+    heads, the T' of each utterance `tl` (the training batch's by
+    default); rates 0 and 0.1, on inputs with identical, constant and
+    zero rows (`special_rows`); `rec`'s records of all eight kernels are
+    timed here at rate 0.1. With `splits`, each staged kernel's launches
+    are also split by torch.profiler (`split_and_repro`). (The conv
+    module's kernel size does not enter rows 14-17: the depthwise conv
+    runs between them, outside the kernels.)"""
     import torch
     from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops import attention, conv_module, ffn
 
     dev, bf = "cuda", torch.bfloat16
-    D, F, H = 512, 2048, 8
     Dh = D // H
-    tl = [subsampled(f) for f in TRAIN_FRAMES]
+
+    def repro(*args):
+        split_and_repro(*args, split=splits)
+
+    tl = tl or [subsampled(f) for f in TRAIN_FRAMES]
     N, T = len(tl), max(tl)
     R, Rv = N * T, sum(tl)
     lengths = torch.tensor(tl, device=dev)
@@ -735,17 +820,21 @@ def phase_backward_kernels(gen, rec):
         compare(f"bn_out_fwd {tag}",
                 conv_module.bn_out_forward(c, x, mask, *bnp, **kw),
                 conv_module.bn_out_reference(c, x, mask, *bnp, **kw))
+        before = attention.relpos_attention_forward.routes["wgmma"]
         out, lse = attention.relpos_attention_forward(*att, **kw)
+        if attention.relpos_attention_forward.routes["wgmma"] != before + 1:
+            fail("relpos_attention_fwd: Dh = 64 did not take the wgmma "
+                 "route")
         ref_out, ref_lse = attention.relpos_attention_reference_lse(*att,
                                                                     **kw)
         compare(f"relpos_attention_fwd {tag}", out, ref_out, mask)
         vm = mask[:, None, :].expand_as(lse)
         compare(f"relpos_attention_fwd lse {tag}", lse[vm], ref_lse[vm])
-        log(f"[kernel] forward kernels with dropout at the training batch, "
+        log(f"[kernel] forward kernels with dropout at the {where}, "
             f"{tag}: ffn, bn_out, attention (out and lse) agree")
-        split_and_repro("relpos_attention_fwd",
+        repro("relpos_attention_fwd",
                         lambda: attention.relpos_attention_forward(*att, **kw),
-                        f"training batch, {tag}")
+                        f"{where}, {tag}")
 
         e_ff = grads(f"ffn_bwd {tag}", ffn.ff_backward(x, *ffp, do, **kw),
                      ffn.ff_backward_reference(x, *ffp, do, **kw), flat)
@@ -770,15 +859,15 @@ def phase_backward_kernels(gen, rec):
                                            f"d{i + 3}", a, b)
                                for i, (a, b) in enumerate(zip(got[3:],
                                                               want[3:]))])
-        log(f"[kernel] backward kernels at the training batch, {tag}: max "
+        log(f"[kernel] backward kernels at the {where}, {tag}: max "
             f"err ffn {e_ff:.4g}, glu_in {e_glu:.4g}, bn_out {e_bn:.4g}, "
             f"attention {e_att:.4g} (max abs err over all outputs)")
         del got, want
         torch.cuda.empty_cache()
-        split_and_repro("relpos_attention_bwd",
+        repro("relpos_attention_bwd",
                         lambda: attention.relpos_attention_backward(
                             *att, out, lse, dao, **kw),
-                        f"training batch, {tag}")
+                        f"{where}, {tag}")
         if rate == 0.0:
             continue
         # the JSON records: the training batch at rate 0.1, as in training;
@@ -832,12 +921,12 @@ def phase_backward_kernels(gen, rec):
                 10 * Rv * D * F,
                 3 * Rv * D * 2 + 2 * D * F * 2 + 2 * D * F * 4
                 + (4 * D + F) * 4 * 2, what + f" F={F}")
-        split_and_repro("ffn_bwd",
+        repro("ffn_bwd",
                         lambda: ffn.ff_backward(x, *ffp, do, **kw),
-                        f"training batch, rate {rate}")
-        split_and_repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp, **kw),
-                        f"training batch, rate {rate}")
-        ffn_fwd_products(x, ffp, "training batch")
+                        f"{where}, rate {rate}")
+        repro("ffn_fwd", lambda: ffn.ff_forward(x, *ffp, **kw),
+                        f"{where}, rate {rate}")
+        ffn_fwd_products(x, ffp, where)
         rec.add("glu_in_bwd", "cat_tpu_torch/csrc/glu_in.cu",
                 "cat_tpu/ops/conv_module_pallas.py:71", e_glu,
                 timed(lambda: conv_module.glu_in_backward(x, mask, *glp, do),
@@ -847,12 +936,12 @@ def phase_backward_kernels(gen, rec):
                 12 * Rv * D * D,
                 3 * Rv * D * 2 + Rv * 4 + 2 * D * D * (2 + 4) + 8 * D * 4,
                 what)
-        split_and_repro("glu_in_bwd",
+        repro("glu_in_bwd",
                         lambda: conv_module.glu_in_backward(x, mask, *glp, do),
-                        "training batch")
-        split_and_repro("glu_in_fwd",
+                        where)
+        repro("glu_in_fwd",
                         lambda: conv_module.glu_in_forward(x, mask, *glp),
-                        "training batch")
+                        where)
         rec.add("bn_out_bwd", "cat_tpu_torch/csrc/bn_out.cu",
                 "cat_tpu/ops/conv_module_pallas.py:261", e_bn,
                 timed(lambda: conv_module.bn_out_backward(c, x, mask, *bnp, do,
@@ -861,16 +950,16 @@ def phase_backward_kernels(gen, rec):
                     c, x, mask, *bnp, do, **kw), 3, 1),
                 4 * Rv * D * D,
                 3 * Rv * D * 2 + Rv * 4 + D * D * (2 + 4) + 10 * D * 4, what)
-        split_and_repro("bn_out_bwd",
+        repro("bn_out_bwd",
                         lambda: conv_module.bn_out_backward(c, x, mask, *bnp,
                                                             do, **kw),
-                        f"training batch, rate {rate}, "
+                        f"{where}, rate {rate}, "
                         f"{conv_module.bn_out_plan(R, D).splits} wgrad "
                         f"splits")
-        split_and_repro("bn_out_fwd",
+        repro("bn_out_fwd",
                         lambda: conv_module.bn_out_forward(c, x, mask, *bnp,
                                                            **kw),
-                        f"training batch, rate {rate}")
+                        f"{where}, rate {rate}")
         # eight L x L x Dh products per utterance and head (scores and
         # position scores recomputed, dO.V^T, dV, dK, dq's two, dp); q, k,
         # v, dO read and dq, dk, dv written for the valid rows, p read and
@@ -1322,9 +1411,11 @@ def step_once(model, start, make_step, batch, encoder, patches=None,
     `patches` ({module: {name: fn}}) and, with `f32`, the encoder in
     float32 throughout. The SpecAugment masks and dropout seeds come from a
     generator of seed 5.
-    Returns the loss, grad norm and skipped flag, the unclipped gradients,
-    the updated buffers, and under "logits" and "dlogits" the encoder's
-    output (a CTC model's logits) and the loss's gradient at it."""
+    Returns the loss, grad norm and skipped flag, the unified trainers'
+    loss terms, the unclipped gradients, the updated buffers, and under
+    "logits" and "dlogits" the encoder's output at its first call (a CTC
+    model's logits; a unified model's full pass) and the loss's gradient
+    at it."""
     import torch
     from cat_tpu_torch.ctc.train import init_state
 
@@ -1332,8 +1423,9 @@ def step_once(model, start, make_step, batch, encoder, patches=None,
     seen = {}
 
     def hook(_m, _i, out):
-        out[0].retain_grad()
-        seen["out"] = out[0]
+        if "out" not in seen:
+            out[0].retain_grad()
+            seen["out"] = out[0]
 
     with ExitStack() as stack:
         for mod, fns in (patches or {}).items():
@@ -1351,6 +1443,7 @@ def step_once(model, start, make_step, batch, encoder, patches=None,
     out = seen["out"]
     return {"loss": m["loss"].item(), "grad_norm": gn,
             "skipped": m["skipped"],
+            "terms": {t: m[t].item() for t in UNIFIED_TERMS if t in m},
             "grads": {n: (p.grad.detach().float() * unclip
                           if p.grad is not None else torch.zeros_like(p))
                       for n, p in model.named_parameters()},
@@ -1376,7 +1469,8 @@ def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
 
 
 def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
-                field=None, float32_model=False, judge_float32=False):
+                field=None, float32_model=False, judge_float32=False,
+                where="serving batch"):
     """One train step with the kernels, `run(None, False)`, against the
     same step on every kernel's plain version (the encoder's fused ops,
     the dropout and the losses) in bf16, `run(plain_patches(), False)`,
@@ -1391,7 +1485,9 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
     cosine to the float32 step is at least STEP_COS and at least the
     plain bf16 step's: the float32 step judges where the two bf16 steps
     disagree (the random JoinAP models, whose logits are an order of
-    magnitude larger than crf-v1's)."""
+    magnitude larger than crf-v1's). A unified trainer's loss terms
+    (loss_full, loss_chunk, loss_simu) are held as the loss is. `where`
+    names the batch."""
     import torch
     from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops.specaug import draw_masks
@@ -1446,8 +1542,16 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
                       / p["buffers"][n].norm()).item() for n in k["buffers"]),
                     default=0.0)
     loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    terms_rel = {t: abs(v - p["terms"][t]) / abs(p["terms"][t])
+                 for t, v in k["terms"].items()}
     gn_rel = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
-    log(f"[step] {what} train step on the serving batch (dropout, "
+    if terms_rel:
+        log(f"[step] {what} loss terms, kernels / plain bf16 / plain "
+            f"float32 (kernels vs plain rel, tol {STEP_LOSS_REL}): "
+            + "; ".join(f"{t} {k['terms'][t]:.6g} / {p['terms'][t]:.6g} / "
+                        f"{r['terms'][t]:.6g} ({e:.3g})"
+                        for t, e in terms_rel.items()))
+    log(f"[step] {what} train step on the {where} (dropout, "
         f"SpecAugment), kernels / plain bf16 / plain float32: loss "
         f"{k['loss']:.6g} / {p['loss']:.6g} / {r['loss']:.6g} (kernels vs "
         f"plain rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); grad norm "
@@ -1476,7 +1580,8 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
            f"plain step the float32 step)" if float32_model
            else f" (kernels within {STEP_CONTROL}x plain)"))
     if loss_rel > STEP_LOSS_REL or gn_rel > STEP_GNORM_REL \
-            or stats_rel > STEP_STATS_REL or unjudged:
+            or stats_rel > STEP_STATS_REL or unjudged \
+            or any(e > STEP_LOSS_REL for e in terms_rel.values()):
         fail(f"the {what} kernel train step does not agree with the plain "
              "one")
     if float32_model:
@@ -2628,6 +2733,362 @@ def phase_rnnt_training(cfg, profile):
     return launches
 
 
+def cuside_config():
+    with open(os.path.join(REPO, "egs/aishell/exp/rnnt-cuside/config.json")) \
+            as f:
+        return json.load(f)
+
+
+def cuside_model(task, cfg, perturbed=True):
+    """The model of `task` (`rnnt.train_unified` or `ctc.train_unified`)
+    for aishell rnnt-cuside's config over V = CUSIDE_V, seeded random
+    weights (and random biases, norms and statistics, SimuNet's recurrent
+    r and z biases kept at zero)."""
+    import torch
+    model = task.build_model(cfg, num_classes=CUSIDE_V, device="cuda",
+                             seed=0)
+    if perturbed:
+        perturb(model, torch.Generator().manual_seed(1))
+        simu = model.uenc.simu if hasattr(model, "uenc") else model.simu
+        with torch.no_grad():
+            simu.gru.bias_hh_l0[:2 * simu.hidden] = 0
+    return model
+
+
+def phase_cuside(card, profile=False):
+    """[cuside] aishell rnnt-cuside on the card: rows 2-3 and 12-17 against
+    their plain versions at its widths (D = 256, F = 1024, H = 4, Dh = 64)
+    on the chunk windows of the training batch (N·C windows of T' = 35,
+    every row valid) and on its full pass (T' = 299..493); the unified
+    transducer step at full width against the plain bf16 and float32 steps
+    with its launches pinned, then timed; a CUSIDE CTC step (the same
+    encoder with a head) against its plain steps; the monotonic RNA loss
+    (a plain PyTorch scan) timed at the rnnt-v1 shapes."""
+    import torch
+    import torch.nn.functional as F
+    from cat_tpu_torch.ctc import streaming
+    from cat_tpu_torch.ctc import train_unified as ctc_unified
+    from cat_tpu_torch.ops.rnnt import rnnt_loss
+    from cat_tpu_torch.ops.rnnt_rna import rnnt_loss_rna
+    from cat_tpu_torch.ops.specaug import specaug
+    from cat_tpu_torch.rnnt import train_unified
+    from cat_tpu_torch.rnnt.train import transducer_nll
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+
+    t_phase = time.perf_counter()
+    cfg = cuside_config()
+    enc, u = cfg["encoder"]["kwargs"], cfg["unified"]
+    D, H = enc["hdim"], enc["num_heads"]
+    win = u["left_context"] + u["chunk"] + u["right_context"]
+    tw = subsampled(win)
+    C = -(-max(TRAIN_FRAMES) // u["chunk"])
+    n_win = len(TRAIN_FRAMES) * C
+    log(f"[cuside] aishell rnnt-cuside ({card}): encoder {enc}, unified "
+        f"{u}; the training batch's {len(TRAIN_FRAMES)} utterances make "
+        f"{C} chunks each, {n_win} windows of {win} frames, T' = {tw}")
+
+    # 1. the encoder kernels at the recipe's widths, both passes' shapes
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rec = Records()  # logged beside their bounds, not in the JSON line
+    # the profiler's split stays with the D = 512 checks: a capture here
+    # once lost most of its events (no stage's launch missing from the
+    # CUDA-event timings or the bit-for-bit calls)
+    phase_backward_kernels(gen, rec, D, 4 * D, H, [tw] * n_win,
+                           f"CUSIDE chunk windows ({n_win} of T'={tw})",
+                           splits=False)
+    phase_backward_kernels(gen, rec, D, 4 * D, H, None,
+                           "CUSIDE full pass (the training batch)",
+                           splits=False)
+    log(f"[cuside] kernels at D={D}, F={4 * D}, H={H}, Dh={D // H} on both "
+        f"passes' shapes agree with their plain versions, two calls bit for "
+        f"bit; {time.perf_counter() - t:.1f} s")
+
+    # 2. the unified transducer step at full width
+    t = time.perf_counter()
+    batch = make_batch(TRAIN_FRAMES, seed=6, vocab=CUSIDE_V,
+                       frames_per_label=6)
+    tr = cfg["trainer"]
+    kw = dict(lamb_chunk=tr["lamb_chunk"], future=tr["future"])
+    model = cuside_model(train_unified, cfg)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def make_step():
+        sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+        return train_unified.make_train_step(
+            model, opt, cfg["specaug"], grad_clip=5.0, **kw), sched.lr, opt
+
+    steps_agree("aishell rnnt-cuside", lambda patches, f32: step_once(
+        model, start, make_step, batch, model.uenc.encoder, patches, f32),
+        batch, cfg["specaug"], CUSIDE_STEP, "full-pass encoder output",
+        where="training batch")
+    del model, start
+    torch.cuda.empty_cache()
+    log(f"[cuside] unified step vs plain bf16 and float32: "
+        f"{time.perf_counter() - t:.1f} s; launches a step {CUSIDE_STEP}")
+
+    model = cuside_model(train_unified, cfg, perturbed=False)
+    sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+    step = train_unified.make_train_step(model, opt, cfg["specaug"],
+                                         grad_clip=5.0, **kw)
+    gen = torch.Generator().manual_seed(7)
+    audio_s = sum(TRAIN_FRAMES) * 0.01
+    state, _, events, walls, peak = time_train_steps(
+        "cuside", "aishell rnnt-cuside ", step,
+        train_unified.init_state(model, opt), sched, batch, gen, CUSIDE_STEP)
+    log(f"[cuside] aishell rnnt-cuside, V = {CUSIDE_V}, training batch: "
+        f"{steps_line(events, walls, audio_s, peak)} (peak since "
+        f"reset_peak_memory_stats at the phase's first step)")
+    if profile:
+        phase_profile(lambda: step(state, batch, sched.lr, gen),
+                      "one aishell rnnt-cuside train step",
+                      "chiprun_out/profile_cuside_train.txt")
+
+    # the split of one step (CUDA events): SpecAugment, the full pass and
+    # the chunk pass (encoder, predictor and joiner each; the chunk pass
+    # with SimuNet), the two losses, the backward, Adam
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    labels, llens = batch["labels"], batch["label_lengths"]
+    flens, w = batch["feat_lengths"], batch["weight"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    feats = specaug(gen, batch["feats"], flens, **cfg["specaug"])
+    ev[1].record()
+    f_out, f_lens = model.full_forward(feats, flens, labels, llens, gen)
+    ev[2].record()
+    c_out, c_lens, l1 = model.chunk_forward(feats, flens, labels, llens, gen,
+                                            tr["future"])
+    ev[3].record()
+    lf = (transducer_nll(model, f_out, labels, f_lens, llens) * w).mean()
+    ev[4].record()
+    lc = (transducer_nll(model, c_out, labels, c_lens, llens) * w).mean()
+    ev[5].record()
+    ((1 - kw["lamb_chunk"]) * lf + kw["lamb_chunk"] * lc + l1).backward()
+    ev[6].record()
+    opt.step()
+    ev[7].record()
+    torch.cuda.synchronize()
+    part = [ev[i].elapsed_time(ev[i + 1]) for i in range(7)]
+    windows, _ = streaming.make_chunks(feats, u["chunk"], u["left_context"],
+                                       u["right_context"])
+    chunks = windows[:, :, u["left_context"]:u["left_context"] + u["chunk"]]
+    chunks = chunks.reshape(-1, u["chunk"], feats.shape[-1]).contiguous()
+    with torch.no_grad():
+        simu_ms = timed(lambda: model.uenc.simu(chunks), 5, 1)
+    log(f"[cuside] one step split (CUDA events, ms): SpecAugment "
+        f"{part[0]:.1f}, full pass {part[1]:.1f}, chunk pass {part[2]:.1f} "
+        f"(SimuNet's forward alone on its {chunks.shape[0]} chunks "
+        f"{simu_ms:.1f}), loss full {part[3]:.1f}, loss chunk {part[4]:.1f}, "
+        f"backward {part[5]:.1f}, Adam {part[6]:.1f}; sum "
+        f"{sum(part):.1f}")
+    del model, opt, state, step, f_out, c_out, lf, lc, l1, feats, windows
+    del chunks
+    torch.cuda.empty_cache()
+
+    # 3. a CUSIDE CTC step (the same encoder with a head)
+    t = time.perf_counter()
+    model = cuside_model(ctc_unified, cfg)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def make_ctc_step():
+        sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+        return ctc_unified.make_train_step(
+            model, opt, specaug_cfg=cfg["specaug"], grad_clip=5.0, **kw), \
+            sched.lr, opt
+
+    steps_agree("CUSIDE CTC", lambda patches, f32: step_once(
+        model, start, make_ctc_step, batch, model.encoder, patches, f32),
+        batch, cfg["specaug"], CUSIDE_CTC_STEP, "full-pass logits",
+        where="training batch")
+    del model, start
+    torch.cuda.empty_cache()
+    log(f"[cuside] CUSIDE CTC step vs plain: {time.perf_counter() - t:.1f} "
+        f"s; launches a step {CUSIDE_CTC_STEP}")
+
+    # 4. the monotonic loss at the rnnt-v1 shapes, beside rows 20-21
+    g = torch.Generator(device="cuda").manual_seed(22)
+    rb = make_batch(TRAIN_FRAMES, seed=6, vocab=RNNT_V, frames_per_label=6)
+    tl = torch.tensor([subsampled(f) for f in TRAIN_FRAMES], device="cuda")
+    lab, ll = rb["labels"], rb["label_lengths"]
+    lp = torch.log_softmax(torch.randn(len(TRAIN_FRAMES), int(tl.max()),
+                                       lab.shape[1] + 1, RNNT_V, generator=g,
+                                       device="cuda"), -1)
+    lp.requires_grad_()
+
+    def fwd_bwd(loss):
+        lp.grad = None
+        loss(lp, lab, tl, ll).backward()
+
+    rna_ms = timed(lambda: fwd_bwd(rnnt_loss_rna), 3, 1)
+    rnnt_ms = timed(lambda: fwd_bwd(rnnt_loss), 3, 1)
+    nll = rnnt_loss_rna(lp.detach(), lab, tl, ll, reduction="none")
+    want = rnnt_loss_rna(lp.detach()[:2].double().cpu(), lab[:2].cpu(),
+                         tl[:2].cpu(), ll[:2].cpu(), reduction="none")
+    err = ((nll[:2].double().cpu() - want).abs() / want.abs()).max().item()
+    if not (torch.isfinite(nll).all() and torch.isfinite(lp.grad).all()) \
+            or err > RNA_RTOL:
+        fail(f"rnnt_loss_rna at the rnnt-v1 shapes: finite "
+             f"{bool(torch.isfinite(nll).all())}, rel err to float64 {err}")
+    log(f"[cuside] rnnt_loss_rna (topo rna/ctct; a plain PyTorch scan, no "
+        f"kernel) at the rnnt-v1 training batch's lattice {tuple(lp.shape)}: "
+        f"forward + backward {rna_ms:.2f} ms (CUDA events, 3 calls), "
+        f"rnnt_loss (rows 20-21) on the same tables {rnnt_ms:.2f} ms; "
+        f"NLL within {err:.3g} relative of float64 on the CPU (2 "
+        f"utterances)")
+    del lp, nll
+    torch.cuda.empty_cache()
+    log(f"[cuside] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def pipeline_cuside(root, data, card):
+    """aishell rnnt-cuside's own files (12 cells, d = 256, bf16, LogAdd,
+    SpecAugment, Noam + Adam, best-5 averaging, decode mode "streaming"
+    at beam 16, CER) through stages 1-3 on the crf-v1 corpus at `data`,
+    its SimpleTokenizer at char level, then stage 4 on a split of the
+    first CUSIDE_UTTS dev utterances; then the averaged model greedy,
+    offline and streaming, over that split. Cuts: the data paths,
+    max_epochs 60 -> 1, check_freq 2000 -> 2, the decoded dev utterances
+    32 -> CUSIDE_UTTS in one batch (decode.num_buckets 4 -> 1)."""
+    import torch
+    from cat_tpu_torch.models.layers import RelPositionMultiHeadAttention
+    from cat_tpu_torch.pipeline import asr, tasks
+    from cat_tpu_torch.rnnt.decode import RNNTBeamDecoder, make_greedy_decoder
+    from cat_tpu_torch.utils import checkpoint
+    from cat_tpu_torch.utils import tokenizer as tknz
+    from cat_tpu_torch.utils.data import (BucketedLoader, SpeechDataset,
+                                          pack_speech_data)
+    from cat_tpu_torch.utils.wer import wer
+
+    def edit(hyper, config):
+        hyper["train"]["option"].update(max_epochs=1, check_freq=2)
+
+    expdir = os.path.join(root, "exp")
+    hyper, config = recipe("aishell/exp/rnnt-cuside", expdir, data, edit)
+    watch = Stopwatch()
+    # each decode batch's launches, whether it encoded by the chunk pass,
+    # and the T' of every attention call while stage 4 decodes
+    decodes, streaming, shapes, averaged = [], [], set(), {}
+    decoding = []
+    beam_decode = RNNTBeamDecoder.decode
+    attend = RelPositionMultiHeadAttention.forward
+
+    def decode(self, feats, flens, nbest=1):
+        before = counts()
+        streaming.append(self.encode == self.model.encode_streaming)
+        decoding.append(True)
+        try:
+            out = beam_decode(self, feats, flens, nbest)
+        finally:
+            decoding.clear()
+        torch.cuda.synchronize()
+        decodes.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    def attention_forward(self, x, *args, **kwargs):
+        if decoding:
+            shapes.add(x.shape[1])
+        return attend(self, x, *args, **kwargs)
+
+    def keep_average(out, paths, model=None):
+        averaged.update(paths=list(paths), state=out)
+
+    extra = {RNNTBeamDecoder: {"decode": decode},
+             RelPositionMultiHeadAttention: {"forward": attention_forward},
+             checkpoint: {"average_checkpoints": watch.wrap(
+                 "average_checkpoints", checkpoint.average_checkpoints,
+                 after=keep_average)}}
+    probes, total = run_pipeline(expdir, watch, extra, ["--stop_stage", "3"])
+    main_s = watch.s["main"]
+    dev = SpeechDataset(os.path.join(expdir, "pkl", "dev"))
+    split = f"dev{CUSIDE_UTTS}"
+    pack_speech_data(os.path.join(expdir, "pkl", split),
+                     [(dev.uids[i], *dev[i]) for i in range(CUSIDE_UTTS)])
+    # one decode batch: the host beam's cost goes by frames and batches
+    hyper["inference"]["split"] = split
+    hyper["inference"]["decode"]["num_buckets"] = 1
+    with open(os.path.join(expdir, "hyper-p.json"), "w") as f:
+        json.dump(hyper, f, indent=1)
+    _, total4 = run_pipeline(expdir, watch, extra, ["--start_stage", "4"])
+    total = {k: v + total4[k] for k, v in total.items()}
+    res = check_outputs(expdir, CUSIDE_UTTS, "aishell rnnt-cuside pipeline",
+                        split)
+    if len(probes) != 1:
+        fail(f"aishell rnnt-cuside pipeline built {len(probes)} Managers")
+    pr = probes[0]
+    check_probe(pr, CUSIDE_STEP, CUSIDE_EVAL, "aishell rnnt-cuside pipeline")
+    n_steps, n_evals, n_dec = len(pr.train), len(pr.evals), len(decodes)
+    tw = subsampled(sum(config["unified"][k] for k in (
+        "chunk", "left_context", "right_context")))
+    if (res["mode"] != "streaming" or not n_steps or not n_dec
+            or not all(streaming) or shapes != {tw}
+            or any(d != CUSIDE_DECODE for d in decodes)):
+        fail(f"aishell rnnt-cuside stage 4: mode {res['mode']}, {n_steps} "
+             f"micro-steps, {n_dec} decode batches (streaming {streaming}), "
+             f"attention T' {shapes}, launches {decodes}")
+    want = {k: n_steps * CUSIDE_STEP[k] + n_evals * CUSIDE_EVAL[k]
+            + n_dec * CUSIDE_DECODE[k] for k in KERNELS}
+    if total != want:
+        fail(f"aishell rnnt-cuside pipeline launches {total} != {want}")
+
+    # the averaged checkpoint, greedy: offline (the full pass) and
+    # streaming (the chunk pass)
+    tok = tknz.load(os.path.join(expdir, "tokenizer.tknz"))
+    dev = SpeechDataset(os.path.join(expdir, "pkl", split))
+    model = tasks.train_module(hyper["train"]["bin"]).build_model(
+        asr._with_feat_dim(config, dev.feat_dim), num_classes=tok.vocab_size,
+        device="cuda")
+    model.load_state_dict(averaged["state"])
+    model.eval()
+    opts = hyper["train"]["option"]
+    loader = BucketedLoader(dev, shuffle=False,
+                            frame_budget=opts["frame_budget"], num_buckets=1)
+    audio_s = sum(dev.frame_length(i) for i in range(len(dev))) * 0.01
+    greedy = {}
+    for mode in ("offline", "streaming"):
+        dec = make_greedy_decoder(model, streaming=mode == "streaming")
+        refs, hyps = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in loader:
+            toks, cnt = (x.cpu().numpy() for x in dec(b.feats,
+                                                      b.feat_lengths))
+            for n in range(len(cnt)):
+                if b.weight[n] > 0:
+                    refs.append(tok.decode([int(x) for x in b.labels[
+                        n, :b.label_lengths[n]]]))
+                    hyps.append(tok.decode([int(x) for x in
+                                            toks[n, :cnt[n]]]))
+        wall = time.perf_counter() - t
+        r = wer(refs, hyps, char_level=True)
+        greedy[mode] = (r["wer"], wall / audio_s, len(refs))
+    if any(n != CUSIDE_UTTS for _, _, n in greedy.values()):
+        fail(f"aishell rnnt-cuside greedy decoding: {greedy}")
+    s = watch.s
+    log(f"[cuside] aishell rnnt-cuside pipeline ({card}): stages 1-3 in "
+        f"{main_s:.1f} s, stage 4 {s['main']:.1f} s: pack "
+        f"{s['stage_pack']:.1f}, train "
+        f"{s['stage_train']:.1f}, decode {s['stage_decode']:.1f}; V = "
+        f"{tok.vocab_size} (chars of the corpus); {n_steps} steps (ms "
+        f"{[round(r['ms'], 1) for r in pr.train]}, CUDA events), losses "
+        f"{[round(r['loss'], 2) for r in pr.train]}, none skipped; "
+        f"{n_evals} eval batches; launches {CUSIDE_STEP} a step, "
+        f"{CUSIDE_EVAL} an eval batch; {len(pr.saves)} checkpoint writes, "
+        f"{len(averaged['paths'])} averaged")
+    log(f"[cuside] stage 4, mode streaming, beam 16 over {CUSIDE_UTTS} dev "
+        f"utterances: {n_dec} batches, each the chunk pass's forward "
+        f"kernels ({CUSIDE_DECODE}) at attention T' = {tw}; CER "
+        f"{res['wer']:.2f} %, RTF {res['rtf']:.4f}. The same averaged "
+        f"checkpoint greedy: offline CER {greedy['offline'][0]:.2f} %, RTF "
+        f"{greedy['offline'][1]:.4f}; streaming CER "
+        f"{greedy['streaming'][0]:.2f} %, RTF {greedy['streaming'][1]:.4f}; "
+        f"streaming gap {greedy['streaming'][0] - greedy['offline'][0]:+.2f} "
+        f"CER points (a random model after {n_steps} steps: not gated)")
+    del model
+    torch.cuda.empty_cache()
+
+
 PIPE_FOLD = 2       # crf-v1 trains at grad_accum_fold 16: cut to 2
 # packed features vs the CPU fbank (the tolerance of
 # tests/test_torch_fbank.py): within FEAT_ATOL + FEAT_RTOL·|x| in every
@@ -2828,9 +3289,10 @@ def run_pipeline(expdir, watch, extra=None, args=()):
 
 def check_outputs(expdir, n_dev, what, split="dev", train_packed=True):
     """The four stages' files (pkl/train unless the train set streams from
-    shards), one hypothesis and one n-best entry per utterance of the
-    decoded split, every number of wer_<split>.json finite; returns the
-    WER record."""
+    shards), one hypothesis (a line with a tab: a char-level tokenizer's
+    units include the corpus file's newline, which a hypothesis may hold)
+    and one n-best entry per utterance of the decoded split, every number
+    of wer_<split>.json finite; returns the WER record."""
     from cat_tpu_torch.utils.nbest import read_nbest
     for name in ("tokenizer.tknz",
                  *(("pkl/train/meta.npz",) if train_packed else ()),
@@ -2841,7 +3303,7 @@ def check_outputs(expdir, n_dev, what, split="dev", train_packed=True):
         if not os.path.exists(os.path.join(expdir, name)):
             fail(f"{what}: no {name}")
     with open(os.path.join(expdir, f"decode_{split}.txt")) as f:
-        lines = f.read().splitlines()
+        lines = [line for line in f.read().splitlines() if "\t" in line]
     nbest = read_nbest(os.path.join(expdir, f"nbest_{split}.pkl"))
     with open(os.path.join(expdir, f"wer_{split}.json")) as f:
         res = json.load(f)
@@ -2869,7 +3331,8 @@ def phase_pipeline(card):
     """[pipeline] `python -m cat_tpu_torch.pipeline.asr` in-process on
     synthesized data in a temporary directory under build/, removed at the
     end: crf-v1's recipe at full width through its four stages, then the
-    asr-ctc toy recipe to the end of its training, then [sharded] (crf-wds
+    asr-ctc toy recipe to the end of its training, aishell rnnt-cuside's
+    four stages on crf-v1's corpus ([cuside]), then [sharded] (crf-wds
     and rnnt-wds from shards of crf-v1's corpus), then [wfst] on the
     crf-wds expdir (the phase's seconds include both)."""
     import shutil
@@ -2881,6 +3344,10 @@ def phase_pipeline(card):
     try:
         pipeline_crf_v1(os.path.join(root, "crf-v1"), card)
         pipeline_toy(os.path.join(root, "asr-ctc"), card)
+        t = time.perf_counter()
+        pipeline_cuside(os.path.join(root, "cuside"),
+                        os.path.join(root, "crf-v1", "data"), card)
+        log(f"[cuside] pipeline {time.perf_counter() - t:.1f} s ({card})")
         pipeline_sharded(root, card)
         t = time.perf_counter()
         pipeline_wfst(os.path.join(root, "crf-wds"), card)
@@ -2943,11 +3410,11 @@ def pipeline_crf_v1(root, card):
             beams.append((lp.clone(), olens.clone(), kw,
                           [x.clone() for x in out]))
 
-    def before_forward(model, feats, flens):
+    def before_forward(model, feats, flens, *_):
         decodes.append(counts())
         averaged.setdefault("model", model)
 
-    def after_forward(out, model, feats, flens):
+    def after_forward(out, model, feats, flens, *_):
         before = decodes.pop()
         decodes.append({k: v - before[k] for k, v in counts().items()})
 
@@ -3329,10 +3796,10 @@ def pipeline_wfst(root, card):
     watch = Stopwatch()
     forwards, kept, rows = [], {}, []
 
-    def before_forward(model, feats, flens):
+    def before_forward(model, feats, flens, *_):
         forwards.append(counts())
 
-    def after_forward(out, model, feats, flens):
+    def after_forward(out, model, feats, flens, *_):
         before = forwards.pop()
         forwards.append({k: v - before[k] for k, v in counts().items()})
         for i in range(min(2 - len(rows), len(out[1]))):
@@ -3622,6 +4089,7 @@ def main():
     phase_rnnt_serving(rnnt_cfg)
     phase_rnnt_train_vs_plain(rnnt_cfg)
     rnnt_launches = phase_rnnt_training(rnnt_cfg, profile)
+    phase_cuside(card(), profile)
     phase_pipeline(card())
     # each kernel's launches on the main path that runs it: the crf-v1
     # training phase, or the rnnt-v1 one for the RNN-T lattice kernels

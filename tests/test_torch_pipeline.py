@@ -18,18 +18,29 @@ utterances of 1-3 words, 8 kHz tones).
   stage 1): asr-ctc-crf's stages 2-3 for one epoch; only dev is packed,
   and the denominator of the label-only pass over the shards,
   den_dense.npz, is JAX's `build_den(..., shard_pattern=...)` within 1e-6.
-- The five recipes of the JoinAP, TDNN and sharded slice pass
+- The five recipes of the JoinAP, TDNN and sharded slice and the two
+  CUSIDE recipes (aishell rnnt-cuside, template asr-rnnt-cuside) pass
   `check_train` and `check_decode` on their own files, and their models
   build on the CPU at the recipes' widths (P drawn from a seed, as
   `tests/test_recipes.py` draws it).
+- CUSIDE: stage 4 in mode "streaming" on a JAX unified checkpoint (the
+  asr-rnnt-cuside template's transducer, its chunked encoding under the
+  beam; a unified CTC model's `chunk_infer`, greedy at beam 1 and the
+  device beam at beam 4) equal to JAX's, as above; a model that is not
+  unified decodes "streaming" offline, as in JAX; the four stages of the
+  asr-rnnt-cuside template (bin `cat_tpu.rnnt.train_unified`) and of a
+  unified CTC experiment (bin `cat_tpu_torch.ctc.train_unified`) for one
+  epoch each.
 - Every path not ported raises NotImplementedError naming its ROADMAP.md
-  section; one map of train bins serves the pipeline and both decode
-  CLIs.
+  section; the streaming paths that raised before pass the checks; one
+  map of train bins, both packages' spellings of the unified bins too,
+  serves the pipeline and both decode CLIs.
 - Slow only: the asr-ctc template trained to its end, and the asr-rnnt
   template with the JAX package's converging toy transducer, each to at
   most 2 dev word errors (absolute counts); the asr-ctc template trained
   from shards to `tests/test_pipeline.py`'s WER gate (below 5 %: at most 1
-  error in the 37 dev words).
+  error in the 37 dev words); the asr-rnnt-cuside template to its end,
+  streaming and offline WERs finite.
 """
 import json
 import os
@@ -153,21 +164,23 @@ def test_build_den_matches_jax(yesno, tmp_path, order):
     np.testing.assert_array_equal(again.logw, den.logw)
 
 
-def _jax_checkpoint(expdir, config, family, tok, scale):
+def _jax_checkpoint(expdir, config, family, tok, scale, module="train"):
     """One checkpoint of the JAX package's own CheckpointManager, from
-    init_state, its output layer scaled by `scale`."""
+    init_state of cat_tpu.<family>.<module>, its output layer scaled by
+    `scale` (a LogAdd joiner's encoder projection)."""
     import importlib
 
     from cat_tpu.utils.scheduler import build_scheduler
-    task = importlib.import_module(f"cat_tpu.{family}.train")
+    task = importlib.import_module(f"cat_tpu.{family}.{module}")
     model = task.build_model(config, num_classes=tok.vocab_size)
     _, tx = build_scheduler(config["scheduler"])
     state = task.init_state(model, tx, 40)
     params = jax.tree_util.tree_map(np.asarray, state.params)
     if family == "ctc":
-        params["classifier"]["kernel"] = params["classifier"]["kernel"] * scale
+        head = params.get("encoder", params)["classifier"]
+        head["kernel"] = head["kernel"] * scale
     else:
-        out = params["joiner"]["fc_out"]
+        out = params["joiner"].get("fc_out", params["joiner"].get("fc_enc"))
         out["kernel"] = out["kernel"] * scale
     state = state.replace(params=params)
     JaxCkpt(os.path.join(expdir, "check")).save({"state": state}, 1.0, 1, 1)
@@ -246,6 +259,80 @@ def test_rnnt_stage_4_on_a_jax_checkpoint_matches_jax(staged, tmp_path):
                                              "asr-rnnt", edit)
     _jax_checkpoint(expdir, config, "rnnt", tok, scale=4.0)
     _assert_same_decode(*_decode_both(expdir))
+
+
+UNIFIED = {"chunk": 32, "left_context": 32, "right_context": 8,
+           "feat_dim": 40, "simu_hidden": 16}
+
+
+def _unified_ctc(mode, beam):
+    """The asr-ctc template as a CUSIDE CTC experiment."""
+    def edit(hyper, config):
+        hyper["train"]["bin"] = "cat_tpu.ctc.train_unified"
+        hyper["inference"]["decode"].update(mode=mode, beam_width=beam,
+                                            nbest=min(beam, 3))
+        config["unified"] = dict(UNIFIED)
+
+    return edit
+
+
+def test_rnnt_streaming_stage_4_on_a_jax_checkpoint_matches_jax(staged,
+                                                                tmp_path):
+    def edit(hyper, config):
+        hyper["inference"]["decode"].update(nbest=2)
+
+    expdir, hyper, config, tok = _stage_from(staged, tmp_path / "exp",
+                                             "asr-rnnt-cuside", edit)
+    assert hyper["inference"]["decode"]["mode"] == "streaming"
+    _jax_checkpoint(expdir, config, "rnnt", tok, 3.0, "train_unified")
+    _assert_same_decode(*_decode_both(expdir))
+
+
+@pytest.mark.parametrize("mode,beam", [("streaming", 1), ("streaming", 4),
+                                       ("greedy", 4)])
+def test_ctc_unified_stage_4_on_a_jax_checkpoint_matches_jax(
+        staged, tmp_path, mode, beam):
+    expdir, hyper, config, tok = _stage_from(staged, tmp_path / "exp",
+                                             "asr-ctc", _unified_ctc(mode,
+                                                                     beam))
+    _jax_checkpoint(expdir, config, "ctc", tok, 8.0, "train_unified")
+    _assert_same_decode(*_decode_both(expdir))
+
+
+def test_streaming_mode_of_a_model_not_unified_decodes_offline(staged,
+                                                               tmp_path):
+    def edit(hyper, config):
+        hyper["inference"]["decode"].update(mode="streaming", nbest=3)
+
+    expdir, hyper, config, tok = _stage_from(staged, tmp_path / "exp",
+                                             "asr-ctc", edit)
+    _jax_checkpoint(expdir, config, "ctc", tok, scale=8.0)
+    jax_out, port_out = _decode_both(expdir)
+    _assert_same_decode(jax_out, port_out)
+    assert port_out[1]["mode"] == "streaming"
+
+
+@pytest.mark.parametrize("template,bin_", [
+    ("asr-rnnt-cuside", "cat_tpu.rnnt.train_unified"),
+    ("asr-ctc", "cat_tpu_torch.ctc.train_unified")])
+def test_unified_four_stages_on_the_cpu(yesno, tmp_path, template, bin_):
+    def edit(hyper, config):
+        if template == "asr-ctc":
+            _unified_ctc("streaming", 2)(hyper, config)
+        hyper["train"]["bin"] = bin_
+        hyper["train"]["option"]["max_epochs"] = 1
+
+    expdir, _, _ = _expdir(tmp_path / "exp", yesno, template, edit)
+    asr.main([expdir, "--device", "cpu"])
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        res = json.load(f)
+    assert res["mode"] == "streaming" and res["num_words"] == 37
+    assert res["rtf"] > 0 and np.isfinite(res["wer"])
+    with open(os.path.join(expdir, "check", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert any("dev_loss" in r and np.isfinite(r["dev_loss"]) for r in rows)
+    with open(os.path.join(expdir, "decode_dev.txt")) as f:
+        assert len(f.read().splitlines()) == 20
 
 
 @pytest.mark.parametrize("template,beam", [("asr-ctc", 1), ("asr-ctc", 4),
@@ -350,7 +437,8 @@ def test_asr_ctc_from_shards_reaches_the_wer_gate(yesno, tmp_path):
 
 RECIPES = ["iumien/exp/crf-joinap", "cv-lang10/exp/multi-phoneme",
            "wsj/exp/crf-tdnn", "wenetspeech/exp/crf-wds",
-           "wenetspeech/exp/rnnt-wds"]
+           "wenetspeech/exp/rnnt-wds", "aishell/exp/rnnt-cuside",
+           "template/exp/asr-rnnt-cuside"]
 
 
 @pytest.mark.parametrize("name", RECIPES)
@@ -372,8 +460,9 @@ def test_recipe_passes_the_checks_and_builds(tmp_path, name):
         V = hyper["tokenizer"]["option-init"]["vocab_size"]
     model = tasks.train_module(hyper["train"]["bin"]).build_model(
         asr._with_feat_dim(config, 80), num_classes=V, device="cpu")
-    if type(model).__name__ == "TransducerModel":
-        assert model.joiner.fc_out.kernel.shape[-1] == V
+    if type(model).__name__ in ("TransducerModel", "UnifiedTransducerModel"):
+        fc = getattr(model.joiner, "fc_out", None) or model.joiner.fc_enc
+        assert fc.kernel.shape[-1] == V
         return
     if "pv_path" in kw:
         assert model.P.shape == (V, 51) and "P" not in model.state_dict()
@@ -408,9 +497,6 @@ UNPORTED = [
     (_hyper(train__bin="cat_tpu.lm.train_trf"), {}, "§A.5"),
     (_hyper(den_lm={"path": "den.fst"}), {"trainer": {"loss": "crf"}},
      "§A.6"),
-    (_hyper(inference__decode__mode="streaming"), {}, "§A.4"),
-    (_hyper(train__bin="cat_tpu.ctc.train_unified"), {}, "§A.4"),
-    (_hyper(train__bin="cat_tpu.rnnt.train_unified"), {}, "§A.4"),
     (_hyper(train__bin="cat_tpu.lm.train"), {}, "§A.5"),
     (_hyper(den_lm={"order": 4}), {"trainer": {"loss": "crf"}}, "§A.6"),
     (_hyper(), {"encoder": {"type": "VGGLSTM"}}, "§A.6"),
@@ -423,6 +509,19 @@ UNPORTED = [
     (_hyper(train__bin="cat_tpu.ctc.train_jsa"), {}, "§A.8"),
     (_hyper(train__bin="cat_tpu.p2g.train"), {}, "§A.8"),
 ]
+
+
+# the §A.4 cases of UNPORTED before the streaming slice: they pass now
+STREAMING = [_hyper(inference__decode__mode="streaming"),
+             _hyper(train__bin="cat_tpu.ctc.train_unified"),
+             _hyper(train__bin="cat_tpu.rnnt.train_unified")]
+
+
+@pytest.mark.parametrize("hyper", STREAMING)
+def test_streaming_paths_pass_the_checks(hyper):
+    asr.check_train(hyper, {})
+    asr.check_decode(hyper, {})
+    assert tasks.train_module(hyper["train"]["bin"]) is not None
 
 
 @pytest.mark.parametrize("hyper,config,section", UNPORTED)
@@ -467,9 +566,15 @@ def test_one_bin_map_serves_the_pipeline_and_both_clis(tmp_path,
     from cat_tpu_torch.ctc import train as ctc_train
     from cat_tpu_torch.rnnt import decode as rnnt_decode
     from cat_tpu_torch.rnnt import train as rnnt_train
+    from cat_tpu_torch.ctc import train_unified as ctc_unified
+    from cat_tpu_torch.rnnt import train_unified as rnnt_unified
     for pkg in ("cat_tpu", "cat_tpu_torch"):
         assert tasks.train_module(f"{pkg}.ctc.train") is ctc_train
         assert tasks.train_module(f"{pkg}.rnnt.train") is rnnt_train
+        assert tasks.train_module(f"{pkg}.ctc.train_unified") is ctc_unified
+        assert tasks.train_module(f"{pkg}.rnnt.train_unified",
+                                  "rnnt") is rnnt_unified
+        assert tasks.is_unified(f"{pkg}.rnnt.train_unified")
     with pytest.raises(ValueError, match="not a ctc trainer"):
         tasks.train_module("cat_tpu.rnnt.train", "ctc")
     assert not hasattr(ctc_decode, "_TRAIN_BINS")
@@ -569,3 +674,26 @@ def test_rnnt_toy_trains_to_at_most_2_word_errors(yesno_big, tmp_path,
     print(f"seed {seed}: {res['errors']} dev word errors of "
           f"{res['num_words']}")
     assert res["errors"] <= 2, res
+
+
+@pytest.mark.slow
+def test_asr_rnnt_cuside_template_trains_to_its_end(yesno_big, tmp_path):
+    """The asr-rnnt-cuside template as it stands (150 epochs at most,
+    early stop) on the larger toy set: streaming decoding of dev, then
+    offline greedy decoding of the same averaged checkpoint; both WERs
+    finite."""
+    expdir, _, _ = _expdir(tmp_path / "exp", yesno_big, "asr-rnnt-cuside")
+    asr.main([expdir, "--device", "cpu"])
+    res = {}
+    for mode in ("streaming", "greedy"):
+        if mode == "greedy":
+            with open(os.path.join(expdir, "hyper-p.json")) as f:
+                hyper = json.load(f)
+            hyper["inference"]["decode"]["mode"] = "greedy"
+            with open(os.path.join(expdir, "hyper-p.json"), "w") as f:
+                json.dump(hyper, f)
+            asr.main([expdir, "--start_stage", "4", "--device", "cpu"])
+        with open(os.path.join(expdir, "wer_dev.json")) as f:
+            res[mode] = json.load(f)
+        assert res[mode]["mode"] == mode and np.isfinite(res[mode]["wer"])
+    print({m: r["wer"] for m, r in res.items()})

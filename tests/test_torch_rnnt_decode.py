@@ -7,7 +7,8 @@
   with internal-LM subtraction.
 - The decode CLI (`python -m cat_tpu_torch.rnnt.decode`), greedy and
   beam, on a `cat_tpu.rnnt.train` experiment written by the test, against
-  `cat_tpu`'s decoders on the same checkpoint; unported options raise.
+  `cat_tpu`'s decoders on the same checkpoint; `--mode streaming` on it
+  (not a unified transducer) raises.
 The model: a 2-cell, d=64 conformer, a 2-layer LSTM predictor and an
 "add" joiner over V=12, random weights.
 """
@@ -158,10 +159,16 @@ def test_decode_cli_matches_jax(tmp_path, models, mode):
     assert out.read_text() == "".join(sorted(lines))
 
 
-def test_decode_cli_refuses_unported_options(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.4"):
+def test_decode_cli_refuses_unported_options(tmp_path, models):
+    """`--mode streaming` decodes a unified transducer
+    (`test_torch_rnnt_unified.py`); on this `cat_tpu.rnnt.train`
+    experiment it raises ValueError before decoding anything."""
+    _, variables, _ = models
+    _expdir(str(tmp_path), variables)
+    with pytest.raises(ValueError, match="unified transducer"):
         decode.main([str(tmp_path), "--device", "cpu", "--mode",
                      "streaming"])
+    assert not os.path.exists(tmp_path / "decode_dev.txt")
 
 
 @pytest.mark.parametrize("gz", [False, True])

@@ -10,8 +10,8 @@
   `HAT` one (`joiner_normalized`) against `cat_tpu.rnnt.train`'s, with
   its Pallas lattice scans in interpret mode (`CAT_TPU_RNNT_IMPL=pallas`).
 - `_append_eos` against JAX's; the predictor time mask (drawn from the
-  step's generator, then applied to the predictor output); unported
-  options raise.
+  step's generator, then applied to the predictor output); an unknown
+  topo and an unported joiner raise.
 The whole train step is in `test_torch_rnnt_train.py`, which shares this
 file's model (CFG) and batches. Tolerance: rtol 1e-4, atol 1e-4 unless
 stated.
@@ -214,9 +214,13 @@ def test_transducer_state_dict_both_layouts(scan_layers):
 
 
 def test_unported_options_raise():
+    """An unknown topo raises (the monotonic "rna" and "ctct" are ported,
+    `test_torch_rnnt_rna.py`); so does an unported joiner."""
     model = train.build_model(CFG, V, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_loss_fn(model, topo="rna")
+    with pytest.raises(ValueError, match="topo"):
+        train.make_loss_fn(model, topo="bogus")
+    for topo in ("rna", "ctct"):
+        train.make_loss_fn(model, topo=topo)
     bad = dict(CFG, joiner={"type": "Bogus", "kwargs": {}})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.build_model(bad, V, device="cpu")
