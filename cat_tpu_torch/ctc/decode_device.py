@@ -68,16 +68,20 @@ def ctc_beam_search_device(log_probs, lengths, beam_width=8, topk=8,
     """Batched prefix beam search on the device of `log_probs`.
 
     Args:
-      log_probs: (N, T, V) log-softmax outputs (a tensor).
+      log_probs: (N, T, V) log-softmax outputs (a tensor); float64 ones
+        are searched in float64 (a witness), any other in float32.
       lengths: (N,) frame counts.
       beta: a bonus added on every prefix extension (ctcdecode's word
         bonus; negative: an insertion penalty).
       max_len: the prefix capacity; a prefix at it extends no further.
     Returns:
       prefixes (N, W, max_len) int32 (0-padded), plens (N, W) int32 and
-      scores (N, W) f32 total log-probabilities, best first.
+      scores (N, W) total log-probabilities in the search's dtype, best
+      first.
     """
-    lp = torch.as_tensor(log_probs, dtype=torch.float32)
+    lp = torch.as_tensor(log_probs)
+    if lp.dtype != torch.float64:
+        lp = lp.float()
     dev = lp.device
     N, T, V = lp.shape
     W, K = beam_width, min(topk, V)
@@ -85,9 +89,9 @@ def ctc_beam_search_device(log_probs, lengths, beam_width=8, topk=8,
     lengths = torch.as_tensor(lengths, device=dev).long()
     i64 = dict(dtype=torch.int64, device=dev)
 
-    pb = torch.full((N, W), LOG_EPS, device=dev)
+    pb = torch.full((N, W), LOG_EPS, dtype=lp.dtype, device=dev)
     pb[:, 0] = 0.0
-    pnb = torch.full((N, W), LOG_EPS, device=dev)
+    pnb = torch.full((N, W), LOG_EPS, dtype=lp.dtype, device=dev)
     pref = torch.zeros((N, W, max_len), **i64)
     plen = torch.zeros((N, W), **i64)
     lane = torch.arange(W, **i64)
@@ -96,7 +100,8 @@ def ctc_beam_search_device(log_probs, lengths, beam_width=8, topk=8,
     last = torch.full((N, W), -1, **i64)
     parent = torch.cat([lane, lane.repeat_interleave(K)]).expand(N, C)
     stay_tok = torch.full((N, W), -1, **i64)
-    stay_pb_ext = torch.full((N, W * K), LOG_EPS, device=dev)
+    stay_pb_ext = torch.full((N, W * K), LOG_EPS, dtype=lp.dtype,
+                             device=dev)
     first = torch.ones((N, 1), dtype=torch.bool, device=dev)
     g = torch.gather
 

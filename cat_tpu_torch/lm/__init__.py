@@ -1,2 +1,4 @@
-"""Language-model tasks of the port: n-best rescoring (`rescore`). The
-neural LMs, their trainers and perplexity are ROADMAP.md §A.5."""
+"""Language-model tasks of the port: the neural LMs' trainer
+(`train`), the TRF LMs (`trf`, `train_trf`), the fusion scorer
+(`scorer`), perplexity (`ppl`) and n-best rescoring (`rescore`);
+`python -m cat_tpu_torch.lm {ppl,rescore}`."""

@@ -1,22 +1,17 @@
 """N-best rescoring: score = am + α·lm + β·len (counterpart of
-`cat_tpu/lm/rescore.py`), with n-gram LMs (`fst.ngram.NGramLM`), and the
-α/β grid search on a dev n-best list. Neural LMs are not ported yet
-(ROADMAP.md §A.5).
+`cat_tpu/lm/rescore.py`), with n-gram LMs (`fst.ngram.NGramLM`) or neural
+LMs (`lm.train.sentence_nll` on the LM's device), and the α/β grid search
+on a dev n-best list.
 
-    python -m cat_tpu_torch.lm.rescore NBEST.pkl LM.arpa[.gz] \
-        [--alpha A] [--beta B] [--ref TEXT] [--search] [--output OUT]
+    python -m cat_tpu_torch.lm.rescore NBEST.pkl LM.arpa[.gz]|LM_EXPDIR \
+        [--alpha A] [--beta B] [--ref TEXT] [--search] [--output OUT] \
+        [--device cuda|cpu]
 """
 from __future__ import annotations
 
 import math
 
 LN10 = math.log(10.0)
-
-
-def _todo_neural():
-    return NotImplementedError(
-        "neural LM rescoring is not ported to cat_tpu_torch yet; see "
-        "ROADMAP.md §A.5")
 
 
 def rescore_nbest(nbest, lm_nll, alpha=1.0, beta=0.0):
@@ -46,9 +41,19 @@ def ngram_nll(lm, nbest, tokenizer=None):
     return out
 
 
-def neural_nll(model, params, nbest, tokenizer):
-    """A neural LM's {(uid,bid): nll nats}: not ported yet (§A.5)."""
-    raise _todo_neural()
+def neural_nll(model, nbest, tokenizer):
+    """{(uid,bid): nll nats} of a neural LM over token ids (a text
+    hypothesis encoded by `tokenizer`)."""
+    from cat_tpu_torch.lm.train import sentence_nll
+
+    keys, seqs = [], []
+    for uid, hyps in nbest.items():
+        for bid, (_, hyp) in hyps.items():
+            keys.append((uid, bid))
+            seqs.append(tokenizer.encode(hyp) if isinstance(hyp, str)
+                        else list(hyp))
+    nll = sentence_nll(model, seqs)
+    return {k: float(v) for k, v in zip(keys, nll)}
 
 
 def search_lm_weight(nbest, lm_nll, refs, alphas, betas=(0.0,),
@@ -74,8 +79,9 @@ def search_lm_weight(nbest, lm_nll, refs, alphas, betas=(0.0,),
 
 
 def main(argv=None):
-    """Rescoring CLI: an n-best pickle and an ARPA LM -> the rescored
-    1-best text, and its WER against --ref."""
+    """Rescoring CLI: an n-best pickle and an ARPA LM or a neural LM's
+    experiment directory -> the rescored 1-best text, and its WER against
+    --ref."""
     import argparse
     import json
     import pickle
@@ -85,21 +91,26 @@ def main(argv=None):
 
     p = argparse.ArgumentParser("cat_tpu_torch.lm.rescore")
     p.add_argument("nbest", help="pickle {uid: {bid: (score, text)}}")
-    p.add_argument("lm", help=".arpa or .arpa.gz path (an LM expdir is "
-                              "not ported yet)")
+    p.add_argument("lm", help=".arpa path or LM expdir")
     p.add_argument("--alpha", type=float, default=0.5)
     p.add_argument("--beta", type=float, default=0.0)
     p.add_argument("--ref", default=None, help="text file 'uid ref'")
     p.add_argument("--search", action="store_true",
                    help="grid-search alpha/beta on --ref")
     p.add_argument("--output", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="device of a neural LM (default cuda)")
     args = p.parse_args(argv)
 
-    if not args.lm.endswith((".arpa", ".arpa.gz")):
-        raise _todo_neural()
     with open(args.nbest, "rb") as f:
         nbest = pickle.load(f)
-    nll = ngram_nll(read_arpa(args.lm), nbest)
+    if args.lm.endswith((".arpa", ".arpa.gz")):
+        nll = ngram_nll(read_arpa(args.lm), nbest)
+    else:
+        from cat_tpu_torch.lm.train import load_exp
+
+        model, tok = load_exp(args.lm, args.device)
+        nll = neural_nll(model, nbest, tok)
 
     refs = {}
     if args.ref:

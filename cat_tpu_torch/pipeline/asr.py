@@ -15,7 +15,9 @@ reads the two JSON files of a recipe under `egs/` unchanged:
 
 and runs on the card unless `--device cpu` is given. A "bin" of either
 package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train` and the CUSIDE
-`*.train_unified`) names the port's trainer (`pipeline/tasks.py`).
+`*.train_unified`) names the port's trainer (`pipeline/tasks.py`); an LM
+bin (`*.lm.train`, `*.lm.train_trf`) is refused with a ValueError: its
+recipe runs through `pipeline/lm.py`.
 
   1 tokenizer: built from the first train set's transcripts, or loaded.
   2 pack: wav.scp + text -> fbank + CMVN on the device -> pkl/<split>
@@ -34,9 +36,12 @@ package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train` and the CUSIDE
     the batched prefix beam on the device (`ctc/decode_device.py`),
     greedily, through a TLG graph (mode "wfst": the encoder on the card,
     the Viterbi search on the host in C++, `native/wfst_decoder.cpp`), or
-    by the host prefix beam fused with a token n-gram (decode.lm); RNN-T
-    by `RNNTBeamDecoder`, fused with decode.lm when it is set; n-best
-    rescoring with a word n-gram (decode.rescore); nbest_<split>.pkl,
+    by the host prefix beam fused with decode.lm; RNN-T by
+    `RNNTBeamDecoder`, fused with decode.lm when it is set. decode.lm is a
+    token n-gram, a neural LM of a trained LM experiment ("nn", scored by
+    `lm/scorer.py` on the decode device) or LODR (that LM plus a token
+    n-gram of negative weight); decode.rescore rescores the n-best lists
+    with a word n-gram or such a neural LM; nbest_<split>.pkl,
     decode_<split>.txt and wer_<split>.json with the real-time factor.
     A unified (CUSIDE) model in mode "streaming": the transducer's beam
     over its chunked encoding; a unified CTC model always decodes its
@@ -45,11 +50,10 @@ package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train` and the CUSIDE
     mode "streaming" offline, as the JAX package does.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md
-section: neural LM fusion, LODR and neural rescoring (§A.5); the
-arc-table denominator for orders above 3, more than 128 units or an FST
-file (§A.6); the encoders `VGGLSTM`, `BLSTMN`, `LSTMrowCONV`, `TDNN_LSTM`
-and `ConformerLSTM` (§A.6b); `config.parallel` (§A.7); more than one
-train set, the task bins
+section: the arc-table denominator for orders above 3, more than 128
+units or an FST file (§A.6); the encoders `VGGLSTM`, `BLSTMN`,
+`LSTMrowCONV`, `TDNN_LSTM` and `ConformerLSTM` (§A.6b);
+`config.parallel` (§A.7); more than one train set, the task bins
 and the `EmbeddingEncoder` and `Wav2Vec2Encoder` encoders (§A.8). The JAX
 package's monitor plot after training waits for `utils/plot.py` (§A.8)
 and is left out; `config.perf` is read and
@@ -171,14 +175,21 @@ def _check_den_path(path):
                     "§A.6")
 
 
-def _check_lm(cfg, what):
-    """Raise for an LM config the port cannot build yet: only n-grams
-    (type "ngram") are ported."""
+def _check_lm(cfg, what, kinds=("ngram", "nn", "lodr")):
+    """Raise for an LM config of an unknown type."""
     kind = (cfg or {}).get("type", "ngram")
-    if kind in ("nn", "lodr"):
-        raise _todo(f"{what} with a neural LM (type {kind!r})", "§A.5")
-    if kind != "ngram":
+    if kind not in kinds:
         raise ValueError(f"unknown {what} lm type {kind}")
+
+
+def _asr_module(hyper):
+    """The port's trainer module of the experiment's ASR bin; an LM bin
+    raises ValueError (its recipe runs through `pipeline.lm`)."""
+    name = hyper["train"]["bin"]
+    if tasks.family(name) == "lm":
+        raise ValueError(f"train bin {name!r} trains an LM: run its recipe "
+                         "with python -m cat_tpu_torch.pipeline.lm")
+    return tasks.train_module(name)
 
 
 def _check_encoder(config):
@@ -196,7 +207,7 @@ def _check_encoder(config):
 
 def check_train(hyper, config):
     """Raise for what stage 3 of the port cannot do yet."""
-    tasks.train_module(hyper["train"]["bin"])
+    _asr_module(hyper)
     _check_data(hyper)
     _check_encoder(config)
     if config.get("parallel"):
@@ -210,14 +221,14 @@ def check_train(hyper, config):
 
 def check_decode(hyper, config=None):
     """Raise for what stage 4 of the port cannot do yet."""
-    tasks.train_module(hyper["train"]["bin"])
+    _asr_module(hyper)
     _check_encoder(config or {})
     dec = hyper.get("inference", {}).get("decode", {})
     if dec.get("lm"):
         _check_lm(dec["lm"], "decode-time LM fusion (decode.lm)")
     if dec.get("rescore"):
         _check_lm(dec["rescore"].get("lm"),
-                  "n-best rescoring (decode.rescore)")
+                  "n-best rescoring (decode.rescore)", ("ngram", "nn"))
 
 
 def stage_pack(expdir, hyper, tok, device="cpu"):
@@ -262,7 +273,7 @@ def stage_train(expdir, hyper, config, tok, device="cpu"):
     from cat_tpu_torch.utils.scheduler import build_scheduler
 
     check_train(hyper, config)
-    task = tasks.train_module(hyper["train"]["bin"])
+    task = _asr_module(hyper)
     opts = hyper["train"].get("option", {})
     pkl_dir = os.path.join(expdir, "pkl")
     pattern = _sharded(hyper)
@@ -601,40 +612,68 @@ def _build_wfst_decoder(expdir, hyper, tok, dec_cfg):
     return dec, id2word
 
 
-def _build_decode_lm(hyper, tok, dec_cfg):
-    """The LM of shallow fusion at decode, decode.lm: {"type": "ngram",
-    "order": N (3)}, a token n-gram over the train transcripts tokenized
-    with the AM's tokenizer; log10 scores. None when decode.lm is not
-    set; neural LMs and LODR raise (§A.5)."""
+def _build_decode_lm(hyper, tok, dec_cfg, device="cpu"):
+    """The LM of shallow fusion at decode, decode.lm, with log10 scores:
+      {"type": "ngram", "order": N (3)}: a token n-gram over the train
+        transcripts tokenized with the AM's tokenizer;
+      {"type": "nn", "exp": DIR}: the neural LM of a trained LM experiment
+        (sharing the AM's token ids) on `device` (`NeuralLMScorer`);
+      {"type": "lodr", "nn": {"exp": DIR}, "order": N (2), "ngram_weight":
+        w (-0.3)}: that LM plus the token n-gram weighted by w
+        (`CombinedLM`).
+    None when decode.lm is not set."""
     cfg = dec_cfg.get("lm")
     if not cfg:
         return None
     _check_lm(cfg, "decode-time LM fusion (decode.lm)")
     from cat_tpu_torch.fst.ngram import train_ngram
+    from cat_tpu_torch.lm.scorer import NeuralLMScorer
+    from cat_tpu_torch.lm.train import load_exp
+    from cat_tpu_torch.rnnt.decode import CombinedLM
 
-    seqs = [[int(t) for t in tok.encode(s)]
-            for s in _train_text(hyper).values()]
-    return train_ngram(seqs, order=cfg.get("order", 3))
+    def token_ngram(order):
+        seqs = [[int(t) for t in tok.encode(s)]
+                for s in _train_text(hyper).values()]
+        return train_ngram(seqs, order=order)
+
+    kind = cfg.get("type", "ngram")
+    if kind == "ngram":
+        return token_ngram(cfg.get("order", 3))
+    if kind == "nn":
+        return NeuralLMScorer(load_exp(cfg["exp"], device)[0])
+    nn = NeuralLMScorer(load_exp(cfg["nn"]["exp"], device)[0])
+    return CombinedLM([(nn, 1.0),
+                       (token_ngram(cfg.get("order", 2)),
+                        float(cfg.get("ngram_weight", -0.3)))])
 
 
-def _maybe_rescore(hyper, nbest, dec_cfg):
+def _maybe_rescore(hyper, nbest, dec_cfg, device="cpu"):
     """n-best rescoring, decode.rescore = {"alpha", "beta", "lm": {"type":
-    "ngram", "order": N}}: score = am + α·lm + β·len with a word n-gram
-    over the train transcripts (the n-best hypotheses are text). Returns
-    {uid: rescored 1-best text}, or None when decode.rescore is not set;
-    a neural LM raises (§A.5)."""
+    "ngram", "order": N} | {"type": "nn", "exp": DIR}}: score = am + α·lm
+    + β·len with a word n-gram over the train transcripts (the n-best
+    hypotheses are text), or with the neural LM of a trained LM
+    experiment on `device` (the hypotheses encoded by its tokenizer).
+    Returns {uid: rescored 1-best text}, or None when decode.rescore is
+    not set."""
     rs = dec_cfg.get("rescore")
     if not rs:
         return None
-    from cat_tpu_torch.fst.ngram import train_ngram
-    from cat_tpu_torch.lm.rescore import ngram_nll, rescore_nbest
+    from cat_tpu_torch.lm.rescore import neural_nll, ngram_nll, rescore_nbest
 
     lm_cfg = rs.get("lm", {"type": "ngram", "order": 3})
-    _check_lm(lm_cfg, "n-best rescoring (decode.rescore)")
-    lm = train_ngram([s.split() for s in _train_text(hyper).values()],
-                     order=lm_cfg.get("order", 3))
-    scored = rescore_nbest(nbest, ngram_nll(lm, nbest),
-                           alpha=rs.get("alpha", 1.0),
+    _check_lm(lm_cfg, "n-best rescoring (decode.rescore)", ("ngram", "nn"))
+    if lm_cfg.get("type", "ngram") == "ngram":
+        from cat_tpu_torch.fst.ngram import train_ngram
+
+        lm = train_ngram([s.split() for s in _train_text(hyper).values()],
+                         order=lm_cfg.get("order", 3))
+        lm_nll = ngram_nll(lm, nbest)
+    else:
+        from cat_tpu_torch.lm.train import load_exp
+
+        lm, lm_tok = load_exp(lm_cfg["exp"], device)
+        lm_nll = neural_nll(lm, nbest, lm_tok)
+    scored = rescore_nbest(nbest, lm_nll, alpha=rs.get("alpha", 1.0),
                            beta=rs.get("beta", 0.0))
     return {uid: hyp for uid, (score, hyp) in scored.items()}
 
@@ -696,7 +735,7 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
     from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
 
     check_decode(hyper, config)
-    task = tasks.train_module(hyper["train"]["bin"])
+    task = _asr_module(hyper)
     inf = hyper.get("inference", {})
     test_split = inf.get("split", "dev")
     ds = SpeechDataset(os.path.join(expdir, "pkl", test_split))
@@ -718,7 +757,7 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
         if native:
             from cat_tpu_torch.native import wfst_lib
             wfst_lib()  # a failed build raises here, before any decoding
-    fusion_lm = _build_decode_lm(hyper, tok, dec_cfg)
+    fusion_lm = _build_decode_lm(hyper, tok, dec_cfg, device)
     unified = tasks.is_unified(hyper["train"]["bin"])
     if _is_rnnt(hyper):
         from cat_tpu_torch.rnnt.decode import RNNTBeamDecoder
@@ -775,7 +814,7 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     wall = time.time() - t0
-    rescored = _maybe_rescore(hyper, all_nbest, dec_cfg)
+    rescored = _maybe_rescore(hyper, all_nbest, dec_cfg, device)
     if rescored is not None:
         hyps = rescored
     return finalize_decode(expdir, test_split, refs, hyps, all_nbest, wall,

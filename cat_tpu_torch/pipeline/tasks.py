@@ -4,7 +4,8 @@
 A recipe's `hyper-p.json` names its trainer by a "bin", a module of
 either package ("cat_tpu.ctc.train" or "cat_tpu_torch.ctc.train"). This
 module holds the one map from a bin to the port's trainer module, read by
-the pipeline and by both decode CLIs. The bins not ported yet raise
+both pipelines (`pipeline/asr.py`, `pipeline/lm.py`, which takes the
+`lm.*` bins) and by both decode CLIs. The bins not ported yet raise
 NotImplementedError naming their ROADMAP.md section. The JAX package
 drives the ME2E, JSA and P2G bins through task adapters; the plain ASR
 bins have none (`get_task` returns None), as in JAX.
@@ -14,11 +15,10 @@ from __future__ import annotations
 import importlib
 
 PORTED = ("ctc.train", "rnnt.train", "ctc.train_unified",
-          "rnnt.train_unified")
+          "rnnt.train_unified", "lm.train", "lm.train_trf")
 # bins of the JAX package that the port does not have yet, with the
 # ROADMAP.md section that ports them
 NOT_PORTED = {
-    "lm.train": "§A.5", "lm.train_trf": "§A.5",
     "ctc.train_me2e": "§A.8", "ctc.train_me2e_chunk": "§A.8",
     "ctc.train_me2e_kaldi": "§A.8", "ctc.train_me2e_kaldi_chunk": "§A.8",
     "ctc.train_jsa": "§A.8", "p2g.train": "§A.8",
@@ -56,8 +56,8 @@ def _not_ported(name):
 
 def train_module(name: str, want_family: str | None = None):
     """The port's trainer module for the bin `name` of either package.
-    want_family ("ctc" or "rnnt"): the caller takes only that family's
-    bins."""
+    want_family ("ctc", "rnnt" or "lm"): the caller takes only that
+    family's bins."""
     key = bin_key(name)
     if key not in PORTED:
         raise _not_ported(name)

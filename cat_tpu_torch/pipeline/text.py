@@ -1,5 +1,5 @@
 """Stages of the text-corpus pipelines (the n-gram pipeline,
-`pipeline/ngram.py`, and later the neural LM one, ROADMAP.md §A.5):
+`pipeline/ngram.py`, and the neural LM one, `pipeline/lm.py`):
 counterpart of `stage_tokenizer` in `cat_tpu/pipeline/lm.py`."""
 from __future__ import annotations
 

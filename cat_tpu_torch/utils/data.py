@@ -1,6 +1,7 @@
-"""Packed speech datasets and bucketed batching (counterpart of
-`pack_speech_data`, `SpeechDataset`, `make_buckets`, `Batch` and
-`BucketedLoader` in `cat_tpu/utils/data.py`).
+"""Packed speech datasets, packed LM corpora and bucketed batching
+(counterpart of `pack_speech_data`, `SpeechDataset`, `pack_corpus`,
+`CorpusDataset`, `make_buckets`, `Batch` and `BucketedLoader` in
+`cat_tpu/utils/data.py`).
 
 A split directory holds `meta.npz` (frame and label offsets, the flat
 labels, the feature width), `feats.bin` (one flat float32 memmap of all
@@ -10,8 +11,9 @@ batch size) shapes and pads a short batch by repeating its utterances
 with weight 0. The epoch order comes from `np.random.default_rng(seed +
 epoch)`, as in the JAX package, so both packages make the same batches.
 The batches are numpy arrays on the host; the `Manager` puts them on the
-model's device. `WeightedConcatDataset`, `CorpusDataset` and the
-seq2seq datasets wait for the ME2E, LM and P2G slices (ROADMAP.md).
+model's device. An LM corpus is one `corpus.npz` (the flat token ids and
+their offsets), the JAX package's file. `WeightedConcatDataset` and the
+seq2seq datasets wait for the ME2E and P2G slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -85,6 +87,39 @@ class SpeechDataset:
         f = self.feats[self.feat_offsets[i]:self.feat_offsets[i + 1]]
         l = self.labels[self.label_offsets[i]:self.label_offsets[i + 1]]
         return np.asarray(f), np.asarray(l)
+
+
+def pack_corpus(out_dir, id_sequences):
+    """Write the token id sequences to out_dir/corpus.npz: `tokens` (int32,
+    flat) and `offsets` (int64, one more than sequences)."""
+    os.makedirs(out_dir, exist_ok=True)
+    offsets = [0]
+    flat = []
+    for ids in id_sequences:
+        flat.extend(ids)
+        offsets.append(offsets[-1] + len(ids))
+    np.savez(os.path.join(out_dir, "corpus.npz"),
+             tokens=np.asarray(flat, np.int32),
+             offsets=np.asarray(offsets, np.int64))
+    return out_dir
+
+
+class CorpusDataset:
+    """A packed LM corpus: item i is sequence i's token ids."""
+
+    def __init__(self, path):
+        with np.load(os.path.join(path, "corpus.npz")) as z:
+            self.tokens = z["tokens"]
+            self.offsets = z["offsets"]
+
+    def __len__(self):
+        return len(self.offsets) - 1
+
+    def __getitem__(self, i):
+        return np.asarray(self.tokens[self.offsets[i]:self.offsets[i + 1]])
+
+    def token_length(self, i):
+        return int(self.offsets[i + 1] - self.offsets[i])
 
 
 def make_buckets(lengths, num_buckets=8, min_len=16):

@@ -1,8 +1,10 @@
 """Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s,
 `TDNN_NAS`'s, JoinAP encoder's, `TransducerModel`'s or CUSIDE unified
-model's (`UnifiedEncoder`, `UnifiedTransducerModel`) variables (nested
-dicts of numpy arrays, as in its checkpoints) to the port's state_dict
-(`model_state_dict` picks the converter by the port's model class).
+model's (`UnifiedEncoder`, `UnifiedTransducerModel`) variables, or an
+LM's (`LSTMPredictor` with its head, `Embedding`, `CausalTransformer`,
+`TRFNCE`) (nested dicts of numpy arrays, as in its checkpoints) to the
+port's state_dict (`model_state_dict` picks the converter by the port's
+model class).
 
 Layouts handled:
 - cells are `cell_{i}` subtrees, or one `cells` subtree whose leaves carry
@@ -12,7 +14,8 @@ Layouts handled:
 - conv kernels HWIO -> OIHW; the depthwise kernel (k, 1, D) -> (D, 1, k);
   a TDNN layer's (k, in, out) -> (out, in, k);
 - DenseGeneral kernels (D, H, Dh) and (H, Dh, D), and the projection's
-  (F', C, D), flatten to (in, out) matrices in the same element order.
+  (F', C, D), flatten to (in, out) matrices in the same element order
+  (flax's attention biases (H, Dh) to (D,)).
 """
 from __future__ import annotations
 
@@ -117,17 +120,70 @@ def conformer_state_dict(params, batch_stats):
 
 
 def predictor_state_dict(params, pre=""):
-    """The port's predictor state_dict (keys prefixed with `pre`) from a
-    JAX `LSTMPredictor`'s params (`embed`, `lstm_{i}_{wx,wh,b}`), an
-    `Embedding` predictor's (`Embed_0`) or a `ZeroDecoder`'s (none)."""
+    """The port's predictor or LM state_dict (keys prefixed with `pre`)
+    from a JAX `LSTMPredictor`'s params (`embed`, `syl_embed`,
+    `lstm_{i}_{wx,wh,b}`, `classifier`), an `Embedding`'s (`Embed_0`, its
+    head `Dense_0`) or a `ZeroDecoder`'s (none)."""
     sd = {}
     for name, p in params.items():
-        if name in ("embed", "Embed_0"):
-            sd[pre + "embed.weight"] = _t(p["embedding"])
+        if name in ("embed", "Embed_0", "syl_embed"):
+            emb = "syl_embed" if name == "syl_embed" else "embed"
+            sd[pre + emb + ".weight"] = _t(p["embedding"])
         elif re.fullmatch(r"lstm_\d+_(wx|wh|b)", name):
             sd[pre + name] = _t(p)
+        elif name in ("classifier", "Dense_0"):
+            _dense(sd, pre + ("head." if name == "Dense_0" else
+                              "classifier."), p)
         else:
             raise KeyError(f"predictor parameter {name!r} is not ported")
+    return sd
+
+
+def causal_transformer_state_dict(params, pre=""):
+    """The port's `CausalTransformer` state_dict from a JAX one's params:
+    `embed`, `pos_embed`, the blocks' `ln1_{i}`, `attn_{i}` (flax's
+    SelfAttention: `query`, `key`, `value` kernels (D, H, Dh) and the
+    `out` kernel (H, Dh, D) as (D, D) matrices), `ln2_{i}`, `ff1_{i}`,
+    `ff2_{i}`, then `ln_f` and the untied `head`."""
+    sd = {pre + "embed.weight": _t(params["embed"]["embedding"]),
+          pre + "pos_embed": _t(params["pos_embed"])}
+    D = sd[pre + "pos_embed"].shape[1]
+    idx = sorted(int(m.group(1)) for k in params
+                 if (m := re.fullmatch(r"attn_(\d+)", k)))
+    for i in idx:
+        b = f"{pre}blocks.{i}."
+        _ln(sd, b + "ln1.", params[f"ln1_{i}"])
+        _ln(sd, b + "ln2.", params[f"ln2_{i}"])
+        a = params[f"attn_{i}"]
+        for name, src in (("q", "query"), ("k", "key"), ("v", "value"),
+                          ("out", "out")):
+            _dense(sd, f"{b}{name}.", a[src], din=D)
+        _dense(sd, b + "ff1.", params[f"ff1_{i}"])
+        _dense(sd, b + "ff2.", params[f"ff2_{i}"])
+    _ln(sd, pre + "ln_f.", params["ln_f"])
+    if "head" in params:
+        _dense(sd, pre + "head.", params["head"])
+    return sd
+
+
+def lm_state_dict(model, params, pre=""):
+    """The state_dict of the port's LM `model` (an `LSTMPredictor`, an
+    `Embedding` or a `CausalTransformer`) from the JAX LM's params."""
+    if type(model).__name__ == "CausalTransformer":
+        return causal_transformer_state_dict(params, pre)
+    return predictor_state_dict(params, pre)
+
+
+def trf_state_dict(model, params):
+    """The port's `TRFNCE` state_dict from a JAX one's params: the energy
+    network `udlying_nn`, the noise LM `noise_model`, `zeta` and, for the
+    hidden2scalar energy, `energy_lin`."""
+    sd = {"zeta": _t(params["zeta"])}
+    for name in ("udlying_nn", "noise_model"):
+        sd.update(lm_state_dict(getattr(model, name), params[name],
+                                name + "."))
+    if "energy_lin" in params:
+        _dense(sd, "energy_lin.", params["energy_lin"])
     return sd
 
 
@@ -211,9 +267,13 @@ def encoder_state_dict(encoder, params, batch_stats):
 
 def model_state_dict(model, params, batch_stats):
     """The state_dict of the port's `model` (an encoder, a
-    `TransducerModel` or a unified model) from the JAX model's
-    variables."""
+    `TransducerModel`, a unified model, an LM or a `TRFNCE`) from the JAX
+    model's variables."""
     name = type(model).__name__
+    if name in ("LSTMPredictor", "Embedding", "CausalTransformer"):
+        return lm_state_dict(model, params)
+    if name == "TRFNCE":
+        return trf_state_dict(model, params)
     if name == "TransducerModel":
         return transducer_state_dict(params, batch_stats, model.encoder)
     if name in ("UnifiedEncoder", "UnifiedTransducerModel"):

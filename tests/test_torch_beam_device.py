@@ -108,3 +108,20 @@ def test_segmented_merge_is_a_segmented_logaddexp():
                 want = np.logaddexp.reduce(run) if len(run) else LOG_EPS
                 np.testing.assert_allclose(out[n, i - 1], want, rtol=1e-5)
                 start = i
+
+
+@pytest.mark.parametrize("W", [4, 17])
+def test_float64_log_probs_search_in_float64(W):
+    """float64 log-probs give the float64 search (the card beam's witness
+    in chip_smoke.py): scores in float64, the same prefixes as the
+    float32 search on these inputs, scores within f32 rounding of it."""
+    lp = torch.from_numpy(_log_probs(5, 40, 9, 3))
+    lens = torch.tensor([40, 33, 1, 20, 39])
+    p32, l32, s32 = beam(lp, lens, beam_width=W, max_len=48)
+    p64, l64, s64 = beam(lp.double(), lens, beam_width=W, max_len=48)
+    assert s64.dtype == torch.float64 and s32.dtype == torch.float32
+    assert torch.equal(p64, p32) and torch.equal(l64, l32)
+    live = s64 > LOG_EPS / 2
+    assert torch.equal(live, s32 > LOG_EPS / 2)
+    np.testing.assert_allclose(s32[live].numpy(), s64[live].numpy(),
+                               rtol=1e-5, atol=1e-4)

@@ -11,7 +11,11 @@ toy data of `tests/test_torch_pipeline.py` (the same fixtures).
   package load in the other, and the port writes JAX's files.
 - decode.lm (a token n-gram, the host prefix beam, CTC; and
   `RNNTBeamDecoder`'s fusion, RNN-T) and decode.rescore (a word n-gram
-  over the n-best lists) give JAX's files.
+  over the n-best lists) give JAX's files; so do decode.lm "nn" (a
+  neural LM of a JAX LM experiment sharing the AM's tokenizer, scored by
+  `NeuralLMScorer`) and "lodr" (that LM and a token 2-gram of negative
+  weight), and decode.rescore with that neural LM, for CTC here and for
+  RNN-T in `tests/test_torch_lm_decode_rnnt.py`.
 - den_lm.path of an .arpa builds JAX's `DenseDen` (tables within 1e-6);
   an order-4 ARPA needs the arc-table denominator and raises (§A.6).
 - `python -m cat_tpu_torch.pipeline.ngram` writes JAX's ARPA file and
@@ -19,6 +23,7 @@ toy data of `tests/test_torch_pipeline.py` (the same fixtures).
 """
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -109,6 +114,102 @@ def test_rnnt_lm_stage_4_matches_jax(staged, tmp_path):
            "rescore": {"alpha": 0.3, "lm": {"type": "ngram", "order": 2}}}
     expdir = _ctc_expdir(staged, tmp_path, dec, "asr-rnnt", "rnnt", 4.0)
     _assert_same_decode(*_decode_both(expdir))
+
+
+def _lm_expdir(staged, path, config):
+    """A JAX LM experiment (cat_tpu.lm.train's init_state, its output
+    layer scaled by 3, saved by JAX's CheckpointManager) on the staged
+    AM's tokenizer."""
+    import jax
+
+    from cat_tpu.lm import train as jax_lm_train
+    from cat_tpu.utils.scheduler import build_scheduler
+    from tests.test_torch_pipeline import JaxCkpt
+
+    os.makedirs(path)
+    shutil.copy(os.path.join(staged[1], "tokenizer.tknz"), path)
+    hyper = {"data": {}, "train": {"bin": "cat_tpu.lm.train"},
+             "tokenizer": {"type": "SimpleTokenizer",
+                           "file": "tokenizer.tknz"}}
+    config = dict(config, scheduler={
+        "type": "SchedulerFixedStop", "kwargs": {"stop_step": 10},
+        "optimizer": {"type": "Adam", "kwargs": {"lr": 1e-3}}})
+    for name, obj in (("hyper-p.json", hyper), ("config.json", config)):
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(obj, f)
+    tok = tknz.load(os.path.join(path, "tokenizer.tknz"))
+    model = jax_lm_train.build_model(config, num_classes=tok.vocab_size)
+    _, tx = build_scheduler(config["scheduler"])
+    state = jax_lm_train.init_state(model, tx, jax.random.PRNGKey(9))
+    params = jax.tree_util.tree_map(np.asarray, state.params)
+    for name in ("classifier", "head"):
+        if name in params:
+            params[name]["kernel"] = params[name]["kernel"] * 3.0
+    JaxCkpt(os.path.join(path, "check")).save(
+        {"state": state.replace(params=params)}, 1.0, 1, 1)
+    return str(path)
+
+
+LSTM_LM = {"decoder": {"type": "LSTMPredictor", "kwargs": {"hdim": 8}}}
+TRANSFORMER_LM = {"decoder": {"type": "CausalTransformer", "kwargs": {
+    "hdim": 16, "num_layers": 1, "num_heads": 2, "ff_dim": 16,
+    "max_len": 64, "dropout_rate": 0.0}}}
+NEURAL = [
+    ("ctc", LSTM_LM, {"lm": {"type": "nn"}, "alpha": 0.5, "beta": 0.3,
+                      "nbest": 3, "beam_width": 4}),
+    ("ctc", TRANSFORMER_LM, {"lm": {"type": "lodr", "order": 2,
+                                    "ngram_weight": -0.3}, "alpha": 0.6,
+                             "nbest": 2}),
+    ("ctc", TRANSFORMER_LM, {"mode": "beam", "nbest": 4, "rescore": {
+        "alpha": 0.5, "beta": 0.2, "lm": {"type": "nn"}}}),
+]
+# the RNN-T cases run in tests/test_torch_lm_decode_rnnt.py (JAX's beam
+# with a neural LM takes about a minute a case)
+NEURAL_RNNT = [
+    ("rnnt", LSTM_LM, {"lm": {"type": "nn"}, "alpha": 0.6, "beta": 0.2,
+                       "nbest": 2, "rescore": {"alpha": 0.3, "lm": {
+                           "type": "nn"}}}),
+    ("rnnt", LSTM_LM, {"lm": {"type": "lodr", "ngram_weight": -0.2},
+                       "alpha": 0.5, "nbest": 2}),
+]
+
+
+@pytest.mark.parametrize("family,lm_config,decode", NEURAL)
+def test_neural_lm_stage_4_matches_jax(staged, tmp_path, family, lm_config,
+                                       decode):
+    neural_stage_4(staged, tmp_path, family, lm_config, decode)
+
+
+def neural_stage_4(staged, tmp_path, family, lm_config, decode):
+    """Stage 4 of both packages with decode.lm/decode.rescore pointing at
+    a JAX LM experiment: the same files."""
+    lm_dir = _lm_expdir(staged, tmp_path / "lm", lm_config)
+    decode = json.loads(json.dumps(decode))
+    for cfg in (decode.get("lm"), decode.get("rescore", {}).get("lm")):
+        if cfg and cfg["type"] == "nn":
+            cfg["exp"] = lm_dir
+        elif cfg and cfg["type"] == "lodr":
+            cfg["nn"] = {"exp": lm_dir}
+    template = "asr-ctc" if family == "ctc" else "asr-rnnt"
+    expdir = _ctc_expdir(staged, tmp_path, decode, template, family,
+                         6.0 if family == "ctc" else 4.0)
+    _assert_same_decode(*_decode_both(expdir))
+
+
+def test_neural_fusion_changes_the_beam(staged, tmp_path):
+    """At a large weight the neural LM moves the host prefix beam's scores
+    away from the unfused beam's (the fusion is not a no-op)."""
+    from cat_tpu_torch.utils.nbest import read_nbest
+    lm_dir = _lm_expdir(staged, tmp_path / "lm", LSTM_LM)
+    scores = []
+    for alpha in (0.0, 3.0):
+        expdir = _ctc_expdir(staged, tmp_path / f"a{alpha}", {
+            "lm": {"type": "nn", "exp": lm_dir}, "alpha": alpha,
+            "nbest": 2, "beam_width": 4}, scale=6.0)
+        asr.main([expdir, "--start_stage", "4", "--device", "cpu"])
+        nb = read_nbest(os.path.join(expdir, "nbest_dev.pkl"))
+        scores.append(np.asarray([nb[u][0][0] for u in sorted(nb)]))
+    assert np.abs(scores[1] - scores[0]).max() > 0.1
 
 
 def _phone_arpa(path, order, V):

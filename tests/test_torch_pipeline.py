@@ -489,15 +489,8 @@ def _hyper(**kw):
 
 
 UNPORTED = [
-    (_hyper(inference__decode__lm={"type": "nn", "exp": "lm"}), {}, "§A.5"),
-    (_hyper(inference__decode__lm={"type": "lodr", "nn": {"exp": "lm"}}),
-     {}, "§A.5"),
-    (_hyper(inference__decode__rescore={"alpha": 0.2, "lm": {
-        "type": "nn", "exp": "lm"}}), {}, "§A.5"),
-    (_hyper(train__bin="cat_tpu.lm.train_trf"), {}, "§A.5"),
     (_hyper(den_lm={"path": "den.fst"}), {"trainer": {"loss": "crf"}},
      "§A.6"),
-    (_hyper(train__bin="cat_tpu.lm.train"), {}, "§A.5"),
     (_hyper(den_lm={"order": 4}), {"trainer": {"loss": "crf"}}, "§A.6"),
     (_hyper(), {"encoder": {"type": "VGGLSTM"}}, "§A.6"),
     (_hyper(), {"encoder": {"type": "JoinAPLinearEncoder", "kwargs": {

@@ -7,7 +7,8 @@ token ids.
   `search_lm_weight` the same WER, α and β.
 - The CLI (`main`) on an n-best pickle and an ARPA file, plain and
   `.gz`, with `--search`: the same rescored text and printed records as
-  JAX's. A neural LM (an LM expdir) raises, naming ROADMAP.md §A.5.
+  JAX's. A neural LM (an LM expdir) is held to JAX's in
+  `tests/test_torch_lm_pipeline.py`.
 """
 import json
 import pickle
@@ -108,10 +109,3 @@ def test_cli_matches_jax(tmp_path, capsys, suffix, search):
     assert (tmp_path / "port.txt").read_text() == \
         (tmp_path / "jax.txt").read_text()
 
-
-def test_neural_lm_rescoring_names_its_section(tmp_path):
-    nbest, _ = nbest_lists(1)
-    with pytest.raises(NotImplementedError, match="§A.5"):
-        prs.neural_nll(None, None, nbest, None)
-    with pytest.raises(NotImplementedError, match="§A.5"):
-        prs.main([str(tmp_path / "nbest.pkl"), str(tmp_path / "lm_exp")])
