@@ -174,7 +174,7 @@ def main(argv=None):
     import pickle
     import time
 
-    from cat_tpu_torch.pipeline.tasks import train_module
+    from cat_tpu_torch.pipeline.tasks import get_task, train_module
     from cat_tpu_torch.utils import tokenizer as tknz
     from cat_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                 model_weights)
@@ -207,6 +207,10 @@ def main(argv=None):
     config = load_json("config.json")
     tok = tknz.load(os.path.join(
         args.expdir, hyper["tokenizer"].get("file", "tokenizer.tknz")))
+    if get_task(hyper) is not None:
+        raise ValueError(f"train bin {hyper['train']['bin']!r} decodes raw "
+                         "multichannel waves: run stage 4 of python -m "
+                         "cat_tpu_torch.pipeline.asr")
     task = train_module(hyper["train"]["bin"], "ctc")
     model = task.build_model(config, num_classes=tok.vocab_size,
                              device=args.device)

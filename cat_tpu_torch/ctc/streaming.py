@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from cat_tpu_torch.ctc.train import _restore, _weighted_mean
+from cat_tpu_torch.ctc.train import _weighted_mean
 from cat_tpu_torch.models.layers import Dense
 from cat_tpu_torch.ops.ctc import ctc_loss
 
@@ -161,9 +161,15 @@ def two_passes(model, full, chunk, train):
     started from (JAX's `vars2 or vars1`)."""
     if not train:
         return full(), chunk()
-    start = [b.detach().clone() for b in model.buffers()]
+    # the state_dict's buffers only: the constants (a front end's window
+    # and filterbank) may be saved for the backward and are not copied
+    keys = set(model.state_dict())
+    bufs = [b for n, b in model.named_buffers() if n in keys]
+    start = [b.detach().clone() for b in bufs]
     out_full = full()
-    _restore(model, start)
+    with torch.no_grad():
+        for b, old in zip(bufs, start):
+            b.copy_(old)
     return out_full, chunk()
 
 

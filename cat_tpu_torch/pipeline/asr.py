@@ -14,8 +14,11 @@ reads the two JSON files of a recipe under `egs/` unchanged:
                     "specaug", "scheduler": {..., "optimizer"}}
 
 and runs on the card unless `--device cpu` is given. A "bin" of either
-package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train` and the CUSIDE
-`*.train_unified`) names the port's trainer (`pipeline/tasks.py`); an LM
+package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train`, the CUSIDE
+`*.train_unified` and the multichannel `ctc.train_me2e*`) names the port's
+trainer (`pipeline/tasks.py`); the ME2E bins' task adapter runs stages
+2-4 (raw multichannel waves packed, the beamforming front end trained
+with the encoder, CTC decoding offline or streaming); an LM
 bin (`*.lm.train`, `*.lm.train_trf`) is refused with a ValueError: its
 recipe runs through `pipeline/lm.py`.
 
@@ -53,8 +56,8 @@ Not ported yet, each raising NotImplementedError with its ROADMAP.md
 section: the arc-table denominator for orders above 3, more than 128
 units or an FST file (§A.6); the encoders `VGGLSTM`, `BLSTMN`,
 `LSTMrowCONV`, `TDNN_LSTM` and `ConformerLSTM` (§A.6b);
-`config.parallel` (§A.7); more than one train set, the task bins
-and the `EmbeddingEncoder` and `Wav2Vec2Encoder` encoders (§A.8). The JAX
+`config.parallel` (§A.7); more than one train set, the JSA and P2G
+bins and the `EmbeddingEncoder` and `Wav2Vec2Encoder` encoders (§A.8). The JAX
 package's monitor plot after training waits for `utils/plot.py` (§A.8)
 and is left out; `config.perf` is read and
 ignored, since the port has no implementation switches: every op runs
@@ -120,9 +123,11 @@ def build_tokenizer(expdir, hyper, key="tokenizer", corpus_file="text"):
 
 def load_tokenizers(expdir, hyper):
     """Every tokenizer the experiment declares (each hyper-p key that
-    starts with "tokenizer")."""
-    tasks.get_task(hyper)
-    return {key: build_tokenizer(expdir, hyper, key)
+    starts with "tokenizer"), each built from the column its task adapter
+    names ("text" without one)."""
+    task = tasks.get_task(hyper)
+    return {key: build_tokenizer(expdir, hyper, key, "text" if task is None
+                                 else task.tokenizer_corpus_file(key))
             for key in hyper if key.startswith("tokenizer")}
 
 
@@ -212,6 +217,8 @@ def check_train(hyper, config):
     _check_encoder(config)
     if config.get("parallel"):
         raise _todo("config.parallel (tensor parallelism)", "§A.7")
+    if tasks.get_task(hyper) is not None:
+        return  # the ME2E bins train CTC whatever trainer.loss says
     den_cfg = hyper.get("den_lm", {})
     _check_den_path(den_cfg.get("path", ""))
     if den_cfg.get("order", 3) > 3 and \
@@ -231,12 +238,17 @@ def check_decode(hyper, config=None):
                   "n-best rescoring (decode.rescore)", ("ngram", "nn"))
 
 
-def stage_pack(expdir, hyper, tok, device="cpu"):
+def stage_pack(expdir, hyper, tok, device="cpu", extract=None):
+    """pkl/<split> of dev and the train set (dev only when the train set
+    streams from shards); a data dir packed already is linked.
+    `extract(datadir)` yields (uid, features, transcript): by default
+    fbank + CMVN on `device`."""
     from cat_tpu_torch.utils.data import pack_speech_data
 
     _check_data(hyper)
     pkl_dir = os.path.join(expdir, "pkl")
     feat_cfg = hyper.get("feature", {})
+    extract = extract or (lambda d: extract_features(d, feat_cfg, device))
     splits = [("dev", hyper["data"]["dev"])]
     if _sharded(hyper) is None:  # shards are read as they are
         splits.append(("train", _train_sets(hyper)[0][0]))
@@ -249,8 +261,7 @@ def stage_pack(expdir, hyper, tok, device="cpu"):
             if not os.path.exists(out):
                 os.symlink(os.path.abspath(datadir), out)
             continue
-        pack_speech_data(out, extract_features(datadir, feat_cfg, device),
-                         tok)
+        pack_speech_data(out, extract(datadir), tok)
     return pkl_dir
 
 
@@ -862,6 +873,8 @@ def main(argv=None):
     if args.start_stage <= 4 <= args.stop_stage:
         check_decode(hyper, config)
 
+    # a task adapter (the ME2E bins) owns stages 2-4, as in JAX
+    task = tasks.get_task(hyper)
     toks = load_tokenizers(args.expdir, hyper)
     tok = toks.get("tokenizer")
     print("[stage 1] tokenizer(s) ready: "
@@ -869,13 +882,22 @@ def main(argv=None):
     if args.stop_stage < 2:
         return
     if args.start_stage <= 2:
-        stage_pack(args.expdir, hyper, tok, device)
+        if task is not None:
+            task.pack(args.expdir, hyper, toks, device)
+        else:
+            stage_pack(args.expdir, hyper, tok, device)
         print("[stage 2] data packed")
     if args.start_stage <= 3 <= args.stop_stage:
-        stage_train(args.expdir, hyper, config, tok, device)
+        if task is not None:
+            task.train(args.expdir, hyper, config, toks, device)
+        else:
+            stage_train(args.expdir, hyper, config, tok, device)
         print("[stage 3] training done")
     if args.start_stage <= 4 <= args.stop_stage:
-        stage_decode(args.expdir, hyper, config, tok, device)
+        if task is not None:
+            task.decode(args.expdir, hyper, config, toks, device)
+        else:
+            stage_decode(args.expdir, hyper, config, tok, device)
         print("[stage 4] decode done")
 
 

@@ -7,25 +7,34 @@ module holds the one map from a bin to the port's trainer module, read by
 both pipelines (`pipeline/asr.py`, `pipeline/lm.py`, which takes the
 `lm.*` bins) and by both decode CLIs. The bins not ported yet raise
 NotImplementedError naming their ROADMAP.md section. The JAX package
-drives the ME2E, JSA and P2G bins through task adapters; the plain ASR
-bins have none (`get_task` returns None), as in JAX.
+drives the ME2E, JSA and P2G bins through task adapters, which own stages
+2-4 of their recipes; the plain ASR bins have none (`get_task` returns
+None), as in JAX. The port has the ME2E adapters; JSA and P2G raise.
+
+An ME2E adapter (`Me2eTask` and its chunk and kaldi variants) packs raw
+multichannel waves (L, C), time-major, a mono source replicated over
+feature.channels; trains the bin's model through the `Manager` on
+`BucketedLoader`s whose frame budget counts samples (train.option
+frame_budget, 640,000 by default) and whose feasibility divisor is the
+front end's hop times the encoder's subsampling, 4; and decodes the
+inference split offline, or by the chunk pass in decode mode
+"streaming", at decode.beam_width (8), with the prefix capacity the
+batch's label width + 16, as the JAX adapter does.
 """
 from __future__ import annotations
 
 import importlib
+import os
+import time
 
+ME2E_BINS = ("ctc.train_me2e", "ctc.train_me2e_chunk", "ctc.train_me2e_kaldi",
+             "ctc.train_me2e_kaldi_chunk")
 PORTED = ("ctc.train", "rnnt.train", "ctc.train_unified",
-          "rnnt.train_unified", "lm.train", "lm.train_trf")
+          "rnnt.train_unified", "lm.train", "lm.train_trf") + ME2E_BINS
 # bins of the JAX package that the port does not have yet, with the
 # ROADMAP.md section that ports them
-NOT_PORTED = {
-    "ctc.train_me2e": "§A.8", "ctc.train_me2e_chunk": "§A.8",
-    "ctc.train_me2e_kaldi": "§A.8", "ctc.train_me2e_kaldi_chunk": "§A.8",
-    "ctc.train_jsa": "§A.8", "p2g.train": "§A.8",
-}
-TASK_BINS = ("ctc.train_me2e", "ctc.train_me2e_chunk",
-             "ctc.train_me2e_kaldi", "ctc.train_me2e_kaldi_chunk",
-             "ctc.train_jsa", "p2g.train")
+NOT_PORTED = {"ctc.train_jsa": "§A.8", "p2g.train": "§A.8"}
+TASK_BINS = ME2E_BINS + ("ctc.train_jsa", "p2g.train")
 
 
 def bin_key(name: str) -> str:
@@ -68,10 +77,154 @@ def train_module(name: str, want_family: str | None = None):
 
 
 def get_task(hyper):
-    """The task adapter of the experiment's bin: None for the plain ASR
-    bins, as in JAX; the ME2E, JSA and P2G bins raise (ROADMAP.md
-    §A.8)."""
+    """The task adapter of the experiment's bin: an ME2E adapter for the
+    four ME2E bins, None for the plain ASR bins, as in JAX; the JSA and
+    P2G bins raise (ROADMAP.md §A.8)."""
     b = hyper.get("train", {}).get("bin", "")
-    if bin_key(b) in TASK_BINS:
+    key = bin_key(b)
+    if key in ME2E_BINS:
+        return Me2eTask(key)
+    if key in TASK_BINS:
         raise _not_ported(b)
     return None
+
+
+def _loader_kw(opts, hop):
+    """BucketedLoader options of an ME2E split: a frame budget in samples,
+    the feasibility filter on output frames (hop · 4 samples a frame)."""
+    return dict(frame_budget=opts.get("frame_budget", 640000),
+                num_buckets=opts.get("num_buckets", 4),
+                feasibility_divisor=hop * 4)
+
+
+class Me2eTask:
+    """Stages 2-4 of an ME2E recipe (counterpart of `Me2eTask`,
+    `Me2eChunkTask`, `Me2eKaldiTask` and `Me2eKaldiChunkTask` of
+    `cat_tpu/pipeline/tasks.py`); `key` is the bin without its package."""
+
+    def __init__(self, key):
+        self.key = key
+        self.chunk = key.endswith("_chunk")
+
+    def tokenizer_corpus_file(self, key):
+        return "text"
+
+    def module(self):
+        return importlib.import_module("cat_tpu_torch." + self.key)
+
+    def pack(self, expdir, hyper, toks, device=None):
+        """Stage 2 with raw waves (L, C) for features; `device` is unused:
+        nothing is computed."""
+        import numpy as np
+
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.audio import read_wav
+
+        channels = int(hyper.get("feature", {}).get("channels", 1))
+
+        def waves(datadir):
+            scp = asr.read_scp(os.path.join(datadir, "wav.scp"))
+            text = asr.read_scp(os.path.join(datadir, "text"))
+            for uid, path in scp.items():
+                wave, _ = read_wav(path, mono=False)
+                if wave.ndim == 1:  # a mono source: replicated
+                    wave = np.tile(wave[:, None], (1, channels))
+                yield uid, wave.astype(np.float32), text.get(uid, "")
+
+        return asr.stage_pack(expdir, hyper, toks["tokenizer"],
+                              extract=waves)
+
+    def _extra(self, config):
+        """The chunk bins' trainer.lamb_chunk (0.5), lamb_simu (1.0) and
+        future ("simu")."""
+        if not self.chunk:
+            return {}
+        tr = config.get("trainer", {})
+        return dict(lamb_chunk=tr.get("lamb_chunk", 0.5),
+                    lamb_simu=tr.get("lamb_simu", 1.0),
+                    future=tr.get("future", "simu"))
+
+    def train(self, expdir, hyper, config, toks, device="cpu"):
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.checkpoint import CheckpointManager
+        from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
+        from cat_tpu_torch.utils.manager import Manager
+        from cat_tpu_torch.utils.scheduler import build_scheduler
+
+        asr.check_train(hyper, config)
+        task = self.module()
+        tok = toks["tokenizer"]
+        opts = hyper["train"].get("option", {})
+        model = task.build_model(config, num_classes=tok.vocab_size,
+                                 device=device)
+        kw = _loader_kw(opts, model.frontend.frame_shift)
+        pkl = os.path.join(expdir, "pkl")
+        tr = SpeechDataset(os.path.join(pkl, "train"))
+        dv = SpeechDataset(os.path.join(pkl, "dev"))
+        sched, opt = build_scheduler(config["scheduler"], model.parameters())
+        extra = self._extra(config)
+        train_step = task.make_train_step(
+            model, opt, grad_clip=config.get("trainer", {}).get(
+                "grad_clip", 5.0), channels_last=True, **extra)
+        extra.pop("lamb_simu", None)
+        eval_step = task.make_eval_step(model, channels_last=True, **extra)
+        mgr = Manager(train_step, eval_step, task.init_state(model, opt),
+                      sched, CheckpointManager(os.path.join(expdir, "check")),
+                      BucketedLoader(tr, seed=opts.get("seed", 0), **kw),
+                      BucketedLoader(dv, shuffle=False, **kw),
+                      max_epochs=opts.get("max_epochs", 100),
+                      check_freq=opts.get("check_freq", -1))
+        asr._write_exp_readme(expdir, config, model, tok)
+        if opts.get("resume"):
+            mgr.resume(opts["resume"])
+        mgr.run()
+        return mgr
+
+    def decode(self, expdir, hyper, config, toks, device="cpu"):
+        from cat_tpu_torch.ctc.decode_me2e import make_me2e_decoder
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
+
+        import torch
+
+        asr.check_decode(hyper, config)
+        tok = toks["tokenizer"]
+        inf = hyper.get("inference", {})
+        dec_cfg = inf.get("decode", {})
+        split = inf.get("split", "dev")
+        model = self.module().build_model(config, num_classes=tok.vocab_size,
+                                          device=device)
+        model.load_state_dict(asr._load_decode_state(expdir, hyper, model))
+        model.eval()
+        ds = SpeechDataset(os.path.join(expdir, "pkl", split))
+        loader = BucketedLoader(ds, shuffle=False, **_loader_kw(
+            dec_cfg, model.frontend.frame_shift))
+        mode = dec_cfg.get("mode", "offline")
+        dec = make_me2e_decoder(
+            model, "streaming" if mode == "streaming" else "offline",
+            beam_width=dec_cfg.get("beam_width", 8),
+            future=dec_cfg.get("future", "simu"),
+            beta=float(dec_cfg.get("beta", 0.0)), channels_last=True)
+        sr = float(hyper.get("feature", {}).get("sample_rate", 16000))
+        nbest_n = int(dec_cfg.get("nbest", 1))
+        refs, hyps, all_nbest = {}, {}, {}
+        audio_s = 0.0
+        t0 = time.time()
+        for b in loader:
+            res = dec(b.feats, b.feat_lengths, nbest=nbest_n,
+                      max_len=int(b.labels.shape[1]) + 16)
+            for n in range(len(res)):
+                if b.weight[n] <= 0:
+                    continue
+                uid = b.uids[n]
+                audio_s += float(b.feat_lengths[n]) / sr
+                entry = {k: (float(s), tok.decode([int(t) for t in seq]))
+                         for k, (s, seq) in enumerate(res[n])}
+                all_nbest[uid] = entry
+                hyps[uid] = entry[0][1]
+                refs[uid] = tok.decode(
+                    [int(x) for x in b.labels[n, :b.label_lengths[n]]])
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return asr.finalize_decode(expdir, split, refs, hyps, all_nbest,
+                                   time.time() - t0, audio_s, mode, dec_cfg)

@@ -11,16 +11,17 @@ Usage:
     python -m cat_tpu_torch.utils.data_prep <datadir> <out> \\
         --tokenizer exp/tokenizer.tknz [--format packed|shards] \\
         [--shard-size 500] [--num-mel-bins 80] [--speed-perturb 0.9 1.1] \\
-        [--device cuda|cpu]
+        [--channels C] [--device cuda|cpu]
 
 The features are `ops/fbank.py`'s, computed on the card unless
 `--device cpu` is given; the output is the packed format of
 `utils/data.py`, or with `--format shards` the npz shards of streaming
 training (`utils/data_sharded.py`, `--shard-size` utterances a shard),
 both read by either package. Speed-perturbed copies get the uid prefix
-`sp{factor}-` and are meant for training sets only. The raw multichannel
-waves of ME2E prep (`--channels`, ROADMAP.md §A.8) are not ported yet
-and raise.
+`sp{factor}-` and are meant for training sets only. With `--channels C`
+(ME2E prep) the raw multichannel waves are written instead of features:
+(L, C) float32, time-major, a mono source replicated over C channels and
+a wider one cut to its first C; nothing runs on the device then.
 """
 from __future__ import annotations
 
@@ -89,13 +90,14 @@ def wav_features(wav, sr, num_mel_bins=80, device="cpu"):
 
 
 def features_iter(entries, num_mel_bins=80, speed_perturb=(),
-                  device="cpu"):
-    """Yields (uid, feats (T, F) f32, transcript). Speed-perturbed copies
-    are resampled (`ops/fbank.py` `speed_perturb_resample`) and their uids
-    prefixed `sp{f}-`."""
+                  device="cpu", channels=0):
+    """Yields (uid, feats (T, F) f32, transcript), or with channels > 0
+    (uid, wave (L, C) f32, transcript). Speed-perturbed copies are
+    resampled along the time axis (`ops/fbank.py`
+    `speed_perturb_resample`) and their uids prefixed `sp{f}-`."""
     factors = [None] + [f for f in speed_perturb if abs(f - 1.0) > 1e-6]
     for uid, path, trans, start, end in entries:
-        wav, sr = read_wav(path)
+        wav, sr = read_wav(path, mono=channels == 0)
         if start is not None:
             wav = wav[int(start * sr):int(end * sr)]
         if wav.shape[0] < 16:
@@ -104,31 +106,34 @@ def features_iter(entries, num_mel_bins=80, speed_perturb=(),
             w, u = wav, uid
             if f is not None:
                 w = np.ascontiguousarray(
-                    fbank.speed_perturb_resample(w, f), np.float32)
+                    fbank.speed_perturb_resample(w.T, f).T, np.float32)
                 u = f"sp{f}-{uid}"
+            if channels > 0:
+                if w.ndim == 1:
+                    w = np.tile(w[:, None], (1, channels))
+                yield u, np.ascontiguousarray(w[:, :channels],
+                                              np.float32), trans
+                continue
             yield u, wav_features(w, sr, num_mel_bins, device), trans
 
 
-def check_format(fmt="packed", channels=0):
-    """Raise for the outputs not ported yet."""
+def check_format(fmt="packed"):
+    """Raise for an unknown output format."""
     if fmt not in ("packed", "shards"):
         raise ValueError(f"unknown format {fmt!r}")
-    if channels > 0:
-        raise NotImplementedError("raw multichannel prep (--channels, the "
-                                  "ME2E front end) is not ported to "
-                                  "cat_tpu_torch yet; see ROADMAP.md §A.8")
 
 
 def prepare(datadir, out, tokenizer, fmt="packed", num_mel_bins=80,
             speed_perturb=(), shard_size=500, channels=0, device=None):
     """Write `out` as packed data or npz shards; returns the number of
     shards (1 for packed data)."""
-    check_format(fmt, channels)
+    check_format(fmt)
     device = check_device(device)
     entries = read_manifest(datadir)
     if not entries:
         raise FileNotFoundError(f"no utterances under {datadir}")
-    it = features_iter(entries, num_mel_bins, speed_perturb, device)
+    it = features_iter(entries, num_mel_bins, speed_perturb, device,
+                       channels)
     if fmt == "shards":
         from cat_tpu_torch.utils.data_sharded import write_shards
 
@@ -159,11 +164,12 @@ def main(argv=None):
     p.add_argument("--shard-size", type=int, default=500,
                    help="utterances a shard (--format shards)")
     p.add_argument("--channels", type=int, default=0,
-                   help=">0: raw multichannel waves (not ported)")
+                   help=">0: pack raw multichannel waves (L, C) (ME2E "
+                        "prep) instead of fbank")
     p.add_argument("--device", default="cuda",
                    help="device of the fbank (default cuda)")
     a = p.parse_args(argv)
-    check_format(a.format, a.channels)
+    check_format(a.format)
     from cat_tpu_torch.utils import tokenizer as tknz
 
     prepare(a.datadir, a.out, tknz.load(a.tokenizer), fmt=a.format,

@@ -1,8 +1,9 @@
 """Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s,
-`TDNN_NAS`'s, JoinAP encoder's, `TransducerModel`'s or CUSIDE unified
-model's (`UnifiedEncoder`, `UnifiedTransducerModel`) variables, or an
-LM's (`LSTMPredictor` with its head, `Embedding`, `CausalTransformer`,
-`TRFNCE`) (nested dicts of numpy arrays, as in its checkpoints) to the
+`TDNN_NAS`'s, JoinAP encoder's, `TransducerModel`'s, CUSIDE unified
+model's (`UnifiedEncoder`, `UnifiedTransducerModel`) or multichannel
+model's (`Me2eModel`, `ChunkMe2eModel`, and the front end's modules
+alone) variables, or an LM's (`LSTMPredictor` with its head,
+`Embedding`, `CausalTransformer`, `TRFNCE`) (nested dicts of numpy arrays, as in its checkpoints) to the
 port's state_dict (`model_state_dict` picks the converter by the port's
 model class).
 
@@ -278,6 +279,10 @@ def model_state_dict(model, params, batch_stats):
         return transducer_state_dict(params, batch_stats, model.encoder)
     if name in ("UnifiedEncoder", "UnifiedTransducerModel"):
         return unified_state_dict(model, params, batch_stats)
+    if name in ("Me2eModel", "ChunkMe2eModel"):
+        return me2e_state_dict(model, params, batch_stats)
+    if name in _FRONT:
+        return _FRONT[name](params)
     return encoder_state_dict(model, params, batch_stats)
 
 
@@ -336,4 +341,62 @@ def transducer_state_dict(params, batch_stats, encoder=None):
     sd.update(predictor_state_dict(params.get("predictor", {}),
                                    "predictor."))
     sd.update(joiner_state_dict(params["joiner"], "joiner."))
+    return sd
+
+
+def masknet_state_dict(params, pre=""):
+    """The port's `MaskNet` state_dict from a JAX one's params: its BLSTM
+    `LSTMStack_0` (as an `LSTM` encoder's, under "lstm.") and the
+    `speech` and `noise` heads."""
+    sd = {pre + "lstm." + k: v for k, v in
+          lstm_encoder_state_dict(params, bidirectional=True).items()}
+    _dense(sd, pre + "speech.", params["speech"])
+    _dense(sd, pre + "noise.", params["noise"])
+    return sd
+
+
+def dnn_wpe_state_dict(params, pre=""):
+    """The port's `DnnWpe` state_dict: its own `MaskNet_0`."""
+    return masknet_state_dict(params["MaskNet_0"], pre + "mask.")
+
+
+def beamformer_state_dict(params, pre=""):
+    """The port's `BeamformerNet` state_dict from a JAX one's params:
+    `DnnWpe_0` (DNN-WPE) and `MaskNet_0`, whichever it has (a `noSE`
+    front end has neither)."""
+    sd = {}
+    if "DnnWpe_0" in params:
+        sd.update(dnn_wpe_state_dict(params["DnnWpe_0"], pre + "dnn_wpe."))
+    if "MaskNet_0" in params:
+        sd.update(masknet_state_dict(params["MaskNet_0"], pre + "mask."))
+    return sd
+
+
+def neural_filter_state_dict(params, pre=""):
+    """The port's `NeuralFilter` state_dict: the BLSTM `LSTMStack_0` and
+    the `filt_re` and `filt_im` heads."""
+    sd = {pre + "lstm." + k: v for k, v in
+          lstm_encoder_state_dict(params, bidirectional=True).items()}
+    _dense(sd, pre + "filt_re.", params["filt_re"])
+    _dense(sd, pre + "filt_im.", params["filt_im"])
+    return sd
+
+
+_FRONT = {"BeamformerNet": beamformer_state_dict,
+          "MaskNet": masknet_state_dict, "DnnWpe": dnn_wpe_state_dict,
+          "NeuralFilter": neural_filter_state_dict}
+
+
+def me2e_state_dict(model, params, batch_stats):
+    """The state_dict of the port's `Me2eModel` or `ChunkMe2eModel` from
+    the JAX model's variables: `frontend`, `encoder` (through the
+    converter of the port's encoder, its classifier included) and, for
+    the chunk model, `simu`."""
+    sd = {"frontend." + k: v for k, v in
+          beamformer_state_dict(params.get("frontend", {})).items()}
+    enc = encoder_state_dict(model.encoder, params["encoder"],
+                             (batch_stats or {}).get("encoder", {}))
+    sd.update({"encoder." + k: v for k, v in enc.items()})
+    if getattr(model, "simu", None) is not None:
+        sd.update(simunet_state_dict(params["simu"], "simu."))
     return sd

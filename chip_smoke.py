@@ -255,6 +255,30 @@ Phases, any failure exits non-zero:
    forward kernel's logZ on the training batch within 1e-5 relative of
    the cached den_dense.npz's. TLG build and load seconds, states and
    arcs, native ms an utterance, the host share of stage 4 and its RTF;
+11c. me2e: egs/aishell4/exp/me2e-mvdr's model at full width (8
+   channels, fft 512, DNN-WPE of 5 taps and delay 3, MVDR, mask nets of
+   256, the 12-cell d = 256 bf16 conformer; V = ME2E_V) from a seed, on
+   8-channel audio synthesized on the card (`array_waves`: a seeded
+   source under a syllable envelope, delayed a sample a channel, a
+   reverberation tail, noise). Its front end is plain PyTorch (no row of
+   the kernel table): the card's log-mel of 2 utterances against the
+   same weights on the CPU with the STFT, WPE, covariances and solves in
+   complex128 (ME2E_FEAT_RTOL); one step (4 utterances) with the kernels
+   against the plain bf16 and float32 steps (phase 4's gates, no
+   SpecAugment, DNN-WPE's unused noise head not gated), ME2E_STEP
+   launches and any plain version given a CUDA tensor failing the run; 1
+   warm-up and 3 timed steps at the recipe's frame budget (16 x 8 x
+   160,000 samples): ms, audio-s/s, peak, launches, and the device busy
+   share of one (torch.profiler, device activity only); the guard: an inf
+   sample gives skipped 1.0, zero gradients and Adam's step on them; then
+   pipeline.asr stages 1-4 of egs/template/exp/asr-me2e (2-channel yes/no
+   tones; max_epochs 120 -> 3) and of aishell4 me2e-mvdr at full width
+   (16 train and 8 dev 8-channel utterances of 2-4 s; a SimpleTokenizer
+   of 40 words for its Jieba lexicon, max_epochs 1, check_freq at the
+   epoch's end), launches pinned per step, eval and decode batch, the
+   first device-beam batch judged by `judge_device_beam`; last, a chunk
+   model at aishell4's widths (chunk 64/64/16) decoded streaming by
+   `make_me2e_decoder`, its log-probs within LOGIT_TOL of the CPU's, RTF;
 12. device: the card's name and power limit.
 With --profile, one serving forward and the three train steps (crf-v1,
 rnnt-v1, aishell rnnt-cuside) also run under torch.profiler; the device
@@ -1496,7 +1520,7 @@ def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
 
 def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
                 field=None, float32_model=False, judge_float32=False,
-                where="serving batch"):
+                where="serving batch", frames=None):
     """One train step with the kernels, `run(None, False)`, against the
     same step on every kernel's plain version (the encoder's fused ops,
     the dropout and the losses) in bf16, `run(plain_patches(), False)`,
@@ -1513,7 +1537,10 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
     disagree (the random JoinAP models, whose logits are an order of
     magnitude larger than crf-v1's). A unified trainer's loss terms
     (loss_full, loss_chunk, loss_simu) are held as the loss is. `where`
-    names the batch."""
+    names the batch; `frames`, the encoder's input frames of each
+    utterance, default to the batch's feat_lengths (an ME2E batch's count
+    samples); without SpecAugment (`specaug_cfg` None) every valid frame
+    is in the "other" region."""
     import torch
     from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops.specaug import draw_masks
@@ -1534,7 +1561,12 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
         a, b = a.flatten().double(), b.flatten().double()
         return (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
 
-    names = [n for n in k["grads"] if not n.endswith(NOISE_GRADS)]
+    # a tensor the loss does not reach (DNN-WPE's unused noise head) has
+    # a gradient of exactly zero in every step: nothing to compare
+    unused = [n for n in k["grads"]
+              if not any(d["grads"][n].any() for d in (k, p, r))]
+    names = [n for n in k["grads"]
+             if not n.endswith(NOISE_GRADS) and n not in unused]
     cos = {n: cosine(k["grads"][n], p["grads"][n]) for n in names}
     worst = min(cos, key=cos.get)
     low = {n: (cosine(k["grads"][n], r["grads"][n]),
@@ -1549,14 +1581,17 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
     # the encoder's output, frame by frame, in the frames a SpecAugment
     # time mask covered (the step's own draw, the first from its
     # generator) and in the other valid frames
-    frames = batch["feat_lengths"].tolist()
+    frames = frames or batch["feat_lengths"].tolist()
     Tp = k["logits"].shape[1]
     out_len = (field or CONV2D_FIELD)[0]
     valid = length_mask(torch.tensor([out_len(f) for f in frames],
                                      device="cuda"), Tp)
-    masks = draw_masks(torch.Generator().manual_seed(5),
-                       batch["feat_lengths"], 80, **specaug_cfg)
-    tm = time_masked(masks, frames, Tp, field).to("cuda")
+    if specaug_cfg is None:
+        tm = torch.zeros_like(valid)
+    else:
+        masks = draw_masks(torch.Generator().manual_seed(5),
+                           batch["feat_lengths"], 80, **specaug_cfg)
+        tm = time_masked(masks, frames, Tp, field).to("cuda")
     out_dist = {}
     for region, m in (("time-masked", tm & valid), ("other", ~tm & valid)):
         if not m.any():
@@ -1577,8 +1612,9 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
             + "; ".join(f"{t} {k['terms'][t]:.6g} / {p['terms'][t]:.6g} / "
                         f"{r['terms'][t]:.6g} ({e:.3g})"
                         for t, e in terms_rel.items()))
-    log(f"[step] {what} train step on the {where} (dropout, "
-        f"SpecAugment), kernels / plain bf16 / plain float32: loss "
+    log(f"[step] {what} train step on the {where} (dropout"
+        f"{', SpecAugment' if specaug_cfg else ''}), kernels / plain bf16 / "
+        f"plain float32: loss "
         f"{k['loss']:.6g} / {p['loss']:.6g} / {r['loss']:.6g} (kernels vs "
         f"plain rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); grad norm "
         f"{k['grad_norm']:.6g} / {p['grad_norm']:.6g} / "
@@ -1589,7 +1625,9 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
         f"float32 step: kernels {cosine(k['grads'][worst], r['grads'][worst]):.5f}"
         f", plain {cosine(p['grads'][worst], r['grads'][worst]):.5f}), "
         f"median {sorted(cos.values())[len(cos) // 2]:.5f} (tol {STEP_COS}; "
-        f"exact-zero bias gradients not gated)")
+        f"exact-zero bias gradients not gated"
+        + (f"; {len(unused)} tensors with a zero gradient in every step, "
+           f"unused by the loss: {unused}" if unused else "") + ")")
     if low:
         log(f"[step] {what} {len(low)} tensors below {STEP_COS} against "
             f"plain bf16; their cosines to the float32 step, kernels / "
@@ -4446,17 +4484,443 @@ def lm_rescoring(root, crf_v1, card):
         f"{len(best)} 1-bests changed")
 
 
-def phase_profile(fn, what, path):
+ME2E_CELLS = 12     # egs/aishell4/exp/me2e-mvdr: 12 cells, d = 256, 4 heads
+# aishell4's vocabulary stands in as AISHELL's characters (CUSIDE_V): the
+# recipe's Jieba lexicon files are not in the repository
+ME2E_V = CUSIDE_V
+ME2E_BUDGET = 2560000  # the recipe's frame budget: 160 s of 8-channel audio
+ME2E_SR = 16000
+# launches per full-pass ME2E step (12 cells of crf-v1's per-cell counts,
+# the subsampling's dropout both ways, CTC alpha and beta), per eval batch
+# (the forward kernels, 1 CTC alpha) and per decode batch (the forward
+# kernels)
+ME2E_STEP = {k: (v // 17 * ME2E_CELLS if k in KERNELS[:8] else v)
+             for k, v in PER_STEP.items()}
+ME2E_STEP.update(den_fwd=0, den_bwd=0)
+ME2E_EVAL = {k: (v if k in KERNELS[:4] else int(k == "ctc_alpha"))
+             for k, v in ME2E_STEP.items()}
+ME2E_DECODE = {k: (v if k in KERNELS[:4] else 0)
+               for k, v in ME2E_STEP.items()}
+# the card's log-mel features (complex64 STFT, WPE, covariances and
+# solves) against the same weights on the CPU with the STFT, WPE,
+# covariances, solves and mel product in complex128/float64: relative
+# norm over the valid frames
+ME2E_FEAT_RTOL = 1e-3
+ME2E_TOY_EPOCHS = 3   # egs/template/exp/asr-me2e: max_epochs 120 cut to 3
+ME2E_RECIPE_UTTS = (16, 8)   # aishell4 stand-in corpus: train, dev
+
+
+def array_waves(lengths, C, seed, device="cuda", sr=ME2E_SR):
+    """(N, C, L) float32 multichannel waves, zero past each length: a
+    seeded noise source under a 3 Hz syllable envelope, reaching channel c
+    c samples late (a linear array), each channel convolved with its own
+    reverberation tail (a random impulse response decaying over 10 ms,
+    0.05 s long, direct path 1), then scaled to 0.1 RMS with 0.01 of
+    independent noise. Made on `device`."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    N, L = len(lengths), max(lengths)
+    t = torch.arange(L + C, device=device) / sr
+    phase = torch.rand(N, 1, generator=g, device=device) * math.pi
+    src = torch.randn(N, L + C, generator=g, device=device) * torch.sin(
+        2 * math.pi * 3.0 * t + phase).abs()
+    chans = torch.stack([src[:, C - c:C - c + L] for c in range(C)], 1)
+    K = int(0.05 * sr)
+    ir = torch.randn(C, K, generator=g, device=device) * 0.3 * torch.exp(
+        -torch.arange(K, device=device) / (0.01 * sr))
+    ir[:, 0] = 1.0
+    n = L + K
+    y = torch.fft.irfft(torch.fft.rfft(chans, n=n) * torch.fft.rfft(ir, n=n),
+                        n=n)[..., :L]
+    y = 0.1 * y / y.std() + 0.01 * torch.randn(N, C, L, generator=g,
+                                               device=device)
+    lens = torch.tensor(lengths, device=device)
+    return y * (torch.arange(L, device=device) < lens[:, None, None])
+
+
+def me2e_frames(samples, frame_length=400, frame_shift=160):
+    return 1 + (samples - frame_length) // frame_shift
+
+
+def me2e_batch(lengths, seed, C=8, vocab=None, device="cuda"):
+    """An ME2E batch (N, C, L) of `array_waves`, labels U_n = T'_n // 4 ids
+    in 1..vocab-1, weights 1."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    llens = np.array([subsampled(me2e_frames(n)) // 4 for n in lengths])
+    labels = rng.integers(1, vocab or ME2E_V, (len(lengths), llens.max()))
+    labels *= np.arange(llens.max())[None, :] < llens[:, None]
+    t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return {"feats": array_waves(lengths, C, seed, device),
+            "feat_lengths": t(lengths), "labels": t(labels),
+            "label_lengths": t(llens),
+            "weight": torch.ones(len(lengths), device=device)}
+
+
+def me2e_config(name="aishell4/exp/me2e-mvdr"):
+    with open(os.path.join(REPO, "egs", name, "config.json")) as f:
+        return json.load(f)
+
+
+def plain_guards():
+    """Each plain version of plain_patches() in its module, wrapped to fail
+    the run when it is given a CUDA tensor: on the card every fused op
+    must launch its kernel."""
+    import torch
+    out = {}
+    for mod, fns in plain_patches().items():
+        for fn in fns.values():
+            if getattr(mod, fn.__name__, None) is not fn:
+                continue
+
+            def guard(*args, _fn=fn, **kwargs):
+                if any(torch.is_tensor(a) and a.is_cuda
+                       for a in (*args, *kwargs.values())):
+                    fail(f"the plain version {_fn.__name__} ran on a CUDA "
+                         "tensor")
+                return _fn(*args, **kwargs)
+
+            out.setdefault(mod, {})[fn.__name__] = guard
+    return out
+
+
+def me2e_features(model, card):
+    """The card's log-mel features of 2 utterances (3 and 2.5 s) against
+    the same front end on the CPU in float64 (the STFT, WPE, covariances,
+    solves and mel product in complex128/float64; the mask nets compute
+    in float32 there too)."""
+    import copy
+    import torch
+    lengths = [48000, 40000]
+    wave = array_waves(lengths, 8, seed=31)
+    lens = torch.tensor(lengths, device="cuda")
+    with torch.no_grad():
+        t = time.perf_counter()
+        got, flens = model.features(wave, lens)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        cpu = copy.deepcopy(model.frontend).cpu()
+        t = time.perf_counter()
+        want, wl = cpu(wave.cpu().double(), lens.cpu())
+        cpu_s = time.perf_counter() - t
+    if not torch.equal(flens.cpu(), wl) or want.dtype != torch.float64:
+        fail(f"[me2e] features: frame lengths {flens.tolist()} vs "
+             f"{wl.tolist()}, witness dtype {want.dtype}")
+    valid = torch.arange(got.shape[1])[None, :] < wl[:, None]
+    g, w = got.cpu().double()[valid], want[valid]
+    err = ((g - w).norm() / w.norm()).item()
+    log(f"[me2e] aishell4 front end (8 channels, fft 512, DNN-WPE 5 taps "
+        f"delay 3, MVDR, 80 mel bins) on 2 utterances of 3 and 2.5 s: "
+        f"card (complex64) vs CPU (complex128) log-mel over "
+        f"{int(valid.sum())} valid frames, relative norm {err:.3g} (tol "
+        f"{ME2E_FEAT_RTOL}), max abs {(g - w).abs().max().item():.3g}; card "
+        f"{ms:.1f} ms, CPU witness {cpu_s:.1f} s ({card})")
+    if not torch.isfinite(got).all() or err > ME2E_FEAT_RTOL:
+        fail(f"[me2e] the card's features are {err:.3g} from the float64 "
+             f"witness (tol {ME2E_FEAT_RTOL})")
+
+
+def me2e_guard(model, opt, step, state, batch):
+    """A batch with an inf sample: skipped 1.0, every gradient zero, and
+    Adam's step on zero gradients (moments decayed, count advanced, the
+    parameters moved by the decayed momentum), as the JAX trainer's."""
+    import torch
+    bad = dict(batch, feats=batch["feats"].clone())
+    bad["feats"][0, 0, 1000] = float("inf")
+    group = opt.param_groups[0]
+    lr, (b1, b2), eps = 1e-4, group["betas"], group["eps"]
+    want = {}
+    for p in group["params"]:
+        st = opt.state[p]
+        t = int(st["step"]) + 1
+        m, v = b1 * st["exp_avg"], b2 * st["exp_avg_sq"]
+        want[p] = p.detach() - lr / (1 - b1 ** t) * m / (
+            (v / (1 - b2 ** t)).sqrt() + eps)
+    state, m = step(state, bad, lr, torch.Generator().manual_seed(9))
+    worst = max(((p.detach() - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)).item() for p, w in want.items())
+    zero = all(not p.grad.any() for p in group["params"])
+    moved = sum(not torch.equal(p.detach(), w) for p, w in want.items())
+    log(f"[me2e] guard: a batch with an inf sample: skipped "
+        f"{m['skipped']}, loss {m['loss'].item()}, every gradient zero "
+        f"{zero}; the parameters after Adam's step on zero gradients within "
+        f"{worst:.3g} (relative to each tensor's largest) of the decayed "
+        f"momentum's step")
+    if m["skipped"] != 1.0 or not zero or worst > 1e-5:
+        fail("[me2e] the guard did not zero the step as the JAX trainer "
+             "does")
+    return state
+
+
+def me2e_train(model, cfg, card):
+    """One step vs plain, 1 warm-up + 3 timed steps at the recipe's frame
+    budget, the busy share of one, and the guard."""
+    import torch
+    from cat_tpu_torch.ctc import train_me2e
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+    perturb(model, torch.Generator().manual_seed(1))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    lengths = [64000, 56000, 48000, 40000]
+    batch = me2e_batch(lengths, seed=32)
+
+    def make_step():
+        sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+        return train_me2e.make_train_step(model, opt, grad_clip=5.0), \
+            sched.lr, opt
+
+    steps_agree("aishell4 me2e-mvdr", lambda patches, f32: step_once(
+        model, start, make_step, batch, model.encoder,
+        patches or plain_guards(), f32), batch, None, ME2E_STEP, "logits",
+        where="ME2E batch (4 utterances of 2.5-4 s)",
+        frames=[me2e_frames(n) for n in lengths])
+    model.load_state_dict(start)
+    del batch
+    torch.cuda.empty_cache()
+
+    # the recipe's frame budget: 16 utterances of 8.5-10 s padded to 10 s
+    n_utt = ME2E_BUDGET // 160000
+    lengths = [160000 - 10000 * (k % 4) for k in range(n_utt)]
+    batch = me2e_batch(lengths, seed=33)
+    sched, opt = build_scheduler(cfg["scheduler"], model.parameters())
+    step = train_me2e.make_train_step(model, opt, grad_clip=5.0)
+    state = train_me2e.init_state(model, opt)
+    gen = torch.Generator().manual_seed(10)
+    events, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with ExitStack() as stack:
+        for mod, fns in plain_guards().items():
+            for name, fn in fns.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+        for i in range(4):
+            sched.update_lr_step(state.step + 1)
+            reset_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev[0].record()
+            state, m = step(state, batch, sched.lr, gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall, ms = time.perf_counter() - t, ev[0].elapsed_time(ev[1])
+            log(f"[me2e] step {i + 1} ({'warm-up' if i == 0 else 'timed'}) "
+                f"at the frame budget ({n_utt} x 8 x {max(lengths)} "
+                f"samples): loss {m['loss'].item():.5g}, grad norm "
+                f"{m['grad_norm'].item():.5g}, skipped {m['skipped']}, "
+                f"{ms:.1f} ms (CUDA events), {wall * 1e3:.1f} ms host wall")
+            if counts() != ME2E_STEP:
+                fail(f"[me2e] step launch counts {counts()} != {ME2E_STEP}")
+            if m["skipped"] or not torch.isfinite(m["loss"]):
+                fail(f"[me2e] step {i + 1}: skipped or non-finite loss")
+            if i:
+                events.append(ms)
+                walls.append(wall * 1e3)
+        launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    audio_s = sum(lengths) / ME2E_SR
+    log(f"[me2e] aishell4 me2e-mvdr at the frame budget ({ME2E_BUDGET} "
+        f"samples, {audio_s:.0f} s of 8-channel audio), V = {ME2E_V}: "
+        f"{steps_line(events, walls, audio_s, peak)}; launches a step "
+        f"{launches} ({card})")
+    busy = phase_profile(lambda: step(state, batch, sched.lr, gen),
+                         "one aishell4 me2e-mvdr step at the frame budget",
+                         "chiprun_out/profile_me2e_train.txt", cpu=False)
+    log(f"[me2e] device busy share of one step: "
+        f"{'not measured' if busy is None else f'{busy:.3f}'} ({card})")
+    del batch
+    torch.cuda.empty_cache()
+    small = me2e_batch([64000, 48000], seed=34)
+    me2e_guard(model, opt, step, state, small)
+    return launches
+
+
+def me2e_corpus(root, C, sr, n_train, n_dev, seed, words):
+    """wav.scp and text of train and dev splits of C-channel WAVs: each
+    utterance `array_waves` of 2-4 s, its transcript 3-8 words of
+    `words` (the acoustics carry no words: the models are random)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("dev", n_dev)):
+        lengths = [int(sr * rng.uniform(2.0, 4.0)) for _ in range(n)]
+        waves = array_waves(lengths, C, seed + n, device="cpu", sr=sr)
+        utts = [(f"{split}_{i:03d}", waves[i, :, :lengths[i]].T.numpy(),
+                 list(rng.choice(words, size=int(rng.integers(3, 9)))))
+                for i in range(n)]
+        write_split(os.path.join(root, split), utts, sr)
+
+
+def me2e_toy_corpus(root):
+    """egs/template/exp/asr-me2e's 2-channel yes/no data, as
+    egs/template/local/make_data_me2e.py writes it: channel 1 is channel
+    0 two samples later with noise of 0.02 (24 train, 8 dev, seed 0)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 24), ("dev", 8)):
+        utts = []
+        for i in range(n):
+            words = list(rng.choice(["yes", "no"],
+                                    size=int(rng.integers(1, 4))))
+            mono = yesno_utt(rng, words)
+            ch1 = np.roll(mono, 2) + rng.standard_normal(len(mono)).astype(
+                np.float32) * 0.02
+            utts.append((f"{split}_{i:03d}", np.stack([mono, ch1], 1),
+                         words))
+        write_split(os.path.join(root, split), utts, YESNO_SR)
+
+
+def me2e_recipe(root, name, edit, step_want, eval_want, decode_want, card,
+                n_dev):
+    """egs/<name> through pipeline.asr stages 1-4 on the card; the first
+    device-beam batch of stage 4 judged against its float64 witness."""
+    from cat_tpu_torch.ctc import decode_device
+    expdir = os.path.join(root, "exp")
+    recipe(name, expdir, os.path.join(root, "data"), edit)
+    beams = []
+    search = decode_device.ctc_beam_search_device
+
+    def spy(lp, olens, **kw):
+        out = search(lp, olens, **kw)
+        beams.append((tuple(x.clone() for x in out), lp.clone(),
+                      olens.clone(), kw) if not beams else None)
+        return out
+
+    watch = Stopwatch()
+    probes, total = run_pipeline(expdir, watch, {
+        decode_device: {"ctc_beam_search_device": spy}}, ["--device", "cuda"])
+    res = check_outputs(expdir, n_dev, f"{name} pipeline")
+    pr = probes[0]
+    check_probe(pr, step_want, eval_want, f"{name} pipeline")
+    n_dec = len(beams)
+    want = {k: len(pr.train) * step_want[k] + len(pr.evals) * eval_want[k]
+            + n_dec * decode_want[k] for k in KERNELS}
+    if len(probes) != 1 or total != want or not n_dec:
+        fail(f"{name} pipeline: {len(probes)} Managers, {n_dec} beam "
+             f"batches, launches {total} != {want}")
+    out, lp, olens, kw = beams[0]
+    judged = judge_device_beam(out, lp, olens, kw)
+    ms = sorted(r["ms"] for r in pr.train)
+    log(f"[me2e] {name} ({card}): stages 1-4 in {watch.s['main']:.1f} s; "
+        f"{len(pr.train)} steps (median {ms[len(ms) // 2]:.1f} ms, CUDA "
+        f"events), {len(pr.evals)} eval batches, none skipped; stage 4 "
+        f"{n_dec} beam batches (width {kw['beam_width']}), {res['errors']} "
+        f"word errors of {res['num_words']} (random model, not gated), RTF "
+        f"{res['rtf']:.4f}; first beam batch vs its float64 witness: "
+        f"{judged}")
+
+
+def me2e_streaming(cfg, card):
+    """One batch through make_me2e_decoder(mode="streaming") of a chunk
+    model at aishell4's widths (chunk 64, left 64, right 16 STFT frames, a
+    SimuNet of 128) on the card, its log-probs against the same weights
+    on the CPU (the conformer's plain versions in bf16 there)."""
+    import torch
+    from cat_tpu_torch.ctc import decode_me2e, train_me2e_chunk
+    model = train_me2e_chunk.build_model(cfg, ME2E_V, device="cuda", seed=0)
+    cpu = train_me2e_chunk.build_model(cfg, ME2E_V, device="cpu", seed=1)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    lengths = [64000, 52000]
+    wave = array_waves(lengths, 8, seed=35).transpose(1, 2).contiguous()
+    lens = torch.tensor(lengths)
+    dec = decode_me2e.make_me2e_decoder(model, "streaming", beam_width=1,
+                                        channels_last=True)
+    dec(wave, lens)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hyps = dec(wave, lens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = counts()
+    lp, olens = dec.log_probs(wave, lens)
+    cdec = decode_me2e.make_me2e_decoder(cpu, "streaming", beam_width=1,
+                                         channels_last=True)
+    clp, colens = cdec.log_probs(wave.cpu(), lens)
+    valid = torch.arange(clp.shape[1])[None, :] < colens[:, None]
+    err = (lp.cpu() - clp).abs()[valid].max().item()
+    n_win = -(-me2e_frames(max(lengths)) // 64)
+    want = ME2E_DECODE
+    rtf = wall / (sum(lengths) / ME2E_SR)
+    log(f"[me2e] streaming decode (chunk 64/64/16, {n_win} windows an "
+        f"utterance) of 2 utterances of 4 and 3.25 s: greedy lengths "
+        f"{[len(h[0][1]) for h in hyps]}, RTF {rtf:.4f} "
+        f"({wall * 1e3:.1f} ms); log-probs vs the CPU's max abs {err:.4g} "
+        f"(tol {LOGIT_TOL}); launches {launched} ({card})")
+    if not torch.equal(olens.cpu(), colens) or err > LOGIT_TOL \
+            or launched != want:
+        fail(f"[me2e] streaming decode: lengths {olens.tolist()} vs "
+             f"{colens.tolist()}, log-prob err {err}, launches {launched} "
+             f"!= {want}")
+
+
+def phase_me2e(card):
+    """[me2e] egs/aishell4/exp/me2e-mvdr's model at full width on the card
+    (its front end plain PyTorch: no row of the kernel table) and the two
+    ME2E recipes through pipeline.asr."""
+    import shutil
+    import tempfile
+    import torch
+    from cat_tpu_torch.ctc import train_me2e
+    t_phase = time.perf_counter()
+    cfg = me2e_config()
+    model = train_me2e.build_model(cfg, ME2E_V, device="cuda", seed=0)
+    me2e_features(model, card)
+    launches = me2e_train(model, cfg, card)
+    del model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="me2e-", dir=os.path.join(REPO, "build"))
+    try:
+        toy = os.path.join(root, "asr-me2e")
+        me2e_toy_corpus(os.path.join(toy, "data"))
+        lstm = {k: int(k in ("ctc_alpha", "ctc_beta")) for k in KERNELS}
+
+        def toy_edit(hyper, config):
+            hyper["train"]["option"]["max_epochs"] = ME2E_TOY_EPOCHS
+
+        me2e_recipe(toy, "template/exp/asr-me2e", toy_edit, lstm,
+                    {k: int(k == "ctc_alpha") for k in KERNELS},
+                    {k: 0 for k in KERNELS}, card, 8)
+        a4 = os.path.join(root, "aishell4")
+        words = [f"w{i:02d}" for i in range(40)]
+        me2e_corpus(os.path.join(a4, "data"), 8, ME2E_SR,
+                    *ME2E_RECIPE_UTTS, seed=36, words=words)
+
+        def a4_edit(hyper, config):
+            hyper["tokenizer"] = {"type": "SimpleTokenizer",
+                                  "option-init": {"level": "word"},
+                                  "file": "tokenizer.tknz"}
+            hyper["train"]["option"].update(max_epochs=1, check_freq=-1)
+
+        me2e_recipe(a4, "aishell4/exp/me2e-mvdr", a4_edit, ME2E_STEP,
+                    ME2E_EVAL, ME2E_DECODE, card, ME2E_RECIPE_UTTS[1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[me2e] recipes {time.perf_counter() - t:.1f} s (cuts: the data "
+        f"paths; asr-me2e max_epochs 120 -> {ME2E_TOY_EPOCHS} on 24 train "
+        f"and 8 dev utterances; aishell4 a SimpleTokenizer of 40 words for "
+        f"the Jieba lexicon, max_epochs 60 -> 1, check_freq 1000 -> the "
+        f"epoch's end, {ME2E_RECIPE_UTTS[0]} train and "
+        f"{ME2E_RECIPE_UTTS[1]} dev utterances of 2-4 s)")
+    me2e_streaming(cfg, card)
+    log(f"[me2e] phase {time.perf_counter() - t_phase:.1f} s ({card}); "
+        f"launches a full-budget step {launches}")
+
+
+def phase_profile(fn, what, path, cpu=True):
     """Device time of fn() by kernel (torch.profiler), and the device's
     busy share over the span from its first kernel's start to its last
-    kernel's end. User annotation ranges on the device's timeline (the
+    kernel's end, which it returns (None when the profiler recorded no
+    device time). User annotation ranges on the device's timeline (the
     `Optimizer.step#...` range around Adam's launches) are no kernels:
     they are left out of the device time, the span and the busy share and
-    printed on a line of their own."""
+    printed on a line of their own. cpu=False records the device's
+    activity alone (a step of hundreds of thousands of host ops)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    activities = ([ProfilerActivity.CPU] if cpu else []) + [
+        ProfilerActivity.CUDA]
     with profile(activities=activities):  # warm the profiler up
         fn()
         torch.cuda.synchronize()
@@ -4476,7 +4940,7 @@ def phase_profile(fn, what, path):
             f"ms" for e in ranges))
     if not kernels:
         log("[profile] the profiler recorded no device time: not measured")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -4503,6 +4967,7 @@ def phase_profile(fn, what, path):
         f"share {busy / span:.3f}")
     for line in lines[:20]:
         log(f"[profile] {line[:150]}")
+    return busy / span
 
 
 def main():
@@ -4547,6 +5012,7 @@ def main():
     rnnt_launches = phase_rnnt_training(rnnt_cfg, profile)
     phase_cuside(card(), profile)
     phase_pipeline(card())
+    phase_me2e(card())
     # each kernel's launches on the main path that runs it: the crf-v1
     # training phase, or the rnnt-v1 one for the RNN-T lattice kernels
     records = [rec.by_name[k] for k in KERNELS]

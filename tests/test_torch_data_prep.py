@@ -77,12 +77,37 @@ def test_data_prep_cli_matches_jax(tmp_path, sr, segments):
 
 
 def test_data_prep_refuses_what_is_not_ported(tmp_path):
+    """Raw multichannel prep (--channels) is ported now; what stays refused
+    is an output format neither package writes, before anything is
+    written."""
     d = tmp_path / "manifest"
     _manifest(d, 8000, False)
-    with pytest.raises(NotImplementedError, match="§A.8"):
-        data_prep.main([str(d), str(tmp_path / "out"), "--tokenizer",
-                        "unused.tknz", "--device", "cpu", "--channels", "2"])
+    with pytest.raises(ValueError, match="format"):
+        data_prep.prepare(str(d), str(tmp_path / "out"), None, fmt="ark",
+                          channels=2, device="cpu")
     assert not os.path.exists(tmp_path / "out")
+
+
+def test_data_prep_packs_channels(tmp_path):
+    """--channels 2 packs the raw waves (L, 2) of a mono manifest, each
+    replicated over both channels, as JAX's prep does."""
+    d = tmp_path / "manifest"
+    _manifest(d, 8000, False)
+    tok = tmp_path / "tok.tknz"
+    SimpleTokenizer.from_corpus(["ab c", "ab ca"], level="char").save(
+        str(tok))
+    args = ["--tokenizer", str(tok), "--channels", "2"]
+    jax_prep.main([str(d), str(tmp_path / "jax")] + args)
+    data_prep.main([str(d), str(tmp_path / "port")] + args
+                   + ["--device", "cpu"])
+    want = SpeechDataset(str(tmp_path / "jax"))
+    got = SpeechDataset(str(tmp_path / "port"))
+    assert got.uids == want.uids and got.feat_dim == 2 and len(got) > 0
+    for i in range(len(want)):
+        (gf, gl), (wf, wl) = got[i], want[i]
+        np.testing.assert_array_equal(gf, wf)
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_array_equal(gf[:, 0], gf[:, 1])
 
 
 def test_data_prep_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):

@@ -498,7 +498,6 @@ UNPORTED = [
     (_hyper(), {"encoder": {"type": "EmbeddingEncoder"}}, "§A.8"),
     (_hyper(), {"parallel": {"model": 2}}, "§A.7"),
     (_hyper(data={"train": ["a", "b"], "dev": "d"}), {}, "§A.8"),
-    (_hyper(train__bin="cat_tpu.ctc.train_me2e"), {}, "§A.8"),
     (_hyper(train__bin="cat_tpu.ctc.train_jsa"), {}, "§A.8"),
     (_hyper(train__bin="cat_tpu.p2g.train"), {}, "§A.8"),
 ]
@@ -515,6 +514,51 @@ def test_streaming_paths_pass_the_checks(hyper):
     asr.check_train(hyper, {})
     asr.check_decode(hyper, {})
     assert tasks.train_module(hyper["train"]["bin"]) is not None
+
+
+# the §A.8 ME2E case of UNPORTED before the multichannel slice: its four
+# bins, under either package's name, pass now and have a task adapter
+ME2E = [_hyper(train__bin=f"{pkg}.ctc.{b}")
+        for pkg in ("cat_tpu", "cat_tpu_torch")
+        for b in ("train_me2e", "train_me2e_chunk", "train_me2e_kaldi",
+                  "train_me2e_kaldi_chunk")]
+
+
+@pytest.mark.parametrize("hyper", ME2E)
+def test_me2e_bins_pass_the_checks(hyper):
+    asr.check_train(hyper, {"trainer": {"loss": "crf"}})
+    asr.check_decode(hyper, {})
+    task = tasks.get_task(hyper)
+    assert task.module() is tasks.train_module(hyper["train"]["bin"])
+    assert task.chunk == hyper["train"]["bin"].endswith("_chunk")
+
+
+@pytest.mark.parametrize("name", ["aishell4/exp/me2e-mvdr",
+                                  "template/exp/asr-me2e"])
+def test_me2e_recipe_passes_the_checks_and_builds(name):
+    """The recipe's own files: the checks pass and its model (aishell4's at
+    full width: 8 channels, fft 512, DNN-WPE, mask nets of 256, a 12-cell
+    conformer) maps a short multichannel wave to finite logits."""
+    src = os.path.join(REPO, "egs", *name.split("/"))
+    with open(os.path.join(src, "hyper-p.json")) as f:
+        hyper = json.load(f)
+    with open(os.path.join(src, "config.json")) as f:
+        config = json.load(f)
+    asr.check_train(hyper, config)
+    asr.check_decode(hyper, config)
+    V = 12
+    model = tasks.get_task(hyper).module().build_model(config, V,
+                                                       device="cpu")
+    fe = model.frontend
+    C = hyper["feature"]["channels"]
+    L = fe.frame_length + 31 * fe.frame_shift
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, C, L)).astype(np.float32) * 0.1)
+    with torch.no_grad():
+        out, olens = model(x, torch.tensor([L]))
+    assert fe.sample_rate == hyper["feature"]["sample_rate"]
+    assert out.shape[-1] == V and out.shape[1] == int(olens[0])
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("hyper,config,section", UNPORTED)
