@@ -8,12 +8,13 @@ from cat_tpu_torch.models import decoders, encoders, joiner
 _ENCODERS = {"ConformerNet": encoders.ConformerNet, "LSTM": encoders.LSTM,
              "TDNN_NAS": encoders.TDNN_NAS,
              "JoinAPLinearEncoder": encoders.JoinAPLinearEncoder,
-             "JoinAPNonLinearEncoder": encoders.JoinAPNonLinearEncoder}
+             "JoinAPNonLinearEncoder": encoders.JoinAPNonLinearEncoder,
+             "EmbeddingEncoder": encoders.EmbeddingEncoder}
 # the JAX package's other encoders, by the ROADMAP.md section porting them
 UNPORTED_ENCODERS = {
     **dict.fromkeys(("VGGLSTM", "BLSTMN", "LSTMrowCONV", "TDNN_LSTM",
                      "ConformerLSTM"), "§A.6b"),
-    **dict.fromkeys(("EmbeddingEncoder", "Wav2Vec2Encoder"), "§A.8")}
+    "Wav2Vec2Encoder": "§A.8"}
 _DECODERS = {"LSTMPredictor": decoders.LSTMPredictor,
              "Embedding": decoders.Embedding,
              "CausalTransformer": decoders.CausalTransformer,

@@ -2,9 +2,10 @@
 `cat_tpu/models/encoders.py`), conv2d subsampling, eval and training
 mode (`.train()`: dropout and batch statistics, see `models/layers.py`),
 the (B)LSTM encoder (counterpart of `LSTM` and its `LSTMStack`), the
-TDNN stack `TDNN_NAS`, and the JoinAP output layers
-(`JoinAPLinearEncoder`, `JoinAPNonLinearEncoder`) over any registered
-encoder as their head. Each encoder's `odim` is the width of its output
+TDNN stack `TDNN_NAS`, the JoinAP output layers (`JoinAPLinearEncoder`,
+`JoinAPNonLinearEncoder`) over any registered encoder as their head, and
+the token encoder `EmbeddingEncoder` of JSA-SPG (float32 conformer cells
+over an embedding). Each encoder's `odim` is the width of its output
 without the classifier (a JoinAP encoder's is its number of phones).
 
 The JAX module's `remat`, `scan_layers`, `subsampling_remat` and
@@ -74,9 +75,10 @@ class ConformerNet(nn.Module):
         every dropout site its seed words, in a fixed order."""
         if x.is_cuda and self.dtype != torch.bfloat16:
             raise NotImplementedError(
-                'the CUDA kernels take bfloat16 activations: set the '
-                'encoder\'s dtype to "bfloat16" (float32 on the card is not '
-                'ported yet; see ROADMAP.md)')
+                'ConformerNet on the card takes bfloat16: set the encoder\'s '
+                'dtype to "bfloat16". At float32 its batch-normalised conv '
+                'module needs rows 14-17 (glu_in, bn_out) at float32, which '
+                'are not ported yet; see ROADMAP.md §A.6b')
         if x.shape[-1] != self.idim:
             raise ValueError(f"ConformerNet expects {self.idim} features, got "
                              f"{x.shape[-1]}")
@@ -86,6 +88,51 @@ class ConformerNet(nn.Module):
             h = cell(h, lengths, gen)
         if self.classifier is not None:
             h = self.classifier(h.float(), torch.float32)
+        return h, lengths
+
+
+class EmbeddingEncoder(nn.Module):
+    """Token-input encoder of JSA-SPG's P2G and G2P models (counterpart of
+    the JAX `EmbeddingEncoder`): an embedding, `num_cells` conformer cells
+    without subsampling, then the classifier; float32 throughout, as the
+    JAX module computes (its embedding gives f32 and its cells default to
+    f32). Its cells are built as the JAX module builds them, with the
+    cell's default dropout rate 0: `dropout_rate` is accepted and, as in
+    JAX, reaches no layer. Without batch normalisation (the default) the
+    conv modules take JAX's unfused LayerNorm path; on the card the FF and
+    attention kernels run their float32 routes. With `use_batchnorm` on
+    the card the fused conv-module stages would be needed at float32
+    (rows 14-17), which are not ported: that raises."""
+
+    def __init__(self, vocab_size=0, num_cells=6, hdim=256, num_heads=4,
+                 kernel_size=15, num_classes=0, dropout_rate=0.1,
+                 with_head=True, use_batchnorm=False, generator=None):
+        super().__init__()
+        self.use_batchnorm = use_batchnorm
+        self.dropout_rate = dropout_rate
+        self.odim = hdim
+        self.embed = nn.Embedding(vocab_size, hdim)
+        self.cells = nn.ModuleList(
+            ConformerCell(hdim, num_heads, kernel_size,
+                          use_batchnorm=use_batchnorm)
+            for _ in range(num_cells))
+        self.classifier = (Dense(hdim, num_classes)
+                           if with_head and num_classes > 0 else None)
+        init_weights(self, generator)
+
+    def forward(self, tokens, lengths, gen=None):
+        """tokens (N, T) ints, lengths (N,) -> (logits (N, T, V) or
+        features (N, T, hdim), float32; lengths)."""
+        if tokens.is_cuda and self.use_batchnorm:
+            raise NotImplementedError(
+                "EmbeddingEncoder with use_batchnorm on the card needs the "
+                "fused conv-module stages (rows 14-17) at float32, which are "
+                "not ported yet; see ROADMAP.md §A.6b")
+        h = self.embed(tokens.long())
+        for cell in self.cells:
+            h = cell(h, lengths, gen)
+        if self.classifier is not None:
+            h = self.classifier(h, torch.float32)
         return h, lengths
 
 
@@ -305,11 +352,16 @@ class JoinAPNonLinearEncoder(JoinAPLinearEncoder):
 @torch.no_grad()
 def init_weights(model, generator=None):
     """Random weights drawn on the CPU from `generator`: kernels normal
-    with variance 1/fan_in, biases zero, norms identity, an LSTM cell's
+    with variance 1/fan_in, embeddings with variance 1/width, biases zero,
+    norms identity, an LSTM cell's
     recurrent kernel orthogonal per gate (the JAX package's defaults,
     without truncation)."""
     for mod in model.modules():
-        if isinstance(mod, LSTMCellParams):
+        if isinstance(mod, nn.Embedding):
+            w = mod.weight
+            w.copy_(torch.randn(w.shape, generator=generator)
+                    / w.shape[1] ** 0.5)
+        elif isinstance(mod, LSTMCellParams):
             w = mod.wi
             w.copy_(torch.randn(w.shape, generator=generator)
                     / w.shape[0] ** 0.5)

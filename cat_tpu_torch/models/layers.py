@@ -26,6 +26,14 @@ windows (a band of keys around each query). With a window the attention
 takes the plain PyTorch version with the band mask on any device, as the
 JAX module takes its unfused attention whenever a window is set; without
 one, the fused kernel.
+
+The JAX modules' own dispatch decides two more paths. The FF module takes
+the fused op only where D and F are multiples of 128; elsewhere (the
+template's 16-wide token encoders) it runs JAX's unfused layers in plain
+PyTorch on any device. A conv module without batch normalisation
+(`use_batchnorm=False`, the token encoders of JSA-SPG) runs JAX's unfused
+path in plain PyTorch on any device too: the fused entry and exit stages
+exist for batch normalisation only, as in JAX.
 """
 from __future__ import annotations
 
@@ -191,7 +199,15 @@ class RelPositionMultiHeadAttention(nn.Module):
 
 
 class FFModule(nn.Module):
-    """x + alpha * FF(x): LN -> Dense(4D) -> SiLU -> Dense(D), fused."""
+    """x + alpha * FF(x): LN -> Dense(4D) -> SiLU -> Dense(D).
+
+    Fused (`ops.ffn.fused_ff_residual`, one kernel each way on the card)
+    where the JAX module takes its fused kernel: D and F multiples of 128.
+    Elsewhere this is JAX's unfused path, on any device and by the
+    reference's own dispatch rather than as a fallback: LN in f32, Dense,
+    SiLU, dropout, Dense, dropout (each dropout the Philox kernel of
+    `ops/dropout.py` with its own seed), x + alpha·h, computed in x's
+    dtype."""
 
     def __init__(self, d_model, expansion=4, residual_alpha=0.5,
                  dropout_rate=0.0):
@@ -201,8 +217,16 @@ class FFModule(nn.Module):
         self.fc2 = Dense(d_model * expansion, d_model)
         self.alpha = residual_alpha
         self.dropout_rate = dropout_rate
+        self.fused = d_model % 128 == 0 and d_model * expansion % 128 == 0
+        self.drop_hidden = Dropout(dropout_rate)
+        self.drop_out = Dropout(dropout_rate)
 
     def forward(self, x, gen=None):
+        if not self.fused:
+            dt = x.dtype
+            h = F.silu(self.fc1(self.norm(x.float()), dt))
+            h = self.fc2(self.drop_hidden(h, gen), dt)
+            return x + self.alpha * self.drop_out(h, gen).to(dt)
         rate, seed = drop_args(self, self.dropout_rate, gen)
         return ffn.fused_ff_residual(
             x, self.norm.weight, self.norm.bias, self.fc1.kernel,
@@ -211,37 +235,54 @@ class FFModule(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """x + (pointwise-GLU -> depthwise conv -> BN -> SiLU -> pointwise ->
-    dropout), the residual folded in. BN normalises by the running
-    statistics in eval and by the masked batch statistics in training."""
+    """x + (pointwise-GLU -> depthwise conv -> norm -> SiLU -> pointwise ->
+    dropout), the residual folded in. With batch normalisation (the
+    default) the entry and exit run fused (`ops/conv_module.py`), BN
+    normalising by the running statistics in eval and by the masked batch
+    statistics in training. Without it (`use_batchnorm=False`) the module
+    is JAX's unfused path in plain PyTorch on any device: LN, Dense(2D),
+    GLU, the mask, the depthwise conv, LayerNorm (eps 1e-6), SiLU, Dense,
+    dropout (the Philox kernel of `ops/dropout.py`), the mask, the
+    residual; there are no batch statistics then."""
 
     def __init__(self, d_model, kernel_size=32, causal=False,
-                 dropout_rate=0.0):
+                 dropout_rate=0.0, use_batchnorm=True):
         super().__init__()
         self.causal = causal
         self.kernel_size = kernel_size
         self.dropout_rate = dropout_rate
+        self.use_batchnorm = use_batchnorm
         self.norm = _layer_norm(d_model)
         self.pw_in = Dense(d_model, 2 * d_model)
         self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
                                    groups=d_model)
-        self.bn_scale = nn.Parameter(torch.ones(d_model))
-        self.bn_bias = nn.Parameter(torch.zeros(d_model))
-        self.register_buffer("running_mean", torch.zeros(d_model))
-        self.register_buffer("running_var", torch.ones(d_model))
+        if use_batchnorm:
+            self.bn_scale = nn.Parameter(torch.ones(d_model))
+            self.bn_bias = nn.Parameter(torch.zeros(d_model))
+            self.register_buffer("running_mean", torch.zeros(d_model))
+            self.register_buffer("running_var", torch.ones(d_model))
+        else:
+            self.conv_norm = _layer_norm(d_model)
+            self.dropout = Dropout(dropout_rate)
         self.pw_out = Dense(d_model, d_model)
 
-    def forward(self, x, mask, dtype, gen=None):
-        h = conv_module.fused_glu_in(x, mask, self.norm.weight, self.norm.bias,
-                                     self.pw_in.kernel, self.pw_in.bias)
+    def _depthwise(self, h, dtype):
+        """The depthwise conv of h (N, T, D) in `dtype`, padded as the JAX
+        module pads it: causal, every frame sees the k - 1 before it;
+        otherwise the asymmetric "same" padding, (k-1)//2 left."""
         k = self.kernel_size
-        # causal: every frame sees the k - 1 before it; otherwise the
-        # asymmetric "same" padding of the JAX module, (k-1)//2 left
         left = k - 1 if self.causal else (k - 1) // 2
         h = F.pad(h.transpose(1, 2), (left, k - 1 - left))
         c = F.conv1d(h, self.depthwise.weight.to(dtype),
-                     self.depthwise.bias.to(dtype),
-                     groups=x.shape[-1]).transpose(1, 2)
+                     self.depthwise.bias.to(dtype), groups=h.shape[1])
+        return c.transpose(1, 2)
+
+    def forward(self, x, mask, dtype, gen=None):
+        if not self.use_batchnorm:
+            return self._forward_ln(x, mask, dtype, gen)
+        h = conv_module.fused_glu_in(x, mask, self.norm.weight, self.norm.bias,
+                                     self.pw_in.kernel, self.pw_in.bias)
+        c = self._depthwise(h, dtype)
         mean, var = self.running_mean, self.running_var
         if self.training:
             mean, var = masked_batch_stats(c, mask)
@@ -254,6 +295,17 @@ class ConvModule(nn.Module):
         return conv_module.fused_bn_out(
             c, x, mask, mean, var, self.bn_scale, self.bn_bias,
             self.pw_out.kernel, self.pw_out.bias, rate=rate, seed=seed)
+
+    def _forward_ln(self, x, mask, dtype, gen):
+        m = mask[..., None]
+        h = F.glu(self.pw_in(self.norm(x.float()), dtype), dim=-1)
+        h = torch.where(m, h, torch.zeros((), dtype=h.dtype, device=h.device))
+        h = self._depthwise(h, dtype)
+        h = F.silu(self.conv_norm(h.float()))
+        h = self.dropout(self.pw_out(h, dtype), gen)
+        return x + torch.where(m, h.to(x.dtype),
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device))
 
 
 def masked_batch_stats(c, mask):
@@ -269,11 +321,12 @@ def masked_batch_stats(c, mask):
 
 class ConformerCell(nn.Module):
     """FF/2 -> MHSA -> Conv -> FF/2 -> LN, residual stream in `dtype`;
-    `causal_conv` and `attention_context` as the JAX cell's."""
+    `causal_conv`, `attention_context` and `use_batchnorm` as the JAX
+    cell's."""
 
     def __init__(self, d_model, num_heads, kernel_size=32, ff_expansion=4,
                  dropout_rate=0.0, causal_conv=False,
-                 attention_context=(-1, -1)):
+                 attention_context=(-1, -1), use_batchnorm=True):
         super().__init__()
         self.ff1 = FFModule(d_model, ff_expansion, dropout_rate=dropout_rate)
         self.norm_mhsa = _layer_norm(d_model)
@@ -281,7 +334,8 @@ class ConformerCell(nn.Module):
                                                   attention_context,
                                                   dropout_rate=dropout_rate)
         self.conv = ConvModule(d_model, kernel_size, causal_conv,
-                               dropout_rate=dropout_rate)
+                               dropout_rate=dropout_rate,
+                               use_batchnorm=use_batchnorm)
         self.ff2 = FFModule(d_model, ff_expansion, dropout_rate=dropout_rate)
         self.norm_out = _layer_norm(d_model)
 

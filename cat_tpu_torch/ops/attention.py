@@ -47,6 +47,16 @@ as the dq pass does and keeps dK and dV in registers: three launches,
 no atomics, the same bits on every call. Dh = 16, 32 and 128: a wmma
 kernel, which adds dq, dp, du and dv_bias with f32 atomics into zeroed
 buffers.
+
+Float32 (the token encoders of JSA-SPG) takes its own route, the TPU
+kernels' arithmetic at f32: `relpos_attention_forward_f32` and
+`relpos_attention_backward_f32` launch `csrc/relpos_attention_f32.cu`,
+full float32 products on the CUDA cores (no TF32), Dh in (8, 16, 32, 64,
+128), the same Philox masks, no atomics (see the source); each counts its
+launches. `relpos_attention_forward` and `relpos_attention_backward`
+dispatch by device and dtype: a CPU tensor takes the plain version (which
+follows q.dtype), a CUDA bf16 tensor the bf16 kernels, a CUDA f32 tensor
+the f32 ones; anything else raises.
 """
 from __future__ import annotations
 
@@ -60,9 +70,12 @@ from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
 
 NEG = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)
+F32_HEAD_DIMS = (8, 16, 32, 64, 128)
 _FWD = {"relpos_attention_fwd": (9, 7, 2)}
 _BWD = {"relpos_attention_bwd": (19, 7, 2),
         "relpos_attention_bwd_tile": (3, 0, 0)}
+_F32 = {"relpos_attention_f32_fwd": (9, 7, 2),
+        "relpos_attention_f32_bwd": (20, 7, 2)}
 # the Dh = 64 forward kernel's tiles: queries a block, keys a stage; the
 # Dh = 64 backward's dq pass has the same
 FWD_BQ, FWD_BK = 128, 64
@@ -281,13 +294,14 @@ def relpos_attention_backward_reference(q, k, v, p, u_bias, v_bias, lengths,
             dqu.sum((0, 1)), dqv.sum((0, 1)))
 
 
-def _operands(q, k, v, p, u_bias, v_bias, lengths):
+def _operands(q, k, v, p, u_bias, v_bias, lengths, dtype=torch.bfloat16,
+              head_dims=_HEAD_DIMS):
     N, T, H, Dh = q.shape
-    if q.device.type != "cuda" or any(t.dtype != torch.bfloat16
+    if q.device.type != "cuda" or any(t.dtype != dtype
                                       for t in (q, k, v, p)):
-        raise ValueError(f"relpos_attention: the kernel takes bfloat16 CUDA "
+        raise ValueError(f"relpos_attention: the kernel takes {dtype} CUDA "
                          f"tensors, got {q.dtype} on {q.device}")
-    if Dh not in _HEAD_DIMS or tuple(k.shape) != tuple(q.shape) \
+    if Dh not in head_dims or tuple(k.shape) != tuple(q.shape) \
             or tuple(v.shape) != tuple(q.shape) \
             or tuple(p.shape) != (2 * T - 1, H, Dh) \
             or u_bias.numel() != H * Dh or v_bias.numel() != H * Dh \
@@ -295,9 +309,8 @@ def _operands(q, k, v, p, u_bias, v_bias, lengths):
         raise ValueError(f"relpos_attention: unsupported shapes q "
                          f"{tuple(q.shape)}, p {tuple(p.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    bf = torch.bfloat16
     args = [q.contiguous(), k.contiguous(), v.contiguous(), p.contiguous(),
-            u_bias.to(bf).contiguous(), v_bias.to(bf).contiguous(),
+            u_bias.to(dtype).contiguous(), v_bias.to(dtype).contiguous(),
             lengths.to(device=q.device, dtype=torch.int32)
             .clamp(0, T).contiguous()]
     for t in args:
@@ -310,12 +323,16 @@ def _operands(q, k, v, p, u_bias, v_bias, lengths):
 def relpos_attention_forward(q, k, v, p, u_bias, v_bias, lengths, scale=None,
                              rate=0.0, seed=None):
     """(out, lse) of `relpos_attention`. A CPU tensor takes
-    `relpos_attention_reference_lse`. A CUDA tensor launches the kernel
-    of its route (`fwd_route`), which takes bf16 with Dh in (16, 32, 64,
-    128); anything else raises."""
+    `relpos_attention_reference_lse`, a CUDA f32 tensor
+    `relpos_attention_forward_f32`. A CUDA bf16 tensor launches the kernel
+    of its route (`fwd_route`), which takes Dh in (16, 32, 64, 128);
+    anything else raises."""
     if q.device.type == "cpu":
         return relpos_attention_reference_lse(q, k, v, p, u_bias, v_bias,
                                               lengths, scale, rate, seed)
+    if q.device.type == "cuda" and q.dtype == torch.float32:
+        return relpos_attention_forward_f32(q, k, v, p, u_bias, v_bias,
+                                            lengths, scale, rate, seed)
     N, T, H, Dh = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
@@ -336,15 +353,20 @@ def relpos_attention_forward(q, k, v, p, u_bias, v_bias, lengths, scale=None,
 def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
                               dout, scale=None, rate=0.0, seed=None):
     """(dq, dk, dv, dp, du, dv_bias) of `relpos_attention`. A CPU tensor
-    takes `relpos_attention_backward_reference`; a CUDA tensor launches
-    the kernels of its route (`bwd_route`, the shapes of the forward) or
-    raises. At Dh = 64 dq comes out of the kernel in bf16, and dp, du
+    takes `relpos_attention_backward_reference`, a CUDA f32 tensor
+    `relpos_attention_backward_f32`; a CUDA bf16 tensor launches the
+    kernels of its route (`bwd_route`, the shapes of the forward);
+    anything else raises. At Dh = 64 dq comes out of the kernel in bf16, and dp, du
     and dv_bias from the reduce of an f32 workspace of N·ceil(T/64)
     slots of `bwd_workspace_rows(T)` x H·Dh."""
     if q.device.type == "cpu":
         return relpos_attention_backward_reference(
             q, k, v, p, u_bias, v_bias, lengths, out, lse, dout, scale,
             rate, seed)
+    if q.device.type == "cuda" and q.dtype == torch.float32:
+        return relpos_attention_backward_f32(q, k, v, p, u_bias, v_bias,
+                                             lengths, out, lse, dout, scale,
+                                             rate, seed)
     N, T, H, Dh = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
@@ -379,6 +401,63 @@ def relpos_attention_backward(q, k, v, p, u_bias, v_bias, lengths, out, lse,
     relpos_attention_backward.launches += 1
     relpos_attention_backward.routes[route] += 1
     return dq.to(q.dtype), dk, dv, dp, du, dvb
+
+
+def relpos_attention_forward_f32(q, k, v, p, u_bias, v_bias, lengths,
+                                 scale=None, rate=0.0, seed=None):
+    """(out, lse) at float32: a CUDA f32 tensor with Dh in (8, 16, 32, 64,
+    128) launches `relpos_attention_f32_fwd`; anything else raises.
+    `relpos_attention_forward` sends a CPU tensor to the plain version."""
+    N, T, H, Dh = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    args = _operands(q, k, v, p, u_bias, v_bias, lengths, torch.float32,
+                     F32_HEAD_DIMS)
+    drop, inv = kernel_args(rate, seed)
+    out = torch.empty_like(args[0])
+    lse = torch.empty(N, H, T, dtype=torch.float32, device=q.device)
+    err = _build.load("relpos_attention_f32", _F32).relpos_attention_f32_fwd(
+        *(t.data_ptr() for t in args), out.data_ptr(), lse.data_ptr(), N, T,
+        H, Dh, *drop, float(scale), inv,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "relpos_attention_f32_fwd")
+    relpos_attention_forward_f32.launches += 1
+    return out, lse
+
+
+def relpos_attention_backward_f32(q, k, v, p, u_bias, v_bias, lengths, out,
+                                  lse, dout, scale=None, rate=0.0,
+                                  seed=None):
+    """(dq, dk, dv, dp, du, dv_bias) at float32: a CUDA f32 tensor
+    launches `relpos_attention_f32_bwd` (the shapes of the forward), with a
+    workspace of the dS and dropped-probability planes (2·N·H·T² floats),
+    dq's two parts (2·N·T·H·Dh) and their column partials; anything else
+    raises. `relpos_attention_backward` sends a CPU tensor to the plain
+    version."""
+    N, T, H, Dh = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    args = _operands(q, k, v, p, u_bias, v_bias, lengths, torch.float32,
+                     F32_HEAD_DIMS)
+    drop, inv = kernel_args(rate, seed)
+    do = dout.float().contiguous()
+    delta = (do * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=q.device)
+    grads = [new(N, T, H, Dh), new(N, T, H, Dh), new(N, T, H, Dh),
+             new(2 * T - 1, H, Dh), new(H, Dh), new(H, Dh)]
+    ws = [new(N * H * T * T), new(N * H * T * T), new(2 * N * T * H * Dh),
+          new(2 * -(-N * T // 64) * H * Dh)]
+    err = _build.load("relpos_attention_f32", _F32).relpos_attention_f32_bwd(
+        *(t.data_ptr() for t in (*args, lse.contiguous(), delta, do, *grads,
+                                  *ws)), N, T, H, Dh, *drop, float(scale),
+        inv, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "relpos_attention_f32_bwd")
+    relpos_attention_backward_f32.launches += 1
+    return tuple(grads)
+
+
+relpos_attention_forward_f32.launches = 0
+relpos_attention_backward_f32.launches = 0
 
 
 def dkdv_tile_product(a, b):

@@ -34,6 +34,15 @@ three products (the SiLU and dropout backward in the first one's
 epilogue, the weight gradients split over rows), and a pass that sums
 every partial in a fixed order (about 0.58 GB of scratch traffic, 0.17 ms
 at 3.35 TB/s).
+
+Float32 (the token encoders of JSA-SPG) takes its own route, the TPU
+kernels' arithmetic at f32: `ff_forward_f32` and `ff_backward_f32` launch
+`csrc/ffn_f32.cu`, full float32 products on the CUDA cores (no TF32) in
+the same stages, any D and F, with the same Philox masks; each counts its
+launches. `ff_forward` and `ff_backward` dispatch by device and dtype: a
+CPU tensor takes the plain version (which follows x.dtype), a CUDA bf16
+tensor the bf16 kernels, a CUDA f32 tensor the f32 ones; anything else
+raises.
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ _DIMS = (128, 256, 384, 512)
 # the C entries of csrc/ffn_fwd.cu and ffn_bwd.cu: (pointers, ints, floats)
 _FWD = {"ffn_fwd": (10, 6, 2)}
 _BWD = {"ffn_bwd": (19, 7, 2), "ffn_bwd_workspace": (0, 3, 0)}
+_F32 = {"ffn_f32_fwd": (10, 6, 2), "ffn_f32_bwd": (15, 7, 2),
+        "ffn_f32_bwd_workspace": (0, 4, 0)}
 
 
 def _masks(seed, rate, R, D, Fh, device):
@@ -144,13 +155,16 @@ def _operands(x, gamma, beta, w1, b1, w2, b2):
 def ff_forward(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
                seed=None):
     """The forward of `fused_ff_residual`, outside autograd. A CPU tensor
-    takes `ff_reference`. A CUDA tensor launches the kernel, which takes
-    bf16 x with D in (128, 256, 384, 512) and F a multiple of 64; weights
-    are cast to bf16 and vectors to f32 as the kernel reads them. Anything
-    else raises."""
+    takes `ff_reference`; a CUDA f32 tensor `ff_forward_f32`. A CUDA bf16
+    tensor launches the kernel, which takes D in (128, 256, 384, 512) and
+    F a multiple of 64; weights are cast to bf16 and vectors to f32 as the
+    kernel reads them. Anything else raises."""
     if x.device.type == "cpu":
         return ff_reference(x, gamma, beta, w1, b1, w2, b2, alpha, rate,
                             seed)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return ff_forward_f32(x, gamma, beta, w1, b1, w2, b2, alpha, rate,
+                              seed)
     _check(x, gamma, beta, w1, b1, w2, b2)
     args = _operands(x, gamma, beta, w1, b1, w2, b2)
     drop, inv = kernel_args(rate, seed)
@@ -170,11 +184,15 @@ def ff_forward(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
 def ff_backward(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5, rate=0.0,
                 seed=None):
     """The backward of `fused_ff_residual`: (dx, dgamma, dbeta, dw1, db1,
-    dw2, db2). A CPU tensor takes `ff_backward_reference`; a CUDA tensor
-    launches `ffn_bwd.cu` (the shapes of `ff_forward`) or raises."""
+    dw2, db2). A CPU tensor takes `ff_backward_reference`, a CUDA f32
+    tensor `ff_backward_f32`; a CUDA bf16 tensor launches `ffn_bwd.cu`
+    (the shapes of `ff_forward`); anything else raises."""
     if x.device.type == "cpu":
         return ff_backward_reference(x, gamma, beta, w1, b1, w2, b2, dout,
                                      alpha, rate, seed)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return ff_backward_f32(x, gamma, beta, w1, b1, w2, b2, dout, alpha,
+                               rate, seed)
     _check(x, gamma, beta, w1, b1, w2, b2)
     xr, g, b, w1b, b1f, w2b = _operands(x, gamma, beta, w1, b1, w2,
                                         b2)[:-1]  # b2 unused
@@ -206,6 +224,86 @@ def ff_backward(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5, rate=0.0,
 
 ff_forward.launches = 0
 ff_backward.launches = 0
+
+
+def _f32_operands(x, gamma, beta, w1, b1, w2, b2):
+    """The f32 kernels' operands, every one f32 and contiguous; raises
+    unless x is a CUDA f32 tensor with weights of matching shapes."""
+    D = x.shape[-1]
+    Fh = w1.shape[-1]
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"ff_forward_f32: the kernel takes float32 CUDA "
+                         f"activations, got {x.dtype} on {x.device}")
+    if tuple(w1.shape) != (D, Fh) or tuple(w2.shape) != (Fh, D) \
+            or b1.numel() != Fh or gamma.numel() != D or beta.numel() != D \
+            or b2.numel() != D:
+        raise ValueError(f"fused_ff_residual: unsupported shapes x "
+                         f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, "
+                         f"w2 {tuple(w2.shape)}")
+    args = [t.float().contiguous() for t in
+            (x.reshape(-1, D), gamma, beta, w1, b1, w2, b2)]
+    if any(t.device != x.device for t in args):
+        raise ValueError("fused_ff_residual: operands must lie on x's "
+                         "device")
+    return args
+
+
+def wgrad_splits(R: int) -> int:
+    """Slices of the R rows whose weight-gradient partials the f32
+    backward sums in order: one per 512 rows, 1 to 16."""
+    return max(1, min(16, R // 512))
+
+
+def ff_forward_f32(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
+                   seed=None):
+    """The float32 forward: a CUDA f32 tensor launches `csrc/ffn_f32.cu`
+    (three stages, any D and F, every product a full f32 FMA); anything
+    else raises. `ff_forward` sends a CPU tensor to the plain version."""
+    args = _f32_operands(x, gamma, beta, w1, b1, w2, b2)
+    drop, inv = kernel_args(rate, seed)
+    R, D = args[0].shape
+    Fh = w1.shape[-1]
+    out, h = torch.empty_like(args[0]), torch.empty_like(args[0])
+    a1 = torch.empty(R, Fh, dtype=torch.float32, device=x.device)
+    err = _build.load("ffn_f32", _F32).ffn_f32_fwd(
+        *(t.data_ptr() for t in (*args, out, h, a1)), R, D, Fh, *drop,
+        float(alpha), inv, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ffn_f32_fwd")
+    ff_forward_f32.launches += 1
+    return out.view(x.shape)
+
+
+def ff_backward_f32(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5,
+                    rate=0.0, seed=None):
+    """The float32 backward, (dx, dgamma, dbeta, dw1, db1, dw2, db2) in
+    f32: a CUDA f32 tensor launches `csrc/ffn_f32.cu`, which recomputes
+    the forward from x and sums the weight gradients over
+    `wgrad_splits(R)` slices of the rows in order; anything else raises.
+    `ff_backward` sends a CPU tensor to the plain version."""
+    xr, g, b, w1f, b1f, w2f, _ = _f32_operands(x, gamma, beta, w1, b1, w2,
+                                               b2)
+    drop, inv = kernel_args(rate, seed)
+    R, D = xr.shape
+    Fh = w1.shape[-1]
+    do = dout.reshape(R, D).float().contiguous()
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
+    outs = [new(R, D), new(D), new(D), new(D, Fh), new(Fh), new(Fh, D),
+            new(D)]
+    lib = _build.load("ffn_f32", _F32)
+    splits = wgrad_splits(R)
+    ws = new(max(lib.ffn_f32_bwd_workspace(R, D, Fh, splits, None), 1) * 64)
+    err = lib.ffn_f32_bwd(
+        *(t.data_ptr() for t in (xr, g, b, w1f, b1f, w2f, do, *outs, ws)),
+        R, D, Fh, *drop, splits, float(alpha), inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ffn_f32_bwd")
+    ff_backward_f32.launches += 1
+    dx, *grads = outs
+    return (dx.view(x.shape), *grads)
+
+
+ff_forward_f32.launches = 0
+ff_backward_f32.launches = 0
 
 
 class _FusedFF(torch.autograd.Function):

@@ -15,10 +15,13 @@ reads the two JSON files of a recipe under `egs/` unchanged:
 
 and runs on the card unless `--device cpu` is given. A "bin" of either
 package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train`, the CUSIDE
-`*.train_unified` and the multichannel `ctc.train_me2e*`) names the port's
-trainer (`pipeline/tasks.py`); the ME2E bins' task adapter runs stages
-2-4 (raw multichannel waves packed, the beamforming front end trained
-with the encoder, CTC decoding offline or streaming); an LM
+`*.train_unified`, the multichannel `ctc.train_me2e*` and JSA-SPG's
+`ctc.train_jsa`) names the port's trainer (`pipeline/tasks.py`); the ME2E
+bins' task adapter runs stages 2-4 (raw multichannel waves packed, the
+beamforming front end trained with the encoder, CTC decoding offline or
+streaming), the JSA adapter too (grapheme labels and the supervised
+phonemes of `text_phone` packed, the S2P, P2G and G2P models trained
+with MIS sampling, cascade decoding); an LM
 bin (`*.lm.train`, `*.lm.train_trf`) is refused with a ValueError: its
 recipe runs through `pipeline/lm.py`.
 
@@ -56,8 +59,8 @@ Not ported yet, each raising NotImplementedError with its ROADMAP.md
 section: the arc-table denominator for orders above 3, more than 128
 units or an FST file (§A.6); the encoders `VGGLSTM`, `BLSTMN`,
 `LSTMrowCONV`, `TDNN_LSTM` and `ConformerLSTM` (§A.6b);
-`config.parallel` (§A.7); more than one train set, the JSA and P2G
-bins and the `EmbeddingEncoder` and `Wav2Vec2Encoder` encoders (§A.8). The JAX
+`config.parallel` (§A.7); more than one train set, the P2G bin and the
+`Wav2Vec2Encoder` encoder (§A.8). The JAX
 package's monitor plot after training waits for `utils/plot.py` (§A.8)
 and is left out; `config.perf` is read and
 ignored, since the port has no implementation switches: every op runs
@@ -198,16 +201,19 @@ def _asr_module(hyper):
 
 
 def _check_encoder(config):
-    """Raise for an encoder type the port has not registered, a JoinAP
-    encoder's head included."""
+    """Raise for an encoder type the port has not registered: the config's
+    encoder (a JoinAP encoder's head included) or a JSA recipe's s2p, p2g
+    and g2p."""
     from cat_tpu_torch import models
 
-    enc = config.get("encoder")
-    if not enc:
-        return
-    models.get_encoder(enc["type"])
-    if enc["type"].startswith("JoinAP"):
-        models.get_encoder(enc.get("kwargs", {}).get("enc_head_type", "LSTM"))
+    for key in ("encoder", "s2p", "p2g", "g2p"):
+        enc = config.get(key)
+        if not enc:
+            continue
+        models.get_encoder(enc["type"])
+        if enc["type"].startswith("JoinAP"):
+            models.get_encoder(enc.get("kwargs", {}).get("enc_head_type",
+                                                         "LSTM"))
 
 
 def check_train(hyper, config):
@@ -218,7 +224,7 @@ def check_train(hyper, config):
     if config.get("parallel"):
         raise _todo("config.parallel (tensor parallelism)", "§A.7")
     if tasks.get_task(hyper) is not None:
-        return  # the ME2E bins train CTC whatever trainer.loss says
+        return  # the ME2E and JSA bins train CTC whatever trainer.loss says
     den_cfg = hyper.get("den_lm", {})
     _check_den_path(den_cfg.get("path", ""))
     if den_cfg.get("order", 3) > 3 and \
@@ -833,14 +839,16 @@ def stage_decode(expdir, hyper, config, tok, device="cpu"):
 
 
 def finalize_decode(expdir, split, refs, hyps, all_nbest, wall, audio_s,
-                    mode, dec_cfg):
-    """The n-best pickle, the hypotheses, the WER and the RTF."""
+                    mode, dec_cfg, extra=None):
+    """The n-best pickle, the hypotheses, the WER and the RTF (and the
+    numbers of `extra`, written beside them)."""
     from cat_tpu_torch.utils.nbest import write_nbest
     from cat_tpu_torch.utils.wer import wer
 
     res = wer(refs, hyps, char_level=dec_cfg.get("cer", False))
     res["rtf"] = wall / max(audio_s, 1e-6) if audio_s > 0 else 0.0
     res["mode"] = mode
+    res.update(extra or {})
     write_nbest(all_nbest, os.path.join(expdir, f"nbest_{split}.pkl"))
     with open(os.path.join(expdir, f"decode_{split}.txt"), "w") as f:
         for uid in sorted(hyps):

@@ -9,7 +9,7 @@ both pipelines (`pipeline/asr.py`, `pipeline/lm.py`, which takes the
 NotImplementedError naming their ROADMAP.md section. The JAX package
 drives the ME2E, JSA and P2G bins through task adapters, which own stages
 2-4 of their recipes; the plain ASR bins have none (`get_task` returns
-None), as in JAX. The port has the ME2E adapters; JSA and P2G raise.
+None), as in JAX. The port has the ME2E and JSA adapters; P2G raises.
 
 An ME2E adapter (`Me2eTask` and its chunk and kaldi variants) packs raw
 multichannel waves (L, C), time-major, a mono source replicated over
@@ -20,20 +20,31 @@ front end's hop times the encoder's subsampling, 4; and decodes the
 inference split offline, or by the chunk pass in decode mode
 "streaming", at decode.beam_width (8), with the prefix capacity the
 batch's label width + 16, as the JAX adapter does.
+
+The JSA adapter (`JsaTask`) packs the features with grapheme labels
+(tokenizer_grapheme) and, where a data dir has `text_phone`, its phoneme
+ids (tokenizer) as pkl/<split>/phones.json, the supervised z; trains the
+three models through the `Manager` on `BucketedLoader`s at train.option
+frame_budget (20,000) and num_buckets (4), with num_samples (4),
+sample_beam (8) and trainer.upsample (2); and decodes the inference split
+one utterance at a time by the S2P -> P2G cascade at decode.beam_width
+(8) and num_z (4), marginalised unless decode.marginalize is false.
 """
 from __future__ import annotations
 
 import importlib
+import json
 import os
 import time
 
 ME2E_BINS = ("ctc.train_me2e", "ctc.train_me2e_chunk", "ctc.train_me2e_kaldi",
              "ctc.train_me2e_kaldi_chunk")
 PORTED = ("ctc.train", "rnnt.train", "ctc.train_unified",
-          "rnnt.train_unified", "lm.train", "lm.train_trf") + ME2E_BINS
+          "rnnt.train_unified", "lm.train", "lm.train_trf",
+          "ctc.train_jsa") + ME2E_BINS
 # bins of the JAX package that the port does not have yet, with the
 # ROADMAP.md section that ports them
-NOT_PORTED = {"ctc.train_jsa": "§A.8", "p2g.train": "§A.8"}
+NOT_PORTED = {"p2g.train": "§A.8"}
 TASK_BINS = ME2E_BINS + ("ctc.train_jsa", "p2g.train")
 
 
@@ -78,12 +89,14 @@ def train_module(name: str, want_family: str | None = None):
 
 def get_task(hyper):
     """The task adapter of the experiment's bin: an ME2E adapter for the
-    four ME2E bins, None for the plain ASR bins, as in JAX; the JSA and
-    P2G bins raise (ROADMAP.md §A.8)."""
+    four ME2E bins, the JSA adapter for ctc.train_jsa, None for the plain
+    ASR bins, as in JAX; the P2G bin raises (ROADMAP.md §A.8)."""
     b = hyper.get("train", {}).get("bin", "")
     key = bin_key(b)
     if key in ME2E_BINS:
         return Me2eTask(key)
+    if key == "ctc.train_jsa":
+        return JsaTask()
     if key in TASK_BINS:
         raise _not_ported(b)
     return None
@@ -228,3 +241,134 @@ class Me2eTask:
             torch.cuda.synchronize()
         return asr.finalize_decode(expdir, split, refs, hyps, all_nbest,
                                    time.time() - t0, audio_s, mode, dec_cfg)
+
+
+class JsaTask:
+    """Stages 2-4 of a JSA-SPG recipe (counterpart of `JsaTask` of
+    `cat_tpu/pipeline/tasks.py`): dual phoneme and grapheme tokenizers,
+    MIS sampling in the train step, cascade or marginalised decoding."""
+
+    key = "ctc.train_jsa"
+
+    def tokenizer_corpus_file(self, key):
+        return "text"
+
+    def module(self):
+        return importlib.import_module("cat_tpu_torch." + self.key)
+
+    def pack(self, expdir, hyper, toks, device="cpu"):
+        """Features on `device` with grapheme labels; a data dir's
+        `text_phone` -> pkl/<split>/phones.json, the supervised phoneme
+        ids."""
+        from cat_tpu_torch.pipeline import asr
+
+        pkl_dir = asr.stage_pack(expdir, hyper, toks["tokenizer_grapheme"],
+                                 device)
+        tok_p = toks["tokenizer"]
+        for split, datadir in (("dev", hyper["data"]["dev"]),
+                               ("train", asr._train_sets(hyper)[0][0])):
+            phone_file = os.path.join(datadir, "text_phone")
+            sup_path = os.path.join(pkl_dir, split, "phones.json")
+            if os.path.exists(phone_file) and not os.path.exists(sup_path):
+                sup = {uid: [int(x) for x in tok_p.encode(t)]
+                       for uid, t in asr.read_scp(phone_file).items()}
+                with open(sup_path, "w") as f:
+                    json.dump(sup, f)
+        return pkl_dir
+
+    def build(self, config, toks, feat_dim, device):
+        """The `JsaModel` of the config for the experiment's vocabularies."""
+        return self.module().build_model(
+            config, toks["tokenizer"].vocab_size,
+            toks["tokenizer_grapheme"].vocab_size, feat_dim=feat_dim,
+            device=device)
+
+    def train(self, expdir, hyper, config, toks, device="cpu"):
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.checkpoint import CheckpointManager
+        from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
+        from cat_tpu_torch.utils.manager import Manager
+        from cat_tpu_torch.utils.scheduler import build_scheduler
+
+        asr.check_train(hyper, config)
+        task = self.module()
+        opts = hyper["train"].get("option", {})
+        pkl = os.path.join(expdir, "pkl")
+        tr = SpeechDataset(os.path.join(pkl, "train"))
+        dv = SpeechDataset(os.path.join(pkl, "dev"))
+        kw = dict(frame_budget=opts.get("frame_budget", 20000),
+                  num_buckets=opts.get("num_buckets", 4))
+        model = self.build(config, toks, tr.feat_dim, device)
+        sched, opt = build_scheduler(config["scheduler"], model.parameters())
+        trainer = task.JsaTrainer(
+            model, opt, toks["tokenizer"].vocab_size,
+            toks["tokenizer_grapheme"].vocab_size,
+            num_samples=opts.get("num_samples", 4),
+            beam_width=opts.get("sample_beam", 8),
+            upsample=config.get("trainer", {}).get("upsample", 2))
+        supervised_z = None
+        sup_path = os.path.join(pkl, "train", "phones.json")
+        if os.path.exists(sup_path):
+            with open(sup_path) as f:
+                supervised_z = json.load(f)
+        state, train_step, eval_step = task.manager_steps(trainer,
+                                                          supervised_z)
+        same = lambda b: b  # the sampler reads the Batch's uids
+        mgr = Manager(train_step, eval_step, state, sched,
+                      CheckpointManager(os.path.join(expdir, "check")),
+                      BucketedLoader(tr, seed=opts.get("seed", 0), **kw),
+                      BucketedLoader(dv, shuffle=False, **kw),
+                      max_epochs=opts.get("max_epochs", 100),
+                      check_freq=opts.get("check_freq", -1),
+                      put_batch=same, batch_transform=same)
+        asr._write_exp_readme(expdir, config, model,
+                              toks["tokenizer_grapheme"])
+        if opts.get("resume"):
+            mgr.resume(opts["resume"])
+        mgr.run()
+        return mgr
+
+    def decode(self, expdir, hyper, config, toks, device="cpu"):
+        from cat_tpu_torch.ctc.decode_jsa import JsaCascadeDecoder
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.data import SpeechDataset
+
+        asr.check_decode(hyper, config)
+        tok_g = toks["tokenizer_grapheme"]
+        inf = hyper.get("inference", {})
+        dec_cfg = inf.get("decode", {})
+        split = inf.get("split", "dev")
+        ds = SpeechDataset(os.path.join(expdir, "pkl", split))
+        model = self.build(config, toks, ds.feat_dim, device)
+        model.load_state_dict(asr._load_decode_state(expdir, hyper, model))
+        model.eval()
+        beam = dec_cfg.get("beam_width", 8)
+        dec = JsaCascadeDecoder(
+            model.s2p, model.p2g,
+            upsample=config.get("trainer", {}).get("upsample", 2),
+            s2p_beam=beam, p2g_beam=beam, num_z=dec_cfg.get("num_z", 4))
+        marginalize = bool(dec_cfg.get("marginalize", True))
+        refs, hyps, all_nbest = {}, {}, {}
+        audio_s = 0.0
+        t0 = time.time()
+        for i in range(len(ds)):
+            feats, labels = ds[i]
+            uid = ds.uids[i]
+            audio_s += feats.shape[0] * 0.01
+            ranked = dec.decode(feats, feats.shape[0],
+                                marginalize=marginalize)
+            entry = {k: (float(s), tok_g.decode([int(t) for t in seq]))
+                     for k, (s, seq) in enumerate(ranked[:4])} \
+                or {0: (0.0, "")}
+            all_nbest[uid] = entry
+            hyps[uid] = entry[0][1]
+            refs[uid] = tok_g.decode([int(x) for x in labels])
+        wall = time.time() - t0
+        print(f"[stage 4] cascade over {len(ds)} utterances: forwards "
+              f"{dec.times['device']:.3f} s, beams on the host "
+              f"{dec.times['host']:.3f} s")
+        mode = "marginalize" if marginalize else "cascade"
+        return asr.finalize_decode(expdir, split, refs, hyps, all_nbest,
+                                   wall, audio_s, mode, dec_cfg,
+                                   extra={"device_s": dec.times["device"],
+                                          "host_s": dec.times["host"]})

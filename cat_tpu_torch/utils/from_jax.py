@@ -1,5 +1,6 @@
 """Carry `cat_tpu` weights across: a JAX `ConformerNet`'s, `LSTM`'s,
-`TDNN_NAS`'s, JoinAP encoder's, `TransducerModel`'s, CUSIDE unified
+`TDNN_NAS`'s, JoinAP encoder's, `EmbeddingEncoder`'s, JSA trainer's
+(S2P, P2G and G2P), `TransducerModel`'s, CUSIDE unified
 model's (`UnifiedEncoder`, `UnifiedTransducerModel`) or multichannel
 model's (`Me2eModel`, `ChunkMe2eModel`, and the front end's modules
 alone) variables, or an LM's (`LSTMPredictor` with its head,
@@ -65,7 +66,10 @@ def _cell(sd, pre, p, stats):
 
 def conv_module_state_dict(c, s, pre=""):
     """The port's `ConvModule` state_dict (keys prefixed with `pre`) from
-    a JAX ConvModule's params `c` and batch_stats `s`."""
+    a JAX ConvModule's params `c` and batch_stats `s`: with batch
+    normalisation `bn_scale`, `bn_bias` and the running statistics;
+    without it (`use_batchnorm=False`, no statistics) the second
+    LayerNorm, `LayerNorm_1`, as `conv_norm`."""
     sd = {}
     _ln(sd, pre + "norm.", c["LayerNorm_0"])
     _dense(sd, pre + "pw_in.", c["Dense_0"])
@@ -73,6 +77,9 @@ def conv_module_state_dict(c, s, pre=""):
     dw = np.asarray(c["Conv_0"]["kernel"])             # (k, 1, D)
     sd[pre + "depthwise.weight"] = _t(np.transpose(dw, (2, 1, 0)))
     sd[pre + "depthwise.bias"] = _t(c["Conv_0"]["bias"])
+    if "bn_scale" not in c:
+        _ln(sd, pre + "conv_norm.", c["LayerNorm_1"])
+        return sd
     sd[pre + "bn_scale"] = _t(c["bn_scale"])
     sd[pre + "bn_bias"] = _t(c["bn_bias"])
     sd[pre + "running_mean"] = _t(s["mean"])
@@ -92,9 +99,30 @@ def _cells(params, batch_stats):
         L = np.asarray(params["cells"]["LayerNorm_0"]["scale"]).shape[0]
         return [(_index(params["cells"], i), _index(batch_stats["cells"], i))
                 for i in range(L)]
-    idx = sorted(int(m.group(1)) for k in params
-                 if (m := re.fullmatch(r"cell_(\d+)", k)))
+    idx = _cell_indices(params)
     return [(params[f"cell_{i}"], batch_stats[f"cell_{i}"]) for i in idx]
+
+
+def _cell_indices(params):
+    return sorted(int(m.group(1)) for k in params
+                  if (m := re.fullmatch(r"cell_(\d+)", k)))
+
+
+def initial_batch_stats(params):
+    """flax's initial batch_stats (mean 0, var 1 in every conv module) for
+    a JAX ConformerNet's `params`, in either layout: the statistics of a
+    model whose trainer keeps none, as the JAX JSA trainer keeps none for
+    its S2P."""
+    def conv(c, lead=()):
+        D = np.asarray(c["Conv_0"]["kernel"]).shape[-1]
+        return {"ConvModule_0": {"mean": np.zeros(lead + (D,), np.float32),
+                                 "var": np.ones(lead + (D,), np.float32)}}
+    if "cells" in params:
+        c = params["cells"]["ConvModule_0"]
+        L = np.asarray(c["Conv_0"]["kernel"]).shape[0]
+        return {"cells": conv(_index(c, 0), (L,))}
+    return {f"cell_{i}": conv(params[f"cell_{i}"]["ConvModule_0"])
+            for i in _cell_indices(params)}
 
 
 def conformer_state_dict(params, batch_stats):
@@ -118,6 +146,37 @@ def conformer_state_dict(params, batch_stats):
         _dense(sd, "classifier.", params["classifier"])
     return sd
 
+
+
+def embedding_encoder_state_dict(params):
+    """The port's `EmbeddingEncoder` state_dict from a `cat_tpu` one's
+    params: `Embed_0`, the cells `cell_{i}` (their conv modules with
+    LayerNorm, `LayerNorm_0`, `Dense_0`, `Conv_0`, `LayerNorm_1`,
+    `Dense_1`, when built without batch normalisation, which keeps no
+    statistics), the classifier."""
+    sd = {"embed.weight": _t(params["Embed_0"]["embedding"])}
+    for i in _cell_indices(params):
+        _cell(sd, f"cells.{i}.", params[f"cell_{i}"], {"ConvModule_0": {}})
+    if "classifier" in params:
+        _dense(sd, "classifier.", params["classifier"])
+    return sd
+
+
+def jsa_state_dict(model, params, batch_stats):
+    """The port's `JsaModel` state_dict from a JAX JSA trainer's params
+    {"s2p", "p2g", "g2p"}, each through the converter of the port's
+    model. The JAX trainer keeps no batch_stats: a batch-normalised S2P
+    (a ConformerNet) starts from flax's initial ones,
+    `initial_batch_stats`, unless `batch_stats` holds an "s2p" tree."""
+    stats = dict(batch_stats or {})
+    if type(model.s2p).__name__ == "ConformerNet" and "s2p" not in stats:
+        stats["s2p"] = initial_batch_stats(params["s2p"])
+    sd = {}
+    for name in ("s2p", "p2g", "g2p"):
+        sub = encoder_state_dict(getattr(model, name), params[name],
+                                 stats.get(name, {}))
+        sd.update({f"{name}.{k}": v for k, v in sub.items()})
+    return sd
 
 
 def predictor_state_dict(params, pre=""):
@@ -252,7 +311,8 @@ def joinap_state_dict(encoder, params, batch_stats):
 
 def encoder_state_dict(encoder, params, batch_stats):
     """The state_dict of the port's `encoder` (a `ConformerNet`, an
-    `LSTM`, a `TDNN_NAS` or a JoinAP encoder) from the JAX encoder's
+    `LSTM`, a `TDNN_NAS`, a JoinAP encoder or an `EmbeddingEncoder`) from
+    the JAX encoder's
     `params` and `batch_stats` trees."""
     name = type(encoder).__name__
     if name == "ConformerNet":
@@ -263,6 +323,8 @@ def encoder_state_dict(encoder, params, batch_stats):
         return tdnn_state_dict(params)
     if name in ("JoinAPLinearEncoder", "JoinAPNonLinearEncoder"):
         return joinap_state_dict(encoder, params, batch_stats)
+    if name == "EmbeddingEncoder":
+        return embedding_encoder_state_dict(params)
     raise NotImplementedError(f"no converter of JAX weights for {name}")
 
 
@@ -283,6 +345,8 @@ def model_state_dict(model, params, batch_stats):
         return me2e_state_dict(model, params, batch_stats)
     if name in _FRONT:
         return _FRONT[name](params)
+    if name == "JsaModel":
+        return jsa_state_dict(model, params, batch_stats)
     return encoder_state_dict(model, params, batch_stats)
 
 

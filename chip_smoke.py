@@ -279,6 +279,42 @@ Phases, any failure exits non-zero:
    first device-beam batch judged by `judge_device_beam`; last, a chunk
    model at aishell4's widths (chunk 64/64/16) decoded streaming by
    `make_me2e_decoder`, its log-probs within LOGIT_TOL of the CPU's, RTF;
+11d. jsa: JSA-SPG (egs/jsa-spg/exp/jsa: S2P the 12-cell, d = 256 bf16
+   conformer; P2G and G2P 4-cell, d = 256 float32 `EmbeddingEncoder`s,
+   which take the f32 routes of rows 12-13 and 2-3). The four f32 kernels
+   (`csrc/ffn_f32.cu`, `csrc/relpos_attention_f32.cu`) against their
+   plain versions at jsa-spg's P2G step (N = 16, T = 256, D = 256, F =
+   1024, H = 4, Dh = 64) and the template's widths (D = 16, H = 2, Dh =
+   8), rates 0 and 0.1: relative norms within JSA_OUT_REL on outputs and
+   JSA_SUM_REL on sums over rows, two calls bit for bit, the FF output's
+   and the attention probabilities' dropout masks bit for bit against
+   ops/dropout.py's; the P2G shape timed beside its bound at the f32 peak
+   (67 TFLOP/s) into the records. Then jsa-spg at full width on a stand-in
+   corpus (`jsa_corpus`: `make_phone_corpus`'s synthesis over a lexicon
+   of JSA_WORDS words of the 70 phones, each written in three-letter
+   phone codes; the lexicon tokenizer for the phones, a BPE of 500 units
+   of the train text for the graphemes; train and dev cut to JSA_SPLITS
+   utterances),
+   packed by stages 1-2 of pipeline.asr: one loss and
+   backward at a fixed z (the lexicon's phones) with the kernels (JSA_STEP
+   launches) against the plain versions, S2P held to the crf-v1 step gates
+   against the plain bf16 step and the float32 control, P2G and G2P to
+   the f32 gates (their losses JSA_OUT_REL, their gradients JSA_SUM_REL
+   as one vector and JSA_TENSOR_REL a tensor); 1 warm-up and JSA_TIMED
+   timed train steps with the MIS sampler at the recipe's frame budget
+   (20,480 frames): ms, host wall,
+   the sampler's share of it, the acceptance rate, the peak memory, the
+   launches and the busy share of one more step; stages 3-4 of the recipe
+   (no text_phone: the sampler runs; max_epochs 40 -> 1, check_freq ->
+   the epoch's end): its files, the f32 kernels launched, the WER (not
+   gated), the RTF, the stages' seconds and stage 4's split into forwards
+   and host beams; the cascade of the first 2 dev utterances on the card
+   against the CPU's from the card's phoneme n-best (the S2P is bf16 on
+   both, and their n-bests part at near-ties): equal hypotheses, or a
+   near-tie of the CPU's within JSA_TIE. Then egs/template/exp/asr-jsa on
+   yes/no tones with text_phone (max_epochs 60 -> JSA_TOY_EPOCHS) through
+   stages 1-4, its cascade on the first 4 dev utterances held to the
+   CPU's within JSA_TIE;
 12. device: the card's name and power limit.
 With --profile, one serving forward and the three train steps (crf-v1,
 rnnt-v1, aishell rnnt-cuside) also run under torch.profiler; the device
@@ -324,14 +360,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("ffn_fwd", "glu_in_fwd", "bn_out_fwd", "relpos_attention_fwd",
            "ffn_bwd", "glu_in_bwd", "bn_out_bwd", "relpos_attention_bwd",
            "dropout", "ctc_alpha", "ctc_beta", "den_fwd", "den_bwd",
-           "rnnt_alpha", "rnnt_beta")
+           "rnnt_alpha", "rnnt_beta", "ffn_f32_fwd", "ffn_f32_bwd",
+           "relpos_attention_f32_fwd", "relpos_attention_f32_bwd")
+# the f32 routes of rows 12-13 and 2-3, run by JSA-SPG's token encoders
+JSA_F32 = KERNELS[15:]
 # launches per train step: crf-v1 (PER_STEP) and rnnt-v1 (RNNT_STEP); the
 # serving forward of either model runs the four encoder forward kernels
 PER_STEP = {"ffn_fwd": 34, "glu_in_fwd": 17, "bn_out_fwd": 17,
             "relpos_attention_fwd": 17, "ffn_bwd": 34, "glu_in_bwd": 17,
             "bn_out_bwd": 17, "relpos_attention_bwd": 17, "dropout": 2,
             "ctc_alpha": 1, "ctc_beta": 1, "den_fwd": 1, "den_bwd": 1,
-            "rnnt_alpha": 0, "rnnt_beta": 0}
+            "rnnt_alpha": 0, "rnnt_beta": 0, **dict.fromkeys(KERNELS[15:], 0)}
 RNNT_STEP = {k: (v if k in KERNELS[:9] else 0) for k, v in PER_STEP.items()}
 RNNT_STEP.update(rnnt_alpha=1, rnnt_beta=1)
 SERVE = {k: (v if k in KERNELS[:4] else 0) for k, v in PER_STEP.items()}
@@ -530,7 +569,12 @@ def wrappers():
             "den_fwd": crf_dense.den_forward,
             "den_bwd": crf_dense.den_backward,
             "rnnt_alpha": rnnt.forward_alphas,
-            "rnnt_beta": rnnt.backward_betas}
+            "rnnt_beta": rnnt.backward_betas,
+            "ffn_f32_fwd": ffn.ff_forward_f32,
+            "ffn_f32_bwd": ffn.ff_backward_f32,
+            "relpos_attention_f32_fwd": attention.relpos_attention_forward_f32,
+            "relpos_attention_f32_bwd":
+                attention.relpos_attention_backward_f32}
 
 
 def reset_counts():
@@ -1888,9 +1932,9 @@ class Probe:
             self.uids.append(self.last_uids)
             (state, m), per, ms, wall = run(step, state, batch, lr, gen)
             self.train.append(dict(lr=lr, launches=per, ms=ms, wall=wall,
-                                   loss=m["loss"].item(),
+                                   loss=float(m["loss"]),
                                    applied=m.get("applied", 1),
-                                   skipped=m["skipped"]))
+                                   skipped=m.get("skipped", 0)))
             return state, m
 
         def eval_step(state, batch):
@@ -3218,20 +3262,28 @@ def make_yesno(root):
 
 def make_phone_corpus(root, seed=19):
     """The crf-v1 stand-in for LibriSpeech: a lexicon of 200 words of 2-6
-    of 70 phones (every phone used, so V = 72 with <s> and <unk>); phone p
-    a 70 ms Hann-windowed tone of 200 + 50p Hz, 100 ms of silence after
-    each word and 50 ms before the first, noise of sigma 0.01 over all;
-    16 kHz. 192 train and 32 dev utterances of 15-45 words."""
+    of 70 phones (every phone used, so V = 72 with <s> and <unk>);
+    utterances as `write_phone_corpus` makes them."""
     import numpy as np
-    sr = 16000
     rng = np.random.default_rng(seed)
-    phones = [f"p{i:02d}" for i in range(70)]
     while True:
         spell = [list(rng.integers(0, 70, int(rng.integers(2, 7))))
                  for _ in range(200)]
         if len({p for s in spell for p in s}) == 70:
             break
-    words = [f"w{i:03d}" for i in range(200)]
+    return write_phone_corpus(root, rng, spell,
+                              [f"w{i:03d}" for i in range(200)])
+
+
+def write_phone_corpus(root, rng, spell, words):
+    """lexicon.txt (word i spelled by the phones spell[i] of p00 .. p69)
+    and the train and dev splits under root: phone p a 70 ms Hann-windowed
+    tone of 200 + 50p Hz, 100 ms of silence after each word and 50 ms
+    before the first, noise of sigma 0.01 over all; 16 kHz. 192 train and
+    32 dev utterances of 15-45 words drawn from `rng`."""
+    import numpy as np
+    sr = 16000
+    phones = [f"p{i:02d}" for i in range(70)]
     os.makedirs(root)
     lexicon = os.path.join(root, "lexicon.txt")
     with open(lexicon, "w") as f:
@@ -3244,7 +3296,7 @@ def make_phone_corpus(root, seed=19):
     for split, n in (("train", 192), ("dev", 32)):
         utts = []
         for i in range(n):
-            ws = list(rng.integers(0, 200, int(rng.integers(15, 46))))
+            ws = list(rng.integers(0, len(words), int(rng.integers(15, 46))))
             parts = [np.zeros(int(0.05 * sr))]
             for w in ws:
                 parts += [tone[p] for p in spell[w]] + [np.zeros(n_gap)]
@@ -4907,6 +4959,699 @@ def phase_me2e(card):
         f"launches a full-budget step {launches}")
 
 
+# ---------------------------------------------------------------- [jsa]
+# JSA-SPG (egs/jsa-spg/exp/jsa): S2P the bf16 conformer (12 cells, d =
+# 256, 4 heads, kernel 15, dropout 0.1), P2G and G2P `EmbeddingEncoder`s
+# (4 cells, d = 256, 4 heads, kernel 15) in float32, which take the f32
+# routes of rows 2-3 and 12-13
+JSA_NAME = "jsa-spg/exp/jsa"
+JSA_TOY = "template/exp/asr-jsa"
+# the f32 kernels against their plain versions on the card, relative
+# norms: outputs (out, lse, dx, dq, dk, dv) within JSA_OUT_REL; the sums
+# over rows (dgamma, dbeta, dw1, db1, dw2, db2; dp, du, dv_bias) within
+# JSA_SUM_REL; in the jsa-spg step, the losses of P2G and G2P within
+# JSA_OUT_REL, their gradients as one vector within JSA_SUM_REL and each
+# tensor within JSA_TENSOR_REL: the attention's u and v bias gradients
+# sum every query row of the batch, terms that cancel (at rate 0 each
+# row's dS sums to 0), so their f32 rounding shows relative to a small
+# sum (1.66e-4 for p2g.cells.1.mhsa.v_bias at jsa-spg's width on an
+# NVIDIA H100 80GB HBM3)
+JSA_OUT_REL, JSA_SUM_REL, JSA_TENSOR_REL = 1e-5, 1e-4, 1e-3
+# shapes of the kernel checks: jsa-spg's P2G step (T = the upsampled
+# phones of 12.8 s of speech) and the template's token encoders (d = 16,
+# 2 heads, Dh = 8); ragged lengths T, T - step, ...
+JSA_SHAPES = {"jsa-spg P2G step": dict(N=16, T=256, D=256, H=4, step=8),
+              "template": dict(N=16, T=24, D=16, H=2, step=1)}
+JSA_BUDGET = 20480   # the recipe's frame budget
+JSA_TIMED = 3        # timed steps with the sampler, after one warm-up
+JSA_SPLITS = {"train": 128, "dev": 4}  # the corpus's 192 and 32, cut
+JSA_WORDS = 1000     # the stand-in lexicon's words
+JSA_TOY_EPOCHS = 4   # egs/template/exp/asr-jsa: max_epochs 60 cut to 4
+JSA_TIE = 1e-3       # f32 cascade, card vs CPU: n-best scores this close tie
+# S2P phoneme n-best, card vs CPU: a score (the log-likelihood of z, the
+# quantity of the S2P loss) within JSA_TIE + 1e-2 of the larger magnitude,
+# the bf16 step's loss gate (STEP_LOSS_REL)
+JSA_S2P_REL = STEP_LOSS_REL
+# launches of one JSA loss and backward at a fixed z: the S2P conformer's
+# encoder kernels (crf-v1's per-cell counts for 12 cells), its
+# subsampling's dropout both ways, a CTC alpha and beta per loss, and the
+# f32 FF (two a cell) and attention kernels of the 8 token-encoder cells;
+# their dropout rate is 0 (JAX builds their cells with the default rate)
+JSA_STEP = {k: (v // 17 * 12 if k in KERNELS[:8] else 0)
+            for k, v in PER_STEP.items()}
+JSA_STEP.update(dropout=2, ctc_alpha=3, ctc_beta=3, ffn_f32_fwd=16,
+                ffn_f32_bwd=16, relpos_attention_f32_fwd=8,
+                relpos_attention_f32_bwd=8)
+
+
+def rel_norm(got, want):
+    return ((got.double() - want.double()).norm()
+            / want.double().norm().clamp_min(1e-30)).item()
+
+
+def gate_rel(name, got, want, tol, rels):
+    """Fails unless got is finite and within `tol` relative norm of want;
+    records the relative norm in rels[name] and returns the max abs
+    error."""
+    import torch
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    e = rel_norm(got, want)
+    if e > tol:
+        fail(f"{name}: relative norm {e:.3g} > {tol}")
+    rels[name] = max(rels.get(name, 0.0), e)
+    return (got.double() - want.double()).abs().max().item()
+
+
+def bitwise(name, a, b):
+    import torch
+    for x, y in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(x, y):
+            fail(f"{name}: two calls differ")
+
+
+def jsa_kernel_checks(gen, rec, card):
+    """The four f32 kernels against their plain versions at JSA_SHAPES,
+    rates 0 and 0.1, two calls bit for bit; the dropout masks the kernels
+    draw, bit for bit against ops/dropout.py's; the P2G shape timed beside
+    its bound (rate 0.1) into the records."""
+    import torch
+    from cat_tpu_torch.models.layers import length_mask
+    from cat_tpu_torch.ops import attention, ffn
+    from cat_tpu_torch.ops.dropout import dropout_scale
+
+    errs, rels = {}, {}
+    for where, s in JSA_SHAPES.items():
+        N, T, D, H = s["N"], s["T"], s["D"], s["H"]
+        Fh, Dh, R = 4 * D, D // H, N * T
+        lens = [max(T - s["step"] * i, 1) for i in range(N)]
+        lt = torch.tensor(lens, device="cuda")
+        valid = length_mask(lt, T)
+        x = _rnd(gen, N, T, D)
+        do = _rnd(gen, N, T, D)
+        ffp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+               _rnd(gen, D, Fh, s=D ** -0.5), _rnd(gen, Fh, s=0.1),
+               _rnd(gen, Fh, D, s=Fh ** -0.5), _rnd(gen, D, s=0.1))
+        q, k, v = (_rnd(gen, N, T, H, Dh) for _ in range(3))
+        p = _rnd(gen, 2 * T - 1, H, Dh, s=0.5)
+        att = (q, k, v, p, _rnd(gen, H, Dh, s=0.1), _rnd(gen, H, Dh, s=0.1),
+               lt)
+        dao = _rnd(gen, N, T, H, Dh)
+        for rate in (0.0, 0.1):
+            kw = dict(rate=rate, seed=SEED)
+            tag = f"{where} rate {rate}"
+            out = ffn.ff_forward_f32(x, *ffp, **kw)
+            errs[f"ffn_f32_fwd {tag}"] = gate_rel(
+                f"ffn_f32_fwd {tag}", out, ffn.ff_reference(x, *ffp, **kw),
+                JSA_OUT_REL, rels)
+            bitwise("ffn_f32_fwd", out, ffn.ff_forward_f32(x, *ffp, **kw))
+            got = ffn.ff_backward_f32(x, *ffp, do, **kw)
+            want = ffn.ff_backward_reference(x, *ffp, do, **kw)
+            errs[f"ffn_f32_bwd {tag}"] = max(
+                gate_rel(f"ffn_f32_bwd {n} {tag}", g, w,
+                         JSA_OUT_REL if n == "dx" else JSA_SUM_REL, rels)
+                for n, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1",
+                                    "dw2", "db2"), got, want))
+            bitwise("ffn_f32_bwd", got, ffn.ff_backward_f32(x, *ffp, do,
+                                                            **kw))
+            before = attention.relpos_attention_forward_f32.launches
+            out, lse = attention.relpos_attention_forward(*att, **kw)
+            if attention.relpos_attention_forward_f32.launches != before + 1:
+                fail("relpos_attention: a CUDA f32 tensor did not take the "
+                     "f32 kernel")
+            ref_out, ref_lse = attention.relpos_attention_reference_lse(
+                *att, **kw)
+            vm = valid[:, None, :].expand_as(lse)
+            errs[f"relpos_attention_f32_fwd {tag}"] = max(
+                gate_rel(f"relpos_attention_f32_fwd out {tag}", out[valid],
+                         ref_out[valid], JSA_OUT_REL, rels),
+                gate_rel(f"relpos_attention_f32_fwd lse {tag}", lse[vm],
+                         ref_lse[vm], JSA_OUT_REL, rels))
+            if out[~valid].any() or lse[~vm].any():
+                fail("relpos_attention_f32_fwd: padded query rows are not "
+                     "zero")
+            bitwise("relpos_attention_f32_fwd", (out, lse),
+                    attention.relpos_attention_forward_f32(*att, **kw))
+            got = attention.relpos_attention_backward_f32(
+                *att, out, lse, dao, **kw)
+            want = attention.relpos_attention_backward_reference(
+                *att, out, lse, dao, **kw)
+            errs[f"relpos_attention_f32_bwd {tag}"] = max(
+                gate_rel(f"relpos_attention_f32_bwd {n} {tag}", g, w,
+                         JSA_OUT_REL if n in ("dq", "dk", "dv")
+                         else JSA_SUM_REL, rels)
+                for n, g, w in zip(("dq", "dk", "dv", "dp", "du", "dv_bias"),
+                                   got, want))
+            bitwise("relpos_attention_f32_bwd", got,
+                    attention.relpos_attention_backward_f32(
+                        *att, out, lse, dao, **kw))
+        if where != "template":
+            kw = dict(rate=0.1, seed=SEED)
+            # bounds count the valid rows and (query, key) pairs only, as
+            # the bf16 records do
+            Rv = sum(lens)
+            sq = sum(L * L for L in lens)
+            what = f"{where}, R={R} ({Rv} valid), D={D}, F={Fh}, rate 0.1"
+            rec.add("ffn_f32_fwd", "cat_tpu_torch/csrc/ffn_f32.cu",
+                    "cat_tpu/ops/ffn_pallas.py:76",
+                    errs[f"ffn_f32_fwd {where} rate 0.1"],
+                    timed(lambda: ffn.ff_forward_f32(x, *ffp, **kw), 10, 2),
+                    timed(lambda: ffn.ff_reference(x, *ffp, **kw), 3, 1),
+                    4 * Rv * D * Fh,
+                    (2 * Rv * D + 2 * D * Fh + 3 * D + Fh) * 4,
+                    what, PEAK_F32_FLOPS)
+            rec.add("ffn_f32_bwd", "cat_tpu_torch/csrc/ffn_f32.cu",
+                    "cat_tpu/ops/ffn_pallas.py:104",
+                    errs[f"ffn_f32_bwd {where} rate 0.1"],
+                    timed(lambda: ffn.ff_backward_f32(x, *ffp, do, **kw), 10,
+                          2),
+                    timed(lambda: ffn.ff_backward_reference(x, *ffp, do,
+                                                            **kw), 3, 1),
+                    10 * Rv * D * Fh,
+                    (3 * Rv * D + 4 * D * Fh + 5 * D + 2 * Fh) * 4, what,
+                    PEAK_F32_FLOPS)
+            what = f"{where}, N={N} T={T} H={H} Dh={Dh}, rate 0.1"
+            rec.add("relpos_attention_f32_fwd",
+                    "cat_tpu_torch/csrc/relpos_attention_f32.cu",
+                    "cat_tpu/ops/attention_pallas.py:563",
+                    errs[f"relpos_attention_f32_fwd {where} rate 0.1"],
+                    timed(lambda: attention.relpos_attention_forward_f32(
+                        *att, **kw), 10, 2),
+                    timed(lambda: attention.relpos_attention_reference_lse(
+                        *att, **kw), 3, 1),
+                    6 * sq * Dh * H,
+                    (4 * Rv * D + (2 * T - 1) * D + Rv * H) * 4, what,
+                    PEAK_F32_FLOPS)
+            rec.add("relpos_attention_f32_bwd",
+                    "cat_tpu_torch/csrc/relpos_attention_f32.cu",
+                    "cat_tpu/ops/attention_pallas.py:624",
+                    errs[f"relpos_attention_f32_bwd {where} rate 0.1"],
+                    timed(lambda: attention.relpos_attention_backward_f32(
+                        *att, out, lse, dao, **kw), 10, 2),
+                    timed(lambda: attention.relpos_attention_backward_reference(
+                        *att, out, lse, dao, **kw), 3, 1),
+                    16 * sq * Dh * H,
+                    (7 * Rv * D + 2 * (2 * T - 1) * D + 2 * Rv * H) * 4, what,
+                    PEAK_F32_FLOPS)
+    # the masks: the FF output's (stream 1) from x = 0, W2 = 0, b2 = 1,
+    # where out = alpha·keep; the attention probabilities' (stream 0) from
+    # zero scores and v[s] = e_s over T = Dh = 64 keys, where out·T = keep
+    N, T, D = 16, 256, 256
+    z = torch.zeros(N, T, D, device="cuda")
+    ffp = (torch.ones(D, device="cuda"), z[0, 0], _rnd(gen, D, 4 * D),
+           _rnd(gen, 4 * D), torch.zeros(4 * D, D, device="cuda"),
+           torch.ones(D, device="cuda"))
+    k2 = ffn.ff_forward_f32(z, *ffp, alpha=0.5, rate=0.1, seed=SEED) * 2
+    mask_ff = torch.equal(k2.view(N * T, D), dropout_scale(
+        SEED, 1, 1, N * T, D, 0.1, "cuda")[0])
+    N, H, T = 2, 2, 64
+    eye = torch.eye(T, device="cuda")[None, :, None].expand(N, T, H, T)
+    zq = torch.zeros(N, T, H, T, device="cuda")
+    out, _ = attention.relpos_attention_forward_f32(
+        zq, zq, eye.contiguous(), torch.zeros(2 * T - 1, H, T, device="cuda"),
+        torch.zeros(H, T, device="cuda"), torch.zeros(H, T, device="cuda"),
+        torch.full((N,), T, device="cuda"), rate=0.1, seed=SEED)
+    mask_att = torch.equal((out * T).permute(0, 2, 1, 3).reshape(N * H, T, T),
+                           dropout_scale(SEED, 0, N * H, T, T, 0.1, "cuda"))
+    if not (mask_ff and mask_att):
+        fail(f"the f32 kernels' dropout masks differ from ops/dropout.py's "
+             f"(FF output {mask_ff}, attention {mask_att})")
+    # the token encoders' depthwise conv (P2G's shape, kernel 15) with
+    # cuDNN's TF32 switch on (PyTorch's default, which the pipeline keeps)
+    # and off, each against a float64 witness: does cuDNN take TF32 for it?
+    import torch.nn.functional as F
+    h = _rnd(gen, 16, 256, 256 + 14)
+    w, bias = _rnd(gen, 256, 1, 15, s=15 ** -0.5), _rnd(gen, 256, s=0.1)
+    witness = F.conv1d(h.double(), w.double(), bias.double(), groups=256)
+    prev = torch.backends.cudnn.allow_tf32
+    convs = {}
+    for on in (True, False):
+        torch.backends.cudnn.allow_tf32 = on
+        convs[on] = F.conv1d(h, w, bias, groups=256)
+    torch.backends.cudnn.allow_tf32 = prev
+    log(f"[jsa] the token encoders' depthwise conv (16 x 256 x 270, kernel "
+        f"15): with cuDNN's TF32 switch on (PyTorch's default) "
+        f"{rel_norm(convs[True], witness):.3g} from a float64 witness, with "
+        f"it off {rel_norm(convs[False], witness):.3g}; the two "
+        f"{'alike bit for bit' if torch.equal(*convs.values()) else 'differ'}")
+    log(f"[jsa] f32 kernels vs their plain versions ({card}; relative norms, "
+        f"gates {JSA_OUT_REL} on outputs, {JSA_SUM_REL} on sums over rows; "
+        f"two calls bit for bit; the FF output's and the attention "
+        f"probabilities' dropout masks bit for bit against ops/dropout.py): "
+        + ", ".join(f"{k} {e:.3g}" for k, e in rels.items())
+        + "; max abs errors " + ", ".join(f"{k} {e:.3g}"
+                                          for k, e in errs.items()))
+
+
+def jsa_corpus(root):
+    """jsa-spg's stand-in: `write_phone_corpus` over a lexicon of JSA_WORDS
+    distinct words of 2-6 of the 70 phones, each word written as its
+    phones' three-letter codes (the graphemes: a BPE of 500 units over the
+    train text then gives about 1.1 phones a unit, so that G2P's CTC, over
+    twice the units, is feasible, and P2G reads about 2 x 4 phones a
+    word); each split cut to its first JSA_SPLITS utterances; the train
+    transcripts as the BPE corpus (train_text)."""
+    import numpy as np
+    rng = np.random.default_rng(25)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    codes = []
+    while len(codes) < 70:
+        c = "".join(rng.choice(letters, 3))
+        if c not in codes:
+            codes.append(c)
+    spell, seen = [], set()
+    while len(spell) < JSA_WORDS:
+        sp = tuple(int(p) for p in rng.integers(0, 70,
+                                                int(rng.integers(2, 7))))
+        if sp not in seen:
+            seen.add(sp)
+            spell.append(list(sp))
+    if len({p for sp in spell for p in sp}) != 70:
+        fail("the JSA stand-in lexicon leaves a phone out")
+    data = os.path.join(root, "data")
+    lexicon = write_phone_corpus(data, rng, spell, [
+        "".join(codes[p] for p in sp) for sp in spell])
+    for split, n in JSA_SPLITS.items():
+        for name in ("wav.scp", "text"):
+            path = os.path.join(data, split, name)
+            with open(path) as f:
+                lines = f.read().splitlines()[:n]
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+    train_text = os.path.join(data, "train_text")
+    with open(os.path.join(data, "train", "text")) as f, \
+            open(train_text, "w") as g:
+        g.write("\n".join(line.split(None, 1)[1]
+                          for line in f.read().splitlines()) + "\n")
+    return data, lexicon, train_text
+
+
+def jsa_step_once(model, start, b, patches=None, s2p_f32=False):
+    """The JSA losses and backward at the fixed z of the device batch `b`
+    from the weights `start` (the optimizer untouched): the three losses,
+    every gradient, the S2P's logits and running statistics; patches and
+    s2p_f32 as `step_once`."""
+    import torch
+    from cat_tpu_torch.ctc import train_jsa
+    model.load_state_dict(start)
+    seen = {}
+
+    def hook(_m, _i, out):
+        seen.setdefault("logits", out[0].detach().float())
+
+    with ExitStack() as stack:
+        for mod, fns in (patches or {}).items():
+            for name, fn in fns.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+        if s2p_f32:
+            stack.enter_context(mock.patch.object(model.s2p, "forward",
+                                                  forward32(model.s2p)))
+        stack.callback(model.s2p.register_forward_hook(hook).remove)
+        tr = train_jsa.JsaTrainer(model, None, 1, 1)
+        model.train()
+        for q in model.parameters():
+            q.grad = None
+        total, parts = tr.loss_fn(b, torch.Generator().manual_seed(5))
+        total.backward()
+        torch.cuda.synchronize()
+    return {"losses": [x.item() for x in parts],
+            "grads": {n: q.grad.detach().float().clone()
+                      for n, q in model.named_parameters()},
+            "buffers": {n: t.clone() for n, t in model.named_buffers()},
+            "logits": seen["logits"]}
+
+
+def jsa_step_vs_plain(model, b, card, device="cuda"):
+    """One JSA loss and backward at a fixed z with the kernels against the
+    same on the plain versions in bf16 and, the S2P in float32, the
+    control: S2P held to crf-v1's bf16 step gates, P2G and G2P (float32
+    either way) to JSA_OUT_REL on the loss and JSA_SUM_REL on each
+    gradient."""
+    import torch
+    from cat_tpu_torch.models.layers import length_mask
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    k = jsa_step_once(model, start, b)
+    seen = counts()
+    if seen != JSA_STEP:
+        fail(f"JSA step launch counts {seen} != {JSA_STEP}")
+    p = jsa_step_once(model, start, b, plain_patches())
+    r = jsa_step_once(model, start, b, plain_patches(), s2p_f32=True)
+    if counts() != JSA_STEP:
+        fail("a kernel launched while every kernel wrapper was patched to "
+             "its plain version")
+
+    def cosine(a, c):
+        a, c = a.flatten().double(), c.flatten().double()
+        return (a @ c / (a.norm() * c.norm()).clamp_min(1e-30)).item()
+
+    s2p = [n for n in k["grads"] if n.startswith("s2p.")
+           and not n.endswith(NOISE_GRADS)]
+    cos = {n: cosine(k["grads"][n], p["grads"][n]) for n in s2p}
+    worst = min(cos, key=cos.get)
+    flat = lambda d: torch.cat([d["grads"][n].flatten() for n in s2p])
+    dist = {w: rel_norm(flat(d), flat(r)) for w, d in (("kernels", k),
+                                                       ("plain", p))}
+    Tp = k["logits"].shape[1]
+    valid = length_mask(torch.tensor([subsampled(int(f)) for f in
+                                      b["feat_lengths"].tolist()],
+                                     device=device), Tp)
+    out = {w: rel_norm(d["logits"][valid], r["logits"][valid])
+           for w, d in (("kernels", k), ("plain", p))}
+    stats = max((rel_norm(k["buffers"][n], p["buffers"][n])
+                 for n in k["buffers"]), default=0.0)
+    loss_rel = abs(k["losses"][0] - p["losses"][0]) / abs(p["losses"][0])
+    f32_loss = max(abs(k["losses"][i] - p["losses"][i]) / abs(p["losses"][i])
+                   for i in (1, 2))
+    tok = [n for n in k["grads"] if not n.startswith("s2p.")
+           and not n.endswith(NOISE_GRADS)]
+    f32_grad = {n: rel_norm(k["grads"][n], p["grads"][n]) for n in tok}
+    worst32 = max(f32_grad, key=f32_grad.get)
+    flat32 = lambda d: torch.cat([d["grads"][n].flatten() for n in tok])
+    f32_all = rel_norm(flat32(k), flat32(p))
+    log(f"[jsa] jsa-spg step at a fixed z ({card}), kernels / plain bf16 / "
+        f"control (S2P float32): losses s2p, p2g, g2p "
+        + "; ".join(" / ".join(f"{d['losses'][i]:.6g}" for d in (k, p, r))
+                    for i in range(3))
+        + f"; S2P loss rel {loss_rel:.3g} (tol {STEP_LOSS_REL}), gradient "
+        f"cosine min {cos[worst]:.5f} ({worst}; tol {STEP_COS}), distance "
+        f"to the control: gradient kernels {dist['kernels']:.4g}, plain "
+        f"{dist['plain']:.4g}, logits kernels {out['kernels']:.4g}, plain "
+        f"{out['plain']:.4g} (kernels within {STEP_CONTROL}x plain), running "
+        f"statistics rel {stats:.3g} (tol {STEP_STATS_REL}); P2G/G2P loss "
+        f"rel {f32_loss:.3g} (tol {JSA_OUT_REL}), gradient rel "
+        f"{f32_all:.3g} (tol {JSA_SUM_REL}), a tensor's at most "
+        f"{f32_grad[worst32]:.3g} ({worst32}; tol {JSA_TENSOR_REL}); launches "
+        f"{ {n: c for n, c in seen.items() if c} }")
+    if loss_rel > STEP_LOSS_REL or cos[worst] < STEP_COS \
+            or stats > STEP_STATS_REL \
+            or dist["kernels"] > STEP_CONTROL * dist["plain"] \
+            or out["kernels"] > STEP_CONTROL * out["plain"]:
+        fail("the jsa-spg S2P kernel step does not agree with the plain one")
+    if f32_loss > JSA_OUT_REL or f32_all > JSA_SUM_REL \
+            or f32_grad[worst32] > JSA_TENSOR_REL:
+        fail("the jsa-spg P2G/G2P kernel step does not agree with the plain "
+             "one")
+
+
+def jsa_timed_steps(trainer, loader, card):
+    """JSA_TIMED train steps with the sampler on (after one warm-up) on
+    batches of the recipe's frame budget: ms a step (CUDA events), the
+    sampler's share of the wall time, the acceptance rate, the launches,
+    the peak memory; the device's busy share over one more step."""
+    import torch
+    draw = trainer.draw_z
+    spent = []
+
+    def timed_draw(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = draw(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    trainer.draw_z = timed_draw
+    batches = loader.epoch(1)
+    gen = torch.Generator().manual_seed(7)
+    rows, launches = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + JSA_TIMED):
+        b = next(batches)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev[0].record()
+        m = trainer.train_step(b, gen, lr=1e-4)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        per = {k: v - before[k] for k, v in counts().items()}
+        if not all(math.isfinite(m[x]) for x in ("loss", "loss_s2p",
+                                                 "loss_p2g", "loss_g2p")):
+            fail(f"JSA step {i + 1}: non-finite loss {m}")
+        if i:
+            rows.append((ev[0].elapsed_time(ev[1]), 1e3 * wall,
+                         spent[-1] / wall, b.feats.shape, m))
+            launches = launches or per
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b = next(batches)
+    busy = phase_profile(lambda: trainer.train_step(b, gen, lr=1e-4),
+                         "one jsa-spg step with the sampler",
+                         "chiprun_out/profile_jsa_train.txt", cpu=False)
+    trainer.draw_z = draw
+    ms = [r[0] for r in rows]
+    log(f"[jsa] jsa-spg train steps with the sampler ({card}; frame budget "
+        f"{JSA_BUDGET}, batches {[tuple(r[3][:2]) for r in rows]}): ms a step "
+        f"(CUDA events) {[round(x, 1) for x in ms]}, mean "
+        f"{sum(ms) / len(ms):.1f}; host wall "
+        f"{[round(r[1], 1) for r in rows]} ms; the sampler's share of the "
+        f"wall {[round(r[2], 3) for r in rows]}; acceptance rate "
+        f"{rows[-1][4]['acceptance_rate']:.3f} after "
+        f"{trainer.sampler.proposed} proposals; peak memory {peak:.2f} GiB; "
+        f"busy share {busy if busy is None else round(busy, 3)}; launches "
+        f"of the first timed step { {n: c for n, c in launches.items() if c} }")
+    return launches
+
+
+def jsa_cascade_vs_cpu(expdir, hyper, config, n, tie, card, device="cuda",
+                       s2p_from_card=False):
+    """The cascade decode of the first n dev utterances on the card against
+    the same weights on the CPU: equal hypotheses in order, unless the
+    CPU's ranked scores hold a near-tie within `tie`. The S2P phoneme
+    n-bests are held by `judge_s2p_nbest`. With s2p_from_card (a bf16
+    S2P, whose two devices' n-bests part at near-ties) the CPU's cascade
+    then starts from the card's phoneme n-best, so that the cascades
+    differ in P2G's f32 forwards alone."""
+    from cat_tpu_torch.ctc.decode_jsa import JsaCascadeDecoder
+    from cat_tpu_torch.pipeline import asr, tasks
+    from cat_tpu_torch.utils.data import SpeechDataset
+    toks = asr.load_tokenizers(expdir, hyper)
+    task = tasks.get_task(hyper)
+    ds = SpeechDataset(os.path.join(expdir, "pkl", "dev"))
+    dec_cfg = hyper["inference"]["decode"]
+    feats = [ds[i][0] for i in range(n)]
+    ranked, s2p = {}, {}
+    for dev in (device, "cpu"):
+        model = task.build(config, toks, ds.feat_dim, dev)
+        model.load_state_dict(asr._load_decode_state(expdir, hyper, model))
+        model.eval()
+        dec = JsaCascadeDecoder(
+            model.s2p, model.p2g,
+            upsample=config.get("trainer", {}).get("upsample", 2),
+            s2p_beam=dec_cfg.get("beam_width", 8),
+            p2g_beam=dec_cfg.get("beam_width", 8),
+            num_z=dec_cfg.get("num_z", 4))
+        s2p[dev] = [dec.decode_s2p(f, f.shape[0]) for f in feats]
+        if s2p_from_card and dev == "cpu":
+            card_nbest = iter(s2p[device])
+            dec.decode_s2p = lambda *_: next(card_nbest)
+        ranked[dev] = [dec.decode(f, f.shape[0], marginalize=dec_cfg.get(
+            "marginalize", True)) for f in feats]
+    same, tied, gaps = 0, 0, []
+    for card_r, cpu_r in zip(ranked[device], ranked["cpu"]):
+        if [y for _, y in card_r] == [y for _, y in cpu_r]:
+            same += 1
+            gaps.append(max((abs(a[0] - c[0]) for a, c in zip(card_r, cpu_r)),
+                            default=0.0))
+            continue
+        s = [c[0] for c in cpu_r]
+        if any(abs(a - c) < tie for a, c in zip(s, s[1:])):
+            tied += 1
+            continue
+        fail(f"{expdir}: the card's cascade hypotheses {card_r[:2]} differ "
+             f"from the CPU's {cpu_r[:2]} without a near-tie (< {tie})")
+    s2p_same, s2p_gap = judge_s2p_nbest(s2p[device], s2p["cpu"], expdir)
+    log(f"[jsa] cascade on the card vs the CPU, first {n} dev utterances "
+        f"({card}"
+        + ("; the CPU's from the card's phoneme n-best" if s2p_from_card
+           else "")
+        + f"): {same} equal (largest score gap {max(gaps, default=0.0):.3g}"
+        f"), {tied} differing at a near-tie of the CPU's n-best (< {tie}); "
+        f"the S2P phoneme n-bests alike in {s2p_same} of {n}, the others "
+        f"reordered within the tolerance (JSA_TIE + {JSA_S2P_REL}·|s|); "
+        f"largest S2P score gap of a shared z {s2p_gap:.3g}")
+
+
+def judge_s2p_nbest(card_nbests, cpu_nbests, what):
+    """The S2P phoneme n-bests [(score, z)] of the same utterances on the
+    card and on the CPU. Fails unless, for each utterance, the lists are as
+    long, every z in both has scores within tol(s) = JSA_TIE +
+    JSA_S2P_REL·|s|, and at every rank where the two z differ the two
+    ranked scores lie within tol as well: a reordering among hypotheses
+    whose scores the devices' rounding cannot tell apart (a near-tie), and
+    nothing else. Returns (utterances with equal lists, the largest score
+    gap of a shared z)."""
+    tol = lambda a, b: JSA_TIE + JSA_S2P_REL * max(abs(a), abs(b))
+    same, gap = 0, 0.0
+    for i, (card_n, cpu_n) in enumerate(zip(card_nbests, cpu_nbests)):
+        cpu_by_z = {tuple(z): c for c, z in cpu_n}
+        bad = [] if len(card_n) == len(cpu_n) else [
+            f"{len(card_n)} vs {len(cpu_n)} hypotheses"]
+        for s, z in card_n:
+            c = cpu_by_z.get(tuple(z))
+            if c is not None:
+                gap = max(gap, abs(s - c))
+                if abs(s - c) > tol(s, c):
+                    bad.append(f"z {z[:8]} scored {s:.4f} vs {c:.4f}")
+        for r, ((s, z), (c, y)) in enumerate(zip(card_n, cpu_n)):
+            if z != y and abs(s - c) > tol(s, c):
+                bad.append(f"rank {r}: {z[:8]} at {s:.4f} vs {y[:8]} at "
+                           f"{c:.4f}")
+        if bad:
+            fail(f"{what}: utterance {i}'s S2P phoneme n-best on the card "
+                 f"differs from the CPU's beyond a near-tie: "
+                 + "; ".join(bad))
+        same += [z for _, z in card_n] == [z for _, z in cpu_n]
+    return same, gap
+
+
+def jsa_files(expdir, what):
+    for name in ("tokenizer_phone.tknz", "tokenizer_graph.tknz",
+                 "pkl/train/meta.npz", "pkl/dev/meta.npz",
+                 "check/checkpoint.list", "check/metrics.jsonl", "readme.md",
+                 "decode_dev.txt", "nbest_dev.pkl", "wer_dev.json"):
+        if not os.path.exists(os.path.join(expdir, name)):
+            fail(f"{what}: no {name}")
+    with open(os.path.join(expdir, "wer_dev.json")) as f:
+        res = json.load(f)
+    if not all(math.isfinite(v) for v in res.values()
+               if isinstance(v, (int, float))):
+        fail(f"{what}: wer_dev.json {res}")
+    return res
+
+
+def jsa_recipe_line(what, watch, probe, res, card):
+    ms = sorted(r["ms"] for r in probe.train)
+    return (f"[jsa] {what} ({card}): stages in "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in watch.s.items())
+            + f"; {len(probe.train)} steps (median {ms[len(ms) // 2]:.1f} ms, "
+            f"CUDA events), {len(probe.evals)} eval batches; WER "
+            f"{res['wer']:.2f}% ({res['errors']} errors of "
+            f"{res['num_words']} words; not gated), RTF {res['rtf']:.4f}, "
+            f"stage 4 forwards {res['device_s']:.3f} s and host beams "
+            f"{res['host_s']:.3f} s")
+
+
+def phase_jsa(rec, card, device="cuda"):
+    """[jsa] JSA-SPG on the card: the f32 kernels (rows 2-3 and 12-13 at
+    float32), jsa-spg at full width (a fixed-z step vs the plain versions,
+    timed steps with the sampler) and both JSA recipes through
+    pipeline.asr stages 1-4. Returns the launches of one timed step."""
+    import shutil
+    import tempfile
+    import torch
+    from cat_tpu_torch.ctc import train_jsa
+    from cat_tpu_torch.pipeline import asr, tasks
+    from cat_tpu_torch.utils.data import BucketedLoader, SpeechDataset
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        jsa_kernel_checks(torch.Generator(device="cuda").manual_seed(25),
+                          rec, card)
+        torch.cuda.empty_cache()
+    dev_args = ["--device", device]
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="jsa-", dir=os.path.join(REPO, "build"))
+    try:
+        data, lexicon, train_text = jsa_corpus(os.path.join(root, "spg"))
+
+        def spg_edit(hyper, config):
+            hyper["tokenizer"]["option-init"]["lexicon"] = lexicon
+            hyper["tokenizer_grapheme"]["option-init"]["corpus"] = train_text
+            hyper["train"]["option"].update(max_epochs=1, check_freq=-1)
+
+        expdir = os.path.join(root, "spg", "exp")
+        hyper, config = recipe(JSA_NAME, expdir, data, spg_edit)
+        watch = Stopwatch()
+        t = time.perf_counter()
+        patched({asr: {"stage_pack": watch.wrap("pack", asr.stage_pack)}},
+                lambda: asr.main([expdir, "--stop_stage", "2", *dev_args]))
+        watch.s["stages 1-2"] = time.perf_counter() - t
+        toks = asr.load_tokenizers(expdir, hyper)
+        Vp, Vg = (toks[k].vocab_size for k in ("tokenizer",
+                                               "tokenizer_grapheme"))
+        tr = SpeechDataset(os.path.join(expdir, "pkl", "train"))
+        opts = hyper["train"]["option"]
+        loader = BucketedLoader(tr, frame_budget=opts["frame_budget"],
+                                num_buckets=opts["num_buckets"], seed=0)
+        model = train_jsa.build_model(config, Vp, Vg, feat_dim=tr.feat_dim,
+                                      device=device)
+        perturb(model, torch.Generator().manual_seed(3))
+        texts = asr.read_scp(os.path.join(data, "train", "text"))
+        b = next(loader.epoch(1))
+        zs = [toks["tokenizer"].encode(texts[u]) for u in b.uids]
+        zs += [[1]] * (b.feats.shape[0] - len(zs))
+        dev_b = train_jsa.JsaTrainer(model, None, Vp, Vg).device_batch(b, zs)
+        log(f"[jsa] jsa-spg at full width ({card}): S2P "
+            f"{config['s2p']['kwargs']}, P2G/G2P {config['p2g']['kwargs']}; "
+            f"{Vp} phone units (70 phones, lexicon of {JSA_WORDS} words), {Vg} "
+            f"grapheme units (BPE of the train text, the recipe's 500"
+            f"{'' if Vg == 500 else ': all the corpus supports'}); fixed-z "
+            f"batch {tuple(b.feats.shape[:2])}, z up to "
+            f"{max(len(z) for z in zs)} phones (x2 for P2G)")
+        jsa_step_vs_plain(model, dev_b, card, device)
+        _, opt = build_scheduler(config["scheduler"], model.parameters())
+        trainer = train_jsa.JsaTrainer(model, opt, Vp, Vg,
+                                       num_samples=opts["num_samples"])
+        launches = jsa_timed_steps(trainer, loader, card)
+        del model, trainer, opt, dev_b
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        probes, total = run_pipeline(expdir, watch, {tasks.JsaTask: {
+            "train": watch.wrap("stage 3", tasks.JsaTask.train),
+            "decode": watch.wrap("stage 4", tasks.JsaTask.decode)}},
+            ["--start_stage", "3", *dev_args])
+        res = jsa_files(expdir, "jsa-spg")
+        if total["ffn_f32_fwd"] == 0 or total["relpos_attention_f32_bwd"] == 0:
+            fail(f"jsa-spg pipeline: the f32 kernels did not run ({total})")
+        log(jsa_recipe_line("jsa-spg jsa, no text_phone (MIS sampling)",
+                            watch, probes[0], res, card))
+        jsa_cascade_vs_cpu(expdir, hyper, config, JSA_SPLITS["dev"], JSA_TIE,
+                           card, device, s2p_from_card=True)
+
+        toy = os.path.join(root, "toy")
+        make_yesno(os.path.join(toy, "data"))
+        with open(os.path.join(toy, "data", "lexicon.txt"), "w") as f:
+            f.write("yes J E S\nno N O\n")
+        for split in ("train", "dev"):
+            d = os.path.join(toy, "data", split)
+            shutil.copy(os.path.join(d, "text"),
+                        os.path.join(d, "text_phone"))
+
+        def toy_edit(hyper, config):
+            hyper["tokenizer"]["option-init"]["lexicon"] = os.path.join(
+                toy, "data", "lexicon.txt")
+            hyper["train"]["option"]["max_epochs"] = JSA_TOY_EPOCHS
+
+        expdir = os.path.join(toy, "exp")
+        hyper, config = recipe(JSA_TOY, expdir, os.path.join(toy, "data"),
+                               toy_edit)
+        watch = Stopwatch()
+        probes, total = run_pipeline(expdir, watch, {tasks.JsaTask: {
+            "train": watch.wrap("stage 3", tasks.JsaTask.train),
+            "decode": watch.wrap("stage 4", tasks.JsaTask.decode)}},
+            dev_args)
+        res = jsa_files(expdir, "asr-jsa")
+        if total["relpos_attention_f32_fwd"] == 0:
+            fail(f"asr-jsa pipeline: the f32 attention did not run ({total})")
+        log(jsa_recipe_line(f"template asr-jsa, text_phone (max_epochs 60 -> "
+                            f"{JSA_TOY_EPOCHS})", watch, probes[0], res,
+                            card))
+        jsa_cascade_vs_cpu(expdir, hyper, config, 4, JSA_TIE, card, device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[jsa] phase {time.perf_counter() - t_phase:.1f} s ({card}; cuts: "
+        f"the data, lexicon and BPE corpus paths; jsa-spg on "
+        f"{JSA_SPLITS['train']} train and {JSA_SPLITS['dev']} dev "
+        f"utterances of the phone corpus, max_epochs 40 -> 1, "
+        f"check_freq 1000 -> the epoch's end; asr-jsa max_epochs 60 -> "
+        f"{JSA_TOY_EPOCHS})")
+    return launches
+
+
 def phase_profile(fn, what, path, cpu=True):
     """Device time of fn() by kernel (torch.profiler), and the device's
     busy share over the span from its first kernel's start to its last
@@ -5013,11 +5758,14 @@ def main():
     phase_cuside(card(), profile)
     phase_pipeline(card())
     phase_me2e(card())
+    jsa_launches = phase_jsa(rec, card())
     # each kernel's launches on the main path that runs it: the crf-v1
-    # training phase, or the rnnt-v1 one for the RNN-T lattice kernels
+    # training phase, the rnnt-v1 one for the RNN-T lattice kernels, a
+    # jsa-spg step with the sampler for the f32 routes
     records = [rec.by_name[k] for k in KERNELS]
     for r in records:
         r["launches"] = (rnnt_launches if r["name"].startswith("rnnt_")
+                         else jsa_launches if r["name"] in JSA_F32
                          else launches)[r["name"]]
     log(f"[env] whole run {time.perf_counter() - t_all:.1f} s")
 
