@@ -23,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("ffn_fwd", "ffn_bwd", "glu_in", "bn_out", "relpos_attention_fwd",
            "relpos_attention_bwd", "dropout", "ctc", "crf_dense", "rnnt",
-           "ffn_f32", "relpos_attention_f32")
+           "ffn_f32", "relpos_attention_f32", "conv_module_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

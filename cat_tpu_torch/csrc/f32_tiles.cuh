@@ -1,10 +1,11 @@
 // Building blocks of the port's float32 kernels (ffn_f32.cu,
-// relpos_attention_f32.cu), which serve the float32 token encoders of
-// JSA-SPG (`EmbeddingEncoder`): a tiled matrix product on the CUDA cores
-// with a fused epilogue, and a column sum in two passes. Every product is
-// a full float32 FMA (no tensor cores, so no TF32 and no bf16 rounding)
-// and every output is summed by one thread in one fixed order, without
-// atomics, so two calls on the same inputs give the same bits.
+// relpos_attention_f32.cu, conv_module_f32.cu), which serve the float32
+// models (a ConformerNet at its default dtype, the token encoders of
+// JSA-SPG): a tiled matrix product on the CUDA cores with a fused
+// epilogue, LayerNorm row passes, and a column sum in two passes. Every
+// product is a full float32 FMA (no tensor cores, so no TF32 and no bf16
+// rounding) and every output is summed by one thread in one fixed order,
+// without atomics, so two calls on the same inputs give the same bits.
 #pragma once
 
 #include "common_math.cuh"
@@ -35,22 +36,25 @@ __device__ __forceinline__ float keep_at(const Drop& d, uint32_t stream,
   return keep_scale(d, keep4(d, stream, plane, row, col >> 2), col & 3);
 }
 
-// C (M x N) = op(A) . op(B) over k in the block's split [z·k_split,
-// min(K, (z+1)·k_split)), handed to epi(m, n, value, z) for every output
-// inside M x N. op(A)(m, k) = A[m·lda + k], or A[k·lda + m] with TA;
-// op(B)(k, n) = B[k·ldb + n], or B[n·ldb + k] with TB. Tiles past the
-// edges read zeros. Grid: (cdiv(N, GN), cdiv(M, GM), splits).
-template <bool TA, bool TB, class Epi>
-__global__ void __launch_bounds__(GTHREADS)
-    gemm(const float* __restrict__ A, const float* __restrict__ B, int M,
-         int N, int K, int lda, int ldb, int k_split, Epi epi) {
+// The identity map of B's columns.
+struct SameCols {
+  __device__ int operator()(int n) const { return n; }
+};
+
+// The mainloop of `gemm`: acc[i][j] += op(A)(m, k) · op(B)(k, bcol(n)) for
+// m = m0 + ty + 16·i, n = n0 + tx + 16·j (tx = tid & 15, ty = tid >> 4)
+// over k in [kb, ke), on 64 x 64 tiles of shared memory, 16 deep a stage.
+// op(A)(m, k) = A[m·lda + k], or A[k·lda + m] with TA; op(B)(k, c) =
+// B[k·ldb + c], or B[c·ldb + k] with TB. Rows m >= M and columns n >= N
+// read zeros. Every block thread must call it.
+template <bool TA, bool TB, class BCol>
+__device__ __forceinline__ void tile_product(
+    const float* __restrict__ A, const float* __restrict__ B, int M, int N,
+    int lda, int ldb, int m0, int n0, int kb, int ke, BCol bcol,
+    float (&acc)[4][4]) {
   __shared__ float As[GK][GM + 1];
   __shared__ float Bs[GK][GN + 1];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  const int kb = blockIdx.z * k_split;
-  const int ke = min(K, kb + k_split);
-  float acc[4][4] = {};
   for (int k0 = kb; k0 < ke; k0 += GK) {
 #pragma unroll
     for (int l = 0; l < GM * GK / GTHREADS; ++l) {
@@ -67,7 +71,8 @@ __global__ void __launch_bounds__(GTHREADS)
       const int n = TB ? idx / GK : idx % GN, k = TB ? idx % GK : idx / GN;
       const int gn = n0 + n, gk = k0 + k;
       Bs[k][n] = gn < N && gk < ke
-                     ? (TB ? B[(size_t)gn * ldb + gk] : B[(size_t)gk * ldb + gn])
+                     ? (TB ? B[(size_t)bcol(gn) * ldb + gk]
+                           : B[(size_t)gk * ldb + bcol(gn)])
                      : 0.f;
     }
     __syncthreads();
@@ -85,6 +90,22 @@ __global__ void __launch_bounds__(GTHREADS)
     }
     __syncthreads();
   }
+}
+
+// C (M x N) = op(A) . op(B) over k in the block's split [z·k_split,
+// min(K, (z+1)·k_split)), handed to epi(m, n, value, z) for every output
+// inside M x N (operands as `tile_product`'s, B's columns unmapped).
+// Grid: (cdiv(N, GN), cdiv(M, GM), splits).
+template <bool TA, bool TB, class Epi>
+__global__ void __launch_bounds__(GTHREADS)
+    gemm(const float* __restrict__ A, const float* __restrict__ B, int M,
+         int N, int K, int lda, int ldb, int k_split, Epi epi) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const int kb = blockIdx.z * k_split;
+  float acc[4][4] = {};
+  tile_product<TA, TB>(A, B, M, N, lda, ldb, m0, n0, kb, min(K, kb + k_split),
+                       SameCols{}, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -103,6 +124,68 @@ cudaError_t launch_gemm(const float* A, const float* B, int M, int N, int K,
   gemm<TA, TB, Epi><<<grid, GTHREADS, 0, s>>>(A, B, M, N, K, lda, ldb,
                                                k_split, epi);
   return cudaGetLastError();
+}
+
+// LayerNorm row passes: one warp a row, eps 1e-6, the variance from a
+// second pass over the row (E[(x - mean)^2]).
+constexpr int LN_WARPS = 8;
+constexpr float LN_EPS = 1e-6f;
+
+// h = LN(x) (one warp a row); with stats, the row's mean and rstd; with
+// dh2, dh2 = alpha * drop1(dout) (the FF backward's output gradient).
+__global__ void __launch_bounds__(LN_WARPS * 32)
+    ln_rows(const float* __restrict__ x, const float* __restrict__ g,
+            const float* __restrict__ b, int R, int D, float* __restrict__ h,
+            float* __restrict__ stats, const float* __restrict__ dout,
+            float* __restrict__ dh2, Drop d, float alpha) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float* xr = x + (size_t)r * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += xr[c];
+  const float mean = warp_sum(s) / D;
+  float ss = 0.f;
+  for (int c = lane; c < D; c += 32) ss += (xr[c] - mean) * (xr[c] - mean);
+  const float rstd = rsqrtf(warp_sum(ss) / D + LN_EPS);
+  for (int c = lane; c < D; c += 32)
+    h[(size_t)r * D + c] = (xr[c] - mean) * rstd * g[c] + b[c];
+  if (stats != nullptr && lane == 0) {
+    stats[2 * r] = mean;
+    stats[2 * r + 1] = rstd;
+  }
+  if (dh2 != nullptr)
+    for (int c = lane; c < D; c += 32)
+      dh2[(size_t)r * D + c] =
+          alpha * dout[(size_t)r * D + c] * keep_at(d, 1, 0, r, c);
+}
+
+// The LayerNorm backward of a row (one warp a row): dx = dO + rstd·(dh·g -
+// mean(dh·g) - xhat·mean(dh·g·xhat)), dO 0 when dout is null (no residual
+// around the LayerNorm), and hx = dh·xhat for dgamma.
+__global__ void __launch_bounds__(LN_WARPS * 32)
+    ln_backward(const float* __restrict__ x, const float* __restrict__ g,
+                const float* __restrict__ stats, const float* __restrict__ dh,
+                const float* __restrict__ dout, int R, int D,
+                float* __restrict__ dx, float* __restrict__ hx) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float mean = stats[2 * r], rstd = stats[2 * r + 1];
+  const size_t o = (size_t)r * D;
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float xh = (x[o + c] - mean) * rstd, dxh = dh[o + c] * g[c];
+    s1 += dxh;
+    s2 += dxh * xh;
+    hx[o + c] = dh[o + c] * xh;
+  }
+  const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+  for (int c = lane; c < D; c += 32) {
+    const float xh = (x[o + c] - mean) * rstd, dxh = dh[o + c] * g[c];
+    dx[o + c] = dout != nullptr ? dout[o + c] + rstd * (dxh - m1 - xh * m2)
+                                : rstd * (dxh - m1 - xh * m2);
+  }
 }
 
 // Epilogue: the plain store C[m·N + n] (split z at C + z·M·N).

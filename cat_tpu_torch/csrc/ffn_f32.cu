@@ -37,64 +37,6 @@ namespace {
 using namespace catk;
 using namespace catk::f32;
 
-constexpr int LN_WARPS = 8;
-constexpr float LN_EPS = 1e-6f;
-
-// h = LN(x) (one warp a row); with stats, the row's mean and rstd; with
-// dout, dh2 = alpha * drop1(dout).
-__global__ void __launch_bounds__(LN_WARPS * 32)
-    ln_rows(const float* __restrict__ x, const float* __restrict__ g,
-            const float* __restrict__ b, int R, int D, float* __restrict__ h,
-            float* __restrict__ stats, const float* __restrict__ dout,
-            float* __restrict__ dh2, Drop d, float alpha) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const float* xr = x + (size_t)r * D;
-  float s = 0.f;
-  for (int c = lane; c < D; c += 32) s += xr[c];
-  const float mean = warp_sum(s) / D;
-  float ss = 0.f;
-  for (int c = lane; c < D; c += 32) ss += (xr[c] - mean) * (xr[c] - mean);
-  const float rstd = rsqrtf(warp_sum(ss) / D + LN_EPS);
-  for (int c = lane; c < D; c += 32)
-    h[(size_t)r * D + c] = (xr[c] - mean) * rstd * g[c] + b[c];
-  if (stats != nullptr && lane == 0) {
-    stats[2 * r] = mean;
-    stats[2 * r + 1] = rstd;
-  }
-  if (dh2 != nullptr)
-    for (int c = lane; c < D; c += 32)
-      dh2[(size_t)r * D + c] =
-          alpha * dout[(size_t)r * D + c] * keep_at(d, 1, 0, r, c);
-}
-
-// The LayerNorm backward of a row (one warp a row): dx = dO + rstd·(dh·g -
-// mean(dh·g) - xhat·mean(dh·g·xhat)), and hx = dh·xhat for dgamma.
-__global__ void __launch_bounds__(LN_WARPS * 32)
-    ln_backward(const float* __restrict__ x, const float* __restrict__ g,
-                const float* __restrict__ stats, const float* __restrict__ dh,
-                const float* __restrict__ dout, int R, int D,
-                float* __restrict__ dx, float* __restrict__ hx) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const float mean = stats[2 * r], rstd = stats[2 * r + 1];
-  const size_t o = (size_t)r * D;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float xh = (x[o + c] - mean) * rstd, dxh = dh[o + c] * g[c];
-    s1 += dxh;
-    s2 += dxh * xh;
-    hx[o + c] = dh[o + c] * xh;
-  }
-  const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
-  for (int c = lane; c < D; c += 32) {
-    const float xh = (x[o + c] - mean) * rstd, dxh = dh[o + c] * g[c];
-    dx[o + c] = dout[o + c] + rstd * (dxh - m1 - xh * m2);
-  }
-}
-
 // forward up: a1 = drop0(SiLU(acc + b1))
 struct UpFwd {
   const float* b1;

@@ -1,5 +1,6 @@
 """Encoders in PyTorch: the conformer (counterpart of `ConformerNet` in
-`cat_tpu/models/encoders.py`), conv2d subsampling, eval and training
+`cat_tpu/models/encoders.py`), conv2d or VGG2L subsampling and the
+time reduction, float32 (its default) or bfloat16, eval and training
 mode (`.train()`: dropout and batch statistics, see `models/layers.py`),
 the (B)LSTM encoder (counterpart of `LSTM` and its `LSTMStack`), the
 TDNN stack `TDNN_NAS`, the JoinAP output layers (`JoinAPLinearEncoder`,
@@ -21,18 +22,19 @@ from torch import nn
 import numpy as np
 
 from cat_tpu_torch.models.layers import (ConformerCell, Conv2dSubsampling,
-                                         Dense, Dropout, TDNNLayer)
+                                         Dense, Dropout, TDNNLayer,
+                                         VGG2LSubsampling, time_reduction)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _not_ported(what):
-    return NotImplementedError(f"ConformerNet {what} is not ported yet; "
-                               "see ROADMAP.md")
-
-
 class ConformerNet(nn.Module):
-    """conv2d subsampling -> linear -> N conformer cells -> classifier.
+    """conv2d (or VGG2L) subsampling -> linear -> N conformer cells, with a
+    time reduction after cell `time_reduction_layer` when it is >= 0 (the
+    mean of every `time_reduction_stride` frames; the later cells' masks
+    from the reduced lengths) -> classifier. Computes in `dtype`,
+    float32 by default as the JAX module: on the card every fused op then
+    takes its f32 kernels.
 
     `idim` (the feature width, 80 mel bins in every recipe of the repo) is
     the port's own argument: the JAX module infers it from its input."""
@@ -45,23 +47,27 @@ class ConformerNet(nn.Module):
                  scan_layers=False, subsampling_remat=True, idim=80,
                  generator=None):
         super().__init__()
-        if subsampling != "conv2d":
-            raise _not_ported(f"subsampling={subsampling!r}")
-        if time_reduction_layer >= 0:
-            raise _not_ported("time reduction")
-        if not use_batchnorm:
-            raise _not_ported("use_batchnorm=False")
         if dtype not in _DTYPES:
             raise ValueError(f"ConformerNet dtype must be one of "
                              f"{sorted(_DTYPES)}, got {dtype!r}")
         self.dtype = _DTYPES[dtype]
         self.idim = idim
         self.odim = hdim
-        self.subsampling = Conv2dSubsampling(idim, hdim, subsampling_chunk)
+        if subsampling == "conv2d":
+            self.subsampling = Conv2dSubsampling(idim, hdim,
+                                                 subsampling_chunk)
+        elif subsampling == "vgg2l":
+            self.subsampling = VGG2LSubsampling(idim, hdim)
+        else:
+            raise ValueError(f"ConformerNet subsampling must be 'conv2d' or "
+                             f"'vgg2l', got {subsampling!r}")
+        self.time_reduction_layer = time_reduction_layer
+        self.time_reduction_stride = time_reduction_stride
         self.dropout = Dropout(dropout_rate)
         self.cells = nn.ModuleList(
             ConformerCell(hdim, num_heads, kernel_size,
-                          dropout_rate=dropout_rate)
+                          dropout_rate=dropout_rate,
+                          use_batchnorm=use_batchnorm)
             for _ in range(num_cells))
         self.classifier = (Dense(hdim, num_classes)
                            if with_head and num_classes > 0 else None)
@@ -73,19 +79,16 @@ class ConformerNet(nn.Module):
 
         In training mode with dropout, `gen` (a CPU torch.Generator) gives
         every dropout site its seed words, in a fixed order."""
-        if x.is_cuda and self.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                'ConformerNet on the card takes bfloat16: set the encoder\'s '
-                'dtype to "bfloat16". At float32 its batch-normalised conv '
-                'module needs rows 14-17 (glu_in, bn_out) at float32, which '
-                'are not ported yet; see ROADMAP.md §A.6b')
         if x.shape[-1] != self.idim:
             raise ValueError(f"ConformerNet expects {self.idim} features, got "
                              f"{x.shape[-1]}")
         h, lengths = self.subsampling(x, lengths, self.dtype)
         h = self.dropout(h, gen)
-        for cell in self.cells:
+        for i, cell in enumerate(self.cells):
             h = cell(h, lengths, gen)
+            if i == self.time_reduction_layer:
+                h, lengths = time_reduction(h, lengths,
+                                            self.time_reduction_stride)
         if self.classifier is not None:
             h = self.classifier(h.float(), torch.float32)
         return h, lengths
@@ -99,16 +102,14 @@ class EmbeddingEncoder(nn.Module):
     f32). Its cells are built as the JAX module builds them, with the
     cell's default dropout rate 0: `dropout_rate` is accepted and, as in
     JAX, reaches no layer. Without batch normalisation (the default) the
-    conv modules take JAX's unfused LayerNorm path; on the card the FF and
-    attention kernels run their float32 routes. With `use_batchnorm` on
-    the card the fused conv-module stages would be needed at float32
-    (rows 14-17), which are not ported: that raises."""
+    conv modules take JAX's unfused LayerNorm path; with it, at a width
+    that is a multiple of 128, the fused conv-module stages. On the card
+    every fused op runs its float32 route."""
 
     def __init__(self, vocab_size=0, num_cells=6, hdim=256, num_heads=4,
                  kernel_size=15, num_classes=0, dropout_rate=0.1,
                  with_head=True, use_batchnorm=False, generator=None):
         super().__init__()
-        self.use_batchnorm = use_batchnorm
         self.dropout_rate = dropout_rate
         self.odim = hdim
         self.embed = nn.Embedding(vocab_size, hdim)
@@ -123,11 +124,6 @@ class EmbeddingEncoder(nn.Module):
     def forward(self, tokens, lengths, gen=None):
         """tokens (N, T) ints, lengths (N,) -> (logits (N, T, V) or
         features (N, T, hdim), float32; lengths)."""
-        if tokens.is_cuda and self.use_batchnorm:
-            raise NotImplementedError(
-                "EmbeddingEncoder with use_batchnorm on the card needs the "
-                "fused conv-module stages (rows 14-17) at float32, which are "
-                "not ported yet; see ROADMAP.md §A.6b")
         h = self.embed(tokens.long())
         for cell in self.cells:
             h = cell(h, lengths, gen)

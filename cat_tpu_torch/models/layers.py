@@ -30,10 +30,18 @@ one, the fused kernel.
 The JAX modules' own dispatch decides two more paths. The FF module takes
 the fused op only where D and F are multiples of 128; elsewhere (the
 template's 16-wide token encoders) it runs JAX's unfused layers in plain
-PyTorch on any device. A conv module without batch normalisation
-(`use_batchnorm=False`, the token encoders of JSA-SPG) runs JAX's unfused
-path in plain PyTorch on any device too: the fused entry and exit stages
-exist for batch normalisation only, as in JAX.
+PyTorch on any device. The conv module takes its fused entry and exit
+stages only where JAX does, with batch normalisation and D a multiple of
+128; elsewhere (`use_batchnorm=False`, the token encoders of JSA-SPG, or
+a width such as 144) it runs JAX's unfused path in plain PyTorch on any
+device.
+
+The convolutions that compute in float32 (the conv2d subsampling and the
+depthwise convs of a float32 model, VGG2L's, the TDNN layers') run,
+forward and backward, under cuDNN's flags with TF32 off (`conv_f32`):
+JAX's float32 convolution rounds no operand to TF32's 10 mantissa bits,
+and PyTorch's default lets cuDNN do so on Hopper (the dense ones), so the
+result would otherwise depend on the process's switch.
 """
 from __future__ import annotations
 
@@ -65,6 +73,47 @@ def drop_args(module, rate, gen):
 def length_mask(lengths, T):
     """(N,) lengths -> (N, T) bool mask."""
     return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def cudnn_exact_f32():
+    """cuDNN's flags as the process has them, with TF32 off."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class _ConvF32(torch.autograd.Function):
+    """A float32 convolution whose forward and backward both run under
+    `cudnn_exact_f32` (autograd's own backward would run under the flags
+    of the `.backward()` call)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (stride, padding, dilation, groups)
+        with cudnn_exact_f32():
+            return torch.ops.aten.convolution(x, w, b, stride, padding,
+                                              dilation, False,
+                                              [0] * len(stride), groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.cfg
+        with cudnn_exact_f32():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, w, [w.shape[0]], stride, padding, dilation, False,
+                [0] * len(stride), groups, list(ctx.needs_input_grad[:3]))
+        return dx, dw, db, None, None, None, None
+
+
+def conv_f32(x, w, b, stride=1, padding=0, dilation=1, groups=1):
+    """F.conv1d / F.conv2d (by w's rank) of float32 operands, forward and
+    backward under `cudnn_exact_f32`."""
+    n = w.dim() - 2
+    tup = lambda v: [v] * n if isinstance(v, int) else list(v)
+    return _ConvF32.apply(x, w, b, tup(stride), tup(padding), tup(dilation),
+                          groups)
 
 
 def rel_positional_encoding(T, d_model, dtype=torch.float32, device=None):
@@ -113,7 +162,8 @@ class Dropout(nn.Module):
 
 class Conv2dSubsampling(nn.Module):
     """Two VALID 3x3 stride-2 convs with ReLU, then a projection of the
-    (freq, channel) features: (N, T, idim) -> (N, T', odim).
+    (freq, channel) features: (N, T, idim) -> (N, T', odim); at float32
+    the convs are `conv_f32`'s.
 
     time_chunk Oc > 0 runs the stack over input chunks of 4·Oc + 3 rows
     every 4·Oc rows (output row k reads input rows 4k .. 4k + 6), Oc
@@ -131,10 +181,11 @@ class Conv2dSubsampling(nn.Module):
 
     def _stack(self, h, dtype):
         """(N, 1, Ti, F) -> (N, To, odim)."""
-        h = F.relu(F.conv2d(h, self.conv_a.weight.to(dtype),
-                            self.conv_a.bias.to(dtype), stride=2))
-        h = F.relu(F.conv2d(h, self.conv_b.weight.to(dtype),
-                            self.conv_b.bias.to(dtype), stride=2))
+        conv = conv_f32 if dtype == torch.float32 else F.conv2d
+        h = F.relu(conv(h, self.conv_a.weight.to(dtype),
+                        self.conv_a.bias.to(dtype), stride=2))
+        h = F.relu(conv(h, self.conv_b.weight.to(dtype),
+                        self.conv_b.bias.to(dtype), stride=2))
         N, C, Tp, Fp = h.shape
         # the JAX projection contracts (freq, channel) in that order
         h = h.permute(0, 2, 3, 1).reshape(N, Tp, Fp * C)
@@ -154,6 +205,47 @@ class Conv2dSubsampling(nn.Module):
                                          dtype) for k in range(K)], 1)[:, :T2]
         out_lengths = torch.clamp(((lengths - 1) // 2 - 1) // 2, min=1)
         return out, out_lengths
+
+
+class VGG2LSubsampling(nn.Module):
+    """VGG-style 1/4 subsampling, then a projection to odim (counterpart
+    of the JAX `VGG2LSubsampling` and the `Dense` that ConformerNet puts
+    after it): two blocks of (3x3 SAME conv, ReLU, 3x3 SAME conv, ReLU,
+    2x2 max-pool of stride 2), of out_channel / 2 then out_channel
+    channels, the (freq, channel) features projected: (N, T, idim) ->
+    (N, T // 4, odim), lengths // 4 with a floor of 1. Float32
+    throughout, as the JAX modules compute (the convs `conv_f32`'s); the
+    output is cast to `dtype`."""
+
+    def __init__(self, idim, odim, out_channel=128):
+        super().__init__()
+        c = out_channel
+        self.convs = nn.ModuleList(nn.Conv2d(i, o, 3, padding=1) for i, o in
+                                   ((1, c // 2), (c // 2, c // 2),
+                                    (c // 2, c), (c, c)))
+        self.proj = Dense(idim // 4 * c, odim)
+
+    def forward(self, x, lengths, dtype):
+        h = x[:, None].float()                        # (N, 1, T, F)
+        for i, conv in enumerate(self.convs):
+            h = F.relu(conv_f32(h, conv.weight, conv.bias, padding=1))
+            if i % 2:
+                h = F.max_pool2d(h, 2)
+        N, C, Tp, Fp = h.shape
+        # the JAX reshape flattens (freq, channel) in that order
+        h = h.permute(0, 2, 3, 1).reshape(N, Tp, Fp * C)
+        out = self.proj(h, torch.float32).to(dtype)
+        return out, torch.clamp(lengths // 4, min=1)
+
+
+def time_reduction(x, lengths, stride):
+    """The JAX `TimeReduction`: the mean of every `stride` frames in
+    float32, in x's dtype (the last T % stride frames dropped), lengths //
+    stride with a floor of 1."""
+    N, T, D = x.shape
+    Tp = T // stride
+    h = x[:, :Tp * stride].reshape(N, Tp, stride, D).float().mean(2)
+    return h.to(x.dtype), torch.clamp(lengths // stride, min=1)
 
 
 class RelPositionMultiHeadAttention(nn.Module):
@@ -236,14 +328,17 @@ class FFModule(nn.Module):
 
 class ConvModule(nn.Module):
     """x + (pointwise-GLU -> depthwise conv -> norm -> SiLU -> pointwise ->
-    dropout), the residual folded in. With batch normalisation (the
-    default) the entry and exit run fused (`ops/conv_module.py`), BN
-    normalising by the running statistics in eval and by the masked batch
-    statistics in training. Without it (`use_batchnorm=False`) the module
-    is JAX's unfused path in plain PyTorch on any device: LN, Dense(2D),
-    GLU, the mask, the depthwise conv, LayerNorm (eps 1e-6), SiLU, Dense,
-    dropout (the Philox kernel of `ops/dropout.py`), the mask, the
-    residual; there are no batch statistics then."""
+    dropout), the residual folded in. Batch normalisation (the default)
+    normalises by the running statistics in eval and by the masked batch
+    statistics in training, which also update the running ones. Where the
+    JAX module fuses (batch normalisation and D a multiple of 128) the
+    entry and exit run fused (`ops/conv_module.py`: on the card the bf16
+    or the f32 kernels by x's dtype). Elsewhere the module is JAX's
+    unfused path in plain PyTorch on any device: LN, Dense(2D), GLU, the
+    mask, the depthwise conv, the norm (BN in float32, or, with
+    `use_batchnorm=False`, LayerNorm with eps 1e-6 and no statistics),
+    SiLU, Dense, dropout (the Philox kernel of `ops/dropout.py`), the
+    mask, the residual."""
 
     def __init__(self, d_model, kernel_size=32, causal=False,
                  dropout_rate=0.0, use_batchnorm=True):
@@ -252,6 +347,7 @@ class ConvModule(nn.Module):
         self.kernel_size = kernel_size
         self.dropout_rate = dropout_rate
         self.use_batchnorm = use_batchnorm
+        self.fused = use_batchnorm and d_model % 128 == 0
         self.norm = _layer_norm(d_model)
         self.pw_in = Dense(d_model, 2 * d_model)
         self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
@@ -263,46 +359,59 @@ class ConvModule(nn.Module):
             self.register_buffer("running_var", torch.ones(d_model))
         else:
             self.conv_norm = _layer_norm(d_model)
-            self.dropout = Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.pw_out = Dense(d_model, d_model)
 
     def _depthwise(self, h, dtype):
-        """The depthwise conv of h (N, T, D) in `dtype`, padded as the JAX
-        module pads it: causal, every frame sees the k - 1 before it;
-        otherwise the asymmetric "same" padding, (k-1)//2 left."""
+        """The depthwise conv of h (N, T, D) in `dtype` (at float32
+        `conv_f32`'s), padded as the JAX module pads it: causal, every
+        frame sees the k - 1 before it; otherwise the asymmetric "same"
+        padding, (k-1)//2 left."""
         k = self.kernel_size
         left = k - 1 if self.causal else (k - 1) // 2
         h = F.pad(h.transpose(1, 2), (left, k - 1 - left))
-        c = F.conv1d(h, self.depthwise.weight.to(dtype),
-                     self.depthwise.bias.to(dtype), groups=h.shape[1])
+        conv = conv_f32 if dtype == torch.float32 else F.conv1d
+        c = conv(h, self.depthwise.weight.to(dtype),
+                 self.depthwise.bias.to(dtype), groups=h.shape[1])
         return c.transpose(1, 2)
 
-    def forward(self, x, mask, dtype, gen=None):
-        if not self.use_batchnorm:
-            return self._forward_ln(x, mask, dtype, gen)
-        h = conv_module.fused_glu_in(x, mask, self.norm.weight, self.norm.bias,
-                                     self.pw_in.kernel, self.pw_in.bias)
-        c = self._depthwise(h, dtype)
-        mean, var = self.running_mean, self.running_var
-        if self.training:
-            mean, var = masked_batch_stats(c, mask)
-            with torch.no_grad():
-                for buf, new in ((self.running_mean, mean),
-                                 (self.running_var, var)):
-                    buf.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM)
-                                               * new.detach())
-        rate, seed = drop_args(self, self.dropout_rate, gen)
-        return conv_module.fused_bn_out(
-            c, x, mask, mean, var, self.bn_scale, self.bn_bias,
-            self.pw_out.kernel, self.pw_out.bias, rate=rate, seed=seed)
+    def _bn_stats(self, c, mask):
+        """The statistics BN normalises by: the running ones in eval; in
+        training the masked batch statistics, which update the running
+        ones as 0.9·old + 0.1·batch."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        mean, var = masked_batch_stats(c, mask)
+        with torch.no_grad():
+            for buf, new in ((self.running_mean, mean),
+                             (self.running_var, var)):
+                buf.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * new.detach())
+        return mean, var
 
-    def _forward_ln(self, x, mask, dtype, gen):
+    def forward(self, x, mask, dtype, gen=None):
         m = mask[..., None]
-        h = F.glu(self.pw_in(self.norm(x.float()), dtype), dim=-1)
-        h = torch.where(m, h, torch.zeros((), dtype=h.dtype, device=h.device))
-        h = self._depthwise(h, dtype)
-        h = F.silu(self.conv_norm(h.float()))
-        h = self.dropout(self.pw_out(h, dtype), gen)
+        if self.fused:
+            h = conv_module.fused_glu_in(x, mask, self.norm.weight,
+                                         self.norm.bias, self.pw_in.kernel,
+                                         self.pw_in.bias)
+        else:
+            h = F.glu(self.pw_in(self.norm(x.float()), dtype), dim=-1)
+            h = torch.where(m, h, torch.zeros((), dtype=h.dtype,
+                                              device=h.device))
+        c = self._depthwise(h, dtype)
+        if not self.use_batchnorm:
+            h = self.conv_norm(c.float())
+        else:
+            mean, var = self._bn_stats(c, mask)
+            if self.fused:
+                rate, seed = drop_args(self, self.dropout_rate, gen)
+                return conv_module.fused_bn_out(
+                    c, x, mask, mean, var, self.bn_scale, self.bn_bias,
+                    self.pw_out.kernel, self.pw_out.bias, rate=rate,
+                    seed=seed)
+            h = (c.float() - mean) * torch.rsqrt(var + conv_module.BN_EPS)
+            h = h * self.bn_scale + self.bn_bias
+        h = self.dropout(self.pw_out(F.silu(h), dtype), gen)
         return x + torch.where(m, h.to(x.dtype),
                                torch.zeros((), dtype=x.dtype,
                                            device=x.device))
@@ -355,7 +464,8 @@ class TDNNLayer(nn.Module):
     """Dilated 1-D conv over frames, then ReLU (counterpart of the JAX
     `TDNNLayer`): kernel 2·half_context + 1, symmetric padding
     half_context·dilation, lengths ceil(len / stride), at least 1. Takes
-    and returns the (N, C, T) layout of `F.conv1d` in float32. Padded
+    and returns the (N, C, T) layout of `F.conv1d` in float32 (the conv
+    `conv_f32`'s). Padded
     frames are not masked, as in the JAX module: the convolutions carry
     them into the last valid frames alike in both packages."""
 
@@ -367,7 +477,9 @@ class TDNNLayer(nn.Module):
                               dilation=dilation)
 
     def forward(self, x, lengths):
-        h = F.relu(self.conv(x))
+        c = self.conv
+        h = F.relu(conv_f32(x, c.weight, c.bias, c.stride, c.padding,
+                            c.dilation))
         if self.stride > 1:
             lengths = torch.clamp(
                 (lengths + self.stride - 1) // self.stride, min=1)

@@ -46,6 +46,16 @@ dy = dh . W^T with the SiLU and BN backward and the dscale and dbias
 partials in its epilogue, dW = y^T . dh split over rows into an f32
 workspace, and a pass that sums every partial; `bn_out_plan` chooses the
 split and sizes the workspace.
+
+Float32 (a ConformerNet at its default dtype) takes its own route, the TPU
+kernels' arithmetic at f32: `glu_in_forward_f32`, `glu_in_backward_f32`,
+`bn_out_forward_f32` and `bn_out_backward_f32` launch
+`csrc/conv_module_f32.cu`, full float32 products on the CUDA cores (no
+TF32) in the same stages, any D that is a multiple of 32, with the same
+Philox mask; each counts its launches. `glu_in_forward` and the other
+three dispatch by device and dtype: a CPU tensor takes the plain version
+(which follows x.dtype), a CUDA bf16 tensor the bf16 kernels, a CUDA f32
+tensor the f32 ones; anything else raises.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ import torch.nn.functional as F
 
 from cat_tpu_torch import _build
 from cat_tpu_torch.ops.dropout import dropout_scale, kernel_args
+from cat_tpu_torch.ops.ffn import wgrad_splits
 
 LN_EPS = 1e-6
 BN_EPS = 1e-5
@@ -64,6 +75,10 @@ _DIMS = (128, 256, 384, 512)
 _GLU = {"glu_in_fwd": (8, 2, 0), "glu_in_bwd": (15, 3, 0),
         "glu_in_bwd_workspace": (0, 2, 0)}
 _BN = {"bn_out_fwd": (11, 5, 1), "bn_out_bwd": (18, 8, 1)}
+# and of csrc/conv_module_f32.cu
+_F32 = {"glu_in_f32_fwd": (8, 2, 0), "glu_in_f32_bwd": (13, 3, 0),
+        "glu_in_f32_bwd_workspace": (0, 3, 0), "bn_out_f32_fwd": (11, 5, 1),
+        "bn_out_f32_bwd": (16, 6, 1), "bn_out_f32_bwd_workspace": (0, 3, 0)}
 # rows of a column-partial block of the bn_out backward (its row pass's
 # blocks and its down product's tiles) and of a block of K in its wgrad
 # product; at most this many splits of R in that product, which are
@@ -202,14 +217,30 @@ def _check_operands(name, x, tensors):
                              "32-byte aligned")
 
 
-def _glu_operands(x, mask, gamma, beta, w, b):
-    _check_activations("fused_glu_in", x)
+def _check_glu(x, mask, w, b):
     D = x.shape[-1]
     if tuple(w.shape) != (D, 2 * D) or b.numel() != 2 * D \
             or tuple(mask.shape) != tuple(x.shape[:-1]):
         raise ValueError(f"fused_glu_in: unsupported shapes x "
                          f"{tuple(x.shape)}, mask {tuple(mask.shape)}, "
                          f"w {tuple(w.shape)}")
+
+
+def _check_bn(conv, x, mask, mean, var, scale, bias, w, b):
+    D = x.shape[-1]
+    if conv.dtype != x.dtype or tuple(conv.shape) != tuple(x.shape) \
+            or tuple(w.shape) != (D, D) \
+            or tuple(mask.shape) != tuple(x.shape[:-1]) \
+            or any(t.numel() != D for t in (mean, var, scale, bias, b)):
+        raise ValueError(f"fused_bn_out: unsupported operands conv "
+                         f"{conv.dtype} {tuple(conv.shape)}, x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}")
+
+
+def _glu_operands(x, mask, gamma, beta, w, b):
+    _check_activations("fused_glu_in", x)
+    _check_glu(x, mask, w, b)
+    D = x.shape[-1]
     R = x.numel() // D
     f32 = torch.float32
     args = [x.reshape(R, D).contiguous(), mask.reshape(R).to(f32).contiguous(),
@@ -223,10 +254,13 @@ def glu_in_forward(x, mask, gamma, beta, w, b):
     """x (..., D); mask (...) bool, 1 where the frame is valid; gamma, beta
     (D,); w (D, 2D); b (2D,). Returns mask * GLU(LN(x) . w + b).
 
-    A CPU tensor takes `glu_in_reference`; a CUDA tensor launches the
-    kernel (bf16 x, D in 128/256/384/512) or raises."""
+    A CPU tensor takes `glu_in_reference`, a CUDA f32 tensor
+    `glu_in_forward_f32`; a CUDA bf16 tensor launches the kernel (D in
+    128/256/384/512); anything else raises."""
     if x.device.type == "cpu":
         return glu_in_reference(x, mask, gamma, beta, w, b)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return glu_in_forward_f32(x, mask, gamma, beta, w, b)
     args, R, D = _glu_operands(x, mask, gamma, beta, w, b)
     out, h = torch.empty_like(args[0]), torch.empty_like(args[0])
     err = _build.load("glu_in", _GLU).glu_in_fwd(
@@ -239,11 +273,14 @@ def glu_in_forward(x, mask, gamma, beta, w, b):
 
 def glu_in_backward(x, mask, gamma, beta, w, b, dout):
     """(dx, dgamma, dbeta, dw, db) of `fused_glu_in`. A CPU tensor takes
-    `glu_in_backward_reference`; a CUDA tensor launches `glu_in.cu` (the
-    shapes of `glu_in_forward`) or raises. Every output is written whole
-    by the kernels."""
+    `glu_in_backward_reference`, a CUDA f32 tensor `glu_in_backward_f32`;
+    a CUDA bf16 tensor launches `glu_in.cu` (the shapes of
+    `glu_in_forward`); anything else raises. Every output is written
+    whole by the kernels."""
     if x.device.type == "cpu":
         return glu_in_backward_reference(x, mask, gamma, beta, w, b, dout)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return glu_in_backward_f32(x, mask, gamma, beta, w, b, dout)
     args, R, D = _glu_operands(x, mask, gamma, beta, w, b)
     do = dout.reshape(R, D).to(torch.bfloat16).contiguous()
     _check_operands("fused_glu_in", x, [do])
@@ -265,14 +302,8 @@ def glu_in_backward(x, mask, gamma, beta, w, b, dout):
 
 def _bn_operands(conv, x, mask, mean, var, scale, bias, w, b):
     _check_activations("fused_bn_out", x)
+    _check_bn(conv, x, mask, mean, var, scale, bias, w, b)
     D = x.shape[-1]
-    if conv.dtype != x.dtype or tuple(conv.shape) != tuple(x.shape) \
-            or tuple(w.shape) != (D, D) \
-            or tuple(mask.shape) != tuple(x.shape[:-1]) \
-            or any(t.numel() != D for t in (mean, var, scale, bias, b)):
-        raise ValueError(f"fused_bn_out: unsupported operands conv "
-                         f"{conv.dtype} {tuple(conv.shape)}, x "
-                         f"{tuple(x.shape)}, w {tuple(w.shape)}")
     R = x.numel() // D
     f32 = torch.float32
     args = [conv.reshape(R, D).contiguous(), x.reshape(R, D).contiguous(),
@@ -289,11 +320,15 @@ def bn_out_forward(conv, x, mask, mean, var, scale, bias, w, b, rate=0.0,
     """conv, x (..., D); mask (...) bool; mean, var, scale, bias, b (D,);
     w (D, D). Returns x + mask * drop(SiLU(BN(conv)) . w + b).
 
-    A CPU tensor takes `bn_out_reference`; a CUDA tensor launches the
-    kernel (bf16 x, D in 128/256/384/512) or raises."""
+    A CPU tensor takes `bn_out_reference`, a CUDA f32 tensor
+    `bn_out_forward_f32`; a CUDA bf16 tensor launches the kernel (D in
+    128/256/384/512); anything else raises."""
     if x.device.type == "cpu":
         return bn_out_reference(conv, x, mask, mean, var, scale, bias, w, b,
                                 rate, seed)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return bn_out_forward_f32(conv, x, mask, mean, var, scale, bias, w, b,
+                                  rate, seed)
     args, R, D = _bn_operands(conv, x, mask, mean, var, scale, bias, w, b)
     drop, inv = kernel_args(rate, seed)
     out, y = torch.empty_like(args[1]), torch.empty_like(args[1])
@@ -308,13 +343,16 @@ def bn_out_forward(conv, x, mask, mean, var, scale, bias, w, b, rate=0.0,
 def bn_out_backward(conv, x, mask, mean, var, scale, bias, w, b, dout,
                     rate=0.0, seed=None):
     """(dconv, dmean, dvar, dscale, dbias, dw, db) of `fused_bn_out`. A
-    CPU tensor takes `bn_out_backward_reference`; a CUDA tensor launches
-    `bn_out.cu` (the shapes of `bn_out_forward`, the plan of
-    `bn_out_plan`) or raises. Every output is written whole by the
-    kernels."""
+    CPU tensor takes `bn_out_backward_reference`, a CUDA f32 tensor
+    `bn_out_backward_f32`; a CUDA bf16 tensor launches `bn_out.cu` (the
+    shapes of `bn_out_forward`, the plan of `bn_out_plan`); anything else
+    raises. Every output is written whole by the kernels."""
     if x.device.type == "cpu":
         return bn_out_backward_reference(conv, x, mask, mean, var, scale,
                                          bias, w, b, dout, rate, seed)
+    if x.device.type == "cuda" and x.dtype == torch.float32:
+        return bn_out_backward_f32(conv, x, mask, mean, var, scale, bias, w,
+                                   b, dout, rate, seed)
     args, R, D = _bn_operands(conv, x, mask, mean, var, scale, bias, w, b)
     drop, inv = kernel_args(rate, seed)
     c, _, m, mu, vr, sc, bi, wb, _ = args
@@ -338,7 +376,122 @@ def bn_out_backward(conv, x, mask, mean, var, scale, bias, w, b, dout,
     return dc.view(x.shape), dmu, dvar, dsc, dbi, dw, db
 
 
-for _f in (glu_in_forward, glu_in_backward, bn_out_forward, bn_out_backward):
+def _f32_operands(name, x, tensors):
+    """`tensors` as contiguous f32 on x's device; raises unless x is a
+    float32 CUDA tensor whose width is a multiple of 32."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"{name}: the kernel takes float32 CUDA "
+                         f"activations, got {x.dtype} on {x.device}")
+    if x.shape[-1] % 32:
+        raise ValueError(f"{name}: unsupported width D={x.shape[-1]}: the "
+                         "f32 kernels take D a multiple of 32")
+    args = [t.detach().float().contiguous() for t in tensors]
+    if any(t.device != x.device for t in args):
+        raise ValueError(f"{name}: operands must lie on x's device")
+    return args
+
+
+def glu_in_forward_f32(x, mask, gamma, beta, w, b):
+    """The float32 glu_in forward: a CUDA f32 tensor launches
+    `csrc/conv_module_f32.cu` (the shapes of `glu_in_forward`, D a
+    multiple of 32, every product a full f32 FMA); anything else raises.
+    `glu_in_forward` sends a CPU tensor to the plain version."""
+    D = x.shape[-1]
+    R = x.numel() // D
+    args = _f32_operands("glu_in_forward_f32", x,
+                         (x.reshape(R, D), mask.reshape(R), gamma, beta, w, b))
+    _check_glu(x, mask, w, b)
+    out, h = torch.empty_like(args[0]), torch.empty_like(args[0])
+    err = _build.load("conv_module_f32", _F32).glu_in_f32_fwd(
+        *(t.data_ptr() for t in (*args, out, h)), R, D,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "glu_in_f32_fwd")
+    glu_in_forward_f32.launches += 1
+    return out.view(x.shape)
+
+
+def glu_in_backward_f32(x, mask, gamma, beta, w, b, dout):
+    """The float32 glu_in backward, (dx, dgamma, dbeta, dw, db) in f32: a
+    CUDA f32 tensor launches `csrc/conv_module_f32.cu`, which recomputes
+    the forward from x and sums dW over `wgrad_splits(R)` slices of the
+    rows in order; anything else raises."""
+    D = x.shape[-1]
+    R = x.numel() // D
+    args = _f32_operands("glu_in_backward_f32", x,
+                         (x.reshape(R, D), mask.reshape(R), gamma, beta, w, b,
+                          dout.reshape(R, D)))
+    _check_glu(x, mask, w, b)
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
+    outs = [new(R, D), new(D), new(D), new(D, 2 * D), new(2 * D)]
+    lib = _build.load("conv_module_f32", _F32)
+    splits = wgrad_splits(R)
+    ws = new(max(lib.glu_in_f32_bwd_workspace(R, D, splits, None), 1) * 64)
+    err = lib.glu_in_f32_bwd(*(t.data_ptr() for t in (*args, *outs, ws)),
+                             R, D, splits,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "glu_in_f32_bwd")
+    glu_in_backward_f32.launches += 1
+    dx, *grads = outs
+    return (dx.view(x.shape), *grads)
+
+
+def _bn_f32_operands(name, conv, x, mask, mean, var, scale, bias, w, b):
+    D = x.shape[-1]
+    R = x.numel() // D
+    args = _f32_operands(name, x, (conv.reshape(R, D), x.reshape(R, D),
+                                   mask.reshape(R), mean, var, scale, bias,
+                                   w, b))
+    _check_bn(conv, x, mask, mean, var, scale, bias, w, b)
+    return args, R, D
+
+
+def bn_out_forward_f32(conv, x, mask, mean, var, scale, bias, w, b,
+                       rate=0.0, seed=None):
+    """The float32 bn_out forward: a CUDA f32 tensor launches
+    `csrc/conv_module_f32.cu` (the shapes of `bn_out_forward`, D a
+    multiple of 32); anything else raises. `bn_out_forward` sends a CPU
+    tensor to the plain version."""
+    args, R, D = _bn_f32_operands("bn_out_forward_f32", conv, x, mask, mean,
+                                  var, scale, bias, w, b)
+    drop, inv = kernel_args(rate, seed)
+    out, y = torch.empty_like(args[1]), torch.empty_like(args[1])
+    err = _build.load("conv_module_f32", _F32).bn_out_f32_fwd(
+        *(t.data_ptr() for t in (*args, out, y)), R, D, *drop, inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "bn_out_f32_fwd")
+    bn_out_forward_f32.launches += 1
+    return out.view(x.shape)
+
+
+def bn_out_backward_f32(conv, x, mask, mean, var, scale, bias, w, b, dout,
+                        rate=0.0, seed=None):
+    """The float32 bn_out backward, (dconv, dmean, dvar, dscale, dbias, dw,
+    db) in f32: a CUDA f32 tensor launches `csrc/conv_module_f32.cu`, which
+    sums dW over `wgrad_splits(R)` slices of the rows in order; anything
+    else raises."""
+    args, R, D = _bn_f32_operands("bn_out_backward_f32", conv, x, mask,
+                                  mean, var, scale, bias, w, b)
+    c, _, m, mu, vr, sc, bi, wf, _ = args
+    do = dout.reshape(R, D).float().contiguous()
+    drop, inv = kernel_args(rate, seed)
+    new = lambda *s: torch.empty(*s, dtype=torch.float32, device=x.device)
+    outs = [new(R, D), new(D), new(D), new(D), new(D), new(D, D), new(D)]
+    lib = _build.load("conv_module_f32", _F32)
+    splits = wgrad_splits(R)
+    ws = new(max(lib.bn_out_f32_bwd_workspace(R, D, splits, None), 1) * 64)
+    err = lib.bn_out_f32_bwd(
+        *(t.data_ptr() for t in (c, m, mu, vr, sc, bi, wf, do, *outs, ws)),
+        R, D, *drop, splits, inv,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "bn_out_f32_bwd")
+    bn_out_backward_f32.launches += 1
+    dc, *grads = outs
+    return (dc.view(x.shape), *grads)
+
+
+for _f in (glu_in_forward, glu_in_backward, bn_out_forward, bn_out_backward,
+           glu_in_forward_f32, glu_in_backward_f32, bn_out_forward_f32,
+           bn_out_backward_f32):
     _f.launches = 0
 
 

@@ -12,7 +12,10 @@ Layouts handled:
 - cells are `cell_{i}` subtrees, or one `cells` subtree whose leaves carry
   a leading num_cells axis (`scan_layers=true`); batch_stats alike;
 - the subsampling is `Conv2dSubsampling_0`, or
-  `CheckpointConv2dSubsampling_0` under `remat`;
+  `CheckpointConv2dSubsampling_0` under `remat`, or `VGG2LSubsampling_0`
+  (its four convs `Conv_0` .. `Conv_3`) with its projection `Dense_0`;
+- a conformer without batch normalisation keeps no batch_stats (its conv
+  modules' second LayerNorm takes their place);
 - conv kernels HWIO -> OIHW; the depthwise kernel (k, 1, D) -> (D, 1, k);
   a TDNN layer's (k, in, out) -> (out, in, k);
 - DenseGeneral kernels (D, H, Dh) and (H, Dh, D), and the projection's
@@ -61,7 +64,8 @@ def _cell(sd, pre, p, stats):
     sd[pre + "mhsa.u_bias"] = _t(a["u_bias"])
     sd[pre + "mhsa.v_bias"] = _t(a["v_bias"])
     sd.update(conv_module_state_dict(p["ConvModule_0"],
-                                     stats["ConvModule_0"], pre + "conv."))
+                                     stats.get("ConvModule_0", {}),
+                                     pre + "conv."))
 
 
 def conv_module_state_dict(c, s, pre=""):
@@ -97,10 +101,12 @@ def _cells(params, batch_stats):
     """[(cell params, cell batch_stats)] in order, for either layout."""
     if "cells" in params:
         L = np.asarray(params["cells"]["LayerNorm_0"]["scale"]).shape[0]
-        return [(_index(params["cells"], i), _index(batch_stats["cells"], i))
+        stats = batch_stats.get("cells", {})
+        return [(_index(params["cells"], i), _index(stats, i))
                 for i in range(L)]
     idx = _cell_indices(params)
-    return [(params[f"cell_{i}"], batch_stats[f"cell_{i}"]) for i in idx]
+    return [(params[f"cell_{i}"], batch_stats.get(f"cell_{i}", {}))
+            for i in idx]
 
 
 def _cell_indices(params):
@@ -127,19 +133,27 @@ def initial_batch_stats(params):
 
 def conformer_state_dict(params, batch_stats):
     """The port's `ConformerNet` state_dict from a `cat_tpu` ConformerNet's
-    `params` and `batch_stats` trees."""
+    `params` and `batch_stats` trees (`batch_stats` empty or without cells
+    for a conformer without batch normalisation)."""
     sd = {}
+    batch_stats = batch_stats or {}
     sub = params.get("Conv2dSubsampling_0",
                      params.get("CheckpointConv2dSubsampling_0"))
+    convs = (("conv_a", "conv_a"), ("conv_b", "conv_b"))
     if sub is None:
-        raise KeyError("no Conv2dSubsampling_0 in the parameters: only the "
-                       "conv2d subsampling is ported")
-    for name in ("conv_a", "conv_b"):
-        k = np.asarray(sub[name]["kernel"])             # HWIO
+        sub = params.get("VGG2LSubsampling_0")
+        if sub is None:
+            raise KeyError("no Conv2dSubsampling_0 or VGG2LSubsampling_0 in "
+                           "the parameters")
+        convs = tuple((f"Conv_{i}", f"convs.{i}") for i in range(4))
+        _dense(sd, "subsampling.proj.", params["Dense_0"])
+    else:
+        fq, C, D = np.asarray(sub["proj"]["kernel"]).shape  # (F', C, D)
+        _dense(sd, "subsampling.proj.", sub["proj"], din=fq * C)
+    for src, name in convs:
+        k = np.asarray(sub[src]["kernel"])              # HWIO
         sd[f"subsampling.{name}.weight"] = _t(np.transpose(k, (3, 2, 0, 1)))
-        sd[f"subsampling.{name}.bias"] = _t(sub[name]["bias"])
-    fq, C, D = np.asarray(sub["proj"]["kernel"]).shape  # (F', C, D)
-    _dense(sd, "subsampling.proj.", sub["proj"], din=fq * C)
+        sd[f"subsampling.{name}.bias"] = _t(sub[src]["bias"])
     for i, (p, s) in enumerate(_cells(params, batch_stats)):
         _cell(sd, f"cells.{i}.", p, s)
     if "classifier" in params:
@@ -148,15 +162,16 @@ def conformer_state_dict(params, batch_stats):
 
 
 
-def embedding_encoder_state_dict(params):
+def embedding_encoder_state_dict(params, batch_stats=None):
     """The port's `EmbeddingEncoder` state_dict from a `cat_tpu` one's
     params: `Embed_0`, the cells `cell_{i}` (their conv modules with
     LayerNorm, `LayerNorm_0`, `Dense_0`, `Conv_0`, `LayerNorm_1`,
     `Dense_1`, when built without batch normalisation, which keeps no
-    statistics), the classifier."""
+    statistics; with it, their statistics from `batch_stats`), the
+    classifier."""
     sd = {"embed.weight": _t(params["Embed_0"]["embedding"])}
-    for i in _cell_indices(params):
-        _cell(sd, f"cells.{i}.", params[f"cell_{i}"], {"ConvModule_0": {}})
+    for i, (p, s) in enumerate(_cells(params, batch_stats or {})):
+        _cell(sd, f"cells.{i}.", p, s)
     if "classifier" in params:
         _dense(sd, "classifier.", params["classifier"])
     return sd
@@ -324,7 +339,7 @@ def encoder_state_dict(encoder, params, batch_stats):
     if name in ("JoinAPLinearEncoder", "JoinAPNonLinearEncoder"):
         return joinap_state_dict(encoder, params, batch_stats)
     if name == "EmbeddingEncoder":
-        return embedding_encoder_state_dict(params)
+        return embedding_encoder_state_dict(params, batch_stats)
     raise NotImplementedError(f"no converter of JAX weights for {name}")
 
 

@@ -55,7 +55,11 @@ Phases, any failure exits non-zero:
    float32 step than the plain bf16 step is, in its gradient and in its
    logits, frame by frame, in the time-masked and in the other frames;
    the kernel step runs the encoder and the loss (dropout, CTC, dense
-   denominator) on kernels, the plain steps neither;
+   denominator) on kernels, the plain steps neither; then the same model
+   at float32 ([f32]): its kernel step (F32_STEP launches: every encoder
+   kernel on its f32 route) within STEP_F32_REL of that float32 step,
+   which is its plain step, in gradient and logits, and within the other
+   step gates;
 5. fold: two micro-steps of `make_train_step(..., grad_accum_fold=2)` on
    the serving batch: `applied` 0 then 1, the parameters unmoved by the
    first, both finite, the kernels' launch counts per micro-step;
@@ -102,9 +106,33 @@ Phases, any failure exits non-zero:
    the float32 step where the two bf16 steps disagree (`steps_agree`
    judge_float32: the random JoinAP logits reach ~37, crf-v1's ~3);
    egs/wsj/exp/crf-tdnn (`TDNN_NAS`, hdim 640, dropout 0.5,
-   float32, the convolutions cuDNN with TF32 off; 7 dropouts both ways
+   float32, the convolutions `layers.conv_f32`'s; 7 dropouts both ways
    and the loss kernels a step, TDNN_STEP; its plain step is the float32
    step, held within STEP_F32_REL), then timed the same way;
+6d. f32: crf-v1's model at float32, the JAX ConformerNet's default
+   dtype, every fused op on its f32 route. Rows 14-17 at float32
+   (`csrc/conv_module_f32.cu`) against their plain versions at the
+   training batch (R = 15,776, 12,664 valid) at D = 512 and 256, rates 0
+   and 0.1, with identical, constant and zero rows: relative norms within
+   JSA_OUT_REL on outputs (F32_FLAT_REL on a LayerNorm's output and dx in
+   the rows of zero variance) and JSA_SUM_REL on sums over rows, two
+   calls bit for bit, bn_out's mask bit for bit against ops/dropout.py's;
+   the four timed beside their bounds at the f32 peak into the records;
+   rows 12-13 and 2-3 at float32 at crf-v1's width (D = 512, F = 2048, H =
+   8) under the same gates, timed beside their bounds; the TF32 probe:
+   crf-v1's conv_b, crf-tdnn's TDNN conv and crf-v1's depthwise conv
+   with cuDNN's switch on and off against a float64 witness, and the
+   package's float32 convs (`layers.conv_f32`) bit for bit either way;
+   the serving batch decoded greedily through `decode_batch` (F32_SERVE
+   launches), its logits within F32_LOGIT_REL of the plain forward; 2
+   warm-up and 5 timed float32 train steps on the training batch (ms,
+   audio-s/s, peak, F32_STEP launches each) and one more's busy share;
+   `EmbeddingEncoder(use_batchnorm=True)` at jsa-spg P2G's width and
+   2-cell ConformerNets at crf-v1's width with use_batchnorm=False,
+   vgg2l subsampling, a time reduction after cell 0, and at d = 320 with
+   5 heads (the conv and FF modules on JAX's unfused paths), each forward
+   and backward against its plain versions (F32_MODEL_REL, JSA_SUM_REL,
+   JSA_TENSOR_REL), the kernels each runs pinned;
 7. RNN-T kernels: the lattice recursions of `ops/rnnt.py` against their
    plain versions at the rnnt-v1 training batch (the training batch's
    T' = 299..493, labels U = T'//6 ids in 1..1023, V = 1024, tables of
@@ -186,7 +214,13 @@ Phases, any failure exits non-zero:
    for bit; each stage's seconds, the
    features' audio-s/s, the denominator's seconds, micro-step ms,
    checkpoint writes, averaging, the beam's ms a batch and share of stage
-   4, and the RTF. [lm] then, on (A)'s expdir and corpus: the
+   4, and the RTF. [f32] then: (A)'s expdir at `dtype: "float32"` (its
+   tokenizer, packed data and den_dense.npz) through stages 3-4: F32_STEP
+   a micro-step, F32_EVAL an eval batch, F32_SERVE a decode batch; the
+   decode weights' log-probs on 4 dev utterances within F32_LOGIT_REL of
+   the same weights' on the CPU, and the card's device beam (width 17)
+   judged by `judge_device_beam` against the CPU's log-probs searched in
+   float64. [lm] then, on (A)'s expdir and corpus: the
    `CausalTransformer` at its declared widths (hdim 512, 6 layers, 8
    heads, ff 2048, max_len 2048; V = 1024, tied) from a seed, its forward
    and masked CE loss on the first `LmLoader` batch of a seeded token
@@ -194,7 +228,7 @@ Phases, any failure exits non-zero:
    relative norm, loss within 1e-5 relative), 3 train steps at the
    loader's defaults (token budget 8000, max_len 512; 14 dropout launches
    a step and nothing else; ms, tokens/s, peak); rnnt-v1's width-16 beam
-   on the 2 shortest serving utterances with decode.lm "nn" and "lodr"
+   on the shortest serving utterance with decode.lm "nn" and "lodr"
    (that LM, and with a token 2-gram of weight -0.3): at alpha = 0 the
    unfused beam's result, at alpha 0.3, beta 0.5 the 1-best's LM term
    as the beam took it within 1e-4 of one CPU forward, SERVE launches
@@ -322,7 +356,9 @@ time by kernel is printed and written to chiprun_out/profile.txt,
 profile_train.txt, profile_rnnt_train.txt and profile_cuside_train.txt.
 Annotation ranges on the device's timeline, such as the optimizer step's,
 are printed on a line of their own, outside the device time and the busy
-share.
+share. [f32]'s float32 crf-v1 step always runs under torch.profiler
+(device activity only), its breakdown in chiprun_out/profile_f32_train.txt.
+Every phase runs under PyTorch's default TF32 switches.
 
 The last two lines are the per-kernel JSON record and the result line
 {"ok": true, "device": {...}}. Needs CUDA; imports nothing of JAX.
@@ -361,9 +397,18 @@ KERNELS = ("ffn_fwd", "glu_in_fwd", "bn_out_fwd", "relpos_attention_fwd",
            "ffn_bwd", "glu_in_bwd", "bn_out_bwd", "relpos_attention_bwd",
            "dropout", "ctc_alpha", "ctc_beta", "den_fwd", "den_bwd",
            "rnnt_alpha", "rnnt_beta", "ffn_f32_fwd", "ffn_f32_bwd",
-           "relpos_attention_f32_fwd", "relpos_attention_f32_bwd")
+           "relpos_attention_f32_fwd", "relpos_attention_f32_bwd",
+           "glu_in_f32_fwd", "glu_in_f32_bwd", "bn_out_f32_fwd",
+           "bn_out_f32_bwd")
 # the f32 routes of rows 12-13 and 2-3, run by JSA-SPG's token encoders
-JSA_F32 = KERNELS[15:]
+JSA_F32 = KERNELS[15:19]
+# the f32 routes of rows 14-17, run by a ConformerNet at its default float32
+CONV_F32 = KERNELS[19:]
+# each bf16 encoder kernel's f32 route
+F32_OF = dict(zip(KERNELS[:8], ("ffn_f32_fwd", "glu_in_f32_fwd",
+                                "bn_out_f32_fwd", "relpos_attention_f32_fwd",
+                                "ffn_f32_bwd", "glu_in_f32_bwd",
+                                "bn_out_f32_bwd", "relpos_attention_f32_bwd")))
 # launches per train step: crf-v1 (PER_STEP) and rnnt-v1 (RNNT_STEP); the
 # serving forward of either model runs the four encoder forward kernels
 PER_STEP = {"ffn_fwd": 34, "glu_in_fwd": 17, "bn_out_fwd": 17,
@@ -374,6 +419,19 @@ PER_STEP = {"ffn_fwd": 34, "glu_in_fwd": 17, "bn_out_fwd": 17,
 RNNT_STEP = {k: (v if k in KERNELS[:9] else 0) for k, v in PER_STEP.items()}
 RNNT_STEP.update(rnnt_alpha=1, rnnt_beta=1)
 SERVE = {k: (v if k in KERNELS[:4] else 0) for k, v in PER_STEP.items()}
+
+
+def on_f32(per_step):
+    """The launches of `per_step` with every encoder kernel on its f32
+    route: the same model at float32."""
+    out = dict.fromkeys(KERNELS, 0)
+    for k, v in per_step.items():
+        out[F32_OF.get(k, k)] += v
+    return out
+
+
+# a float32 crf-v1 train step and serving forward
+F32_STEP, F32_SERVE = on_f32(PER_STEP), on_f32(SERVE)
 RNNT_V = 1024  # rnnt-v1's unigram vocabulary (hyper-p.json)
 # the loss kernels against their plain versions (f32): lattice states
 # within 1e-3 + 2e-6·|plain| (the values reach about -2e3 for CTC and
@@ -574,7 +632,11 @@ def wrappers():
             "ffn_f32_bwd": ffn.ff_backward_f32,
             "relpos_attention_f32_fwd": attention.relpos_attention_forward_f32,
             "relpos_attention_f32_bwd":
-                attention.relpos_attention_backward_f32}
+                attention.relpos_attention_backward_f32,
+            "glu_in_f32_fwd": conv_module.glu_in_forward_f32,
+            "glu_in_f32_bwd": conv_module.glu_in_backward_f32,
+            "bn_out_f32_fwd": conv_module.bn_out_forward_f32,
+            "bn_out_f32_bwd": conv_module.bn_out_backward_f32}
 
 
 def reset_counts():
@@ -1564,7 +1626,7 @@ def train_step_once(model, start, cfg, den, batch, patches=None, f32=False,
 
 def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
                 field=None, float32_model=False, judge_float32=False,
-                where="serving batch", frames=None):
+                where="serving batch", frames=None, control=None):
     """One train step with the kernels, `run(None, False)`, against the
     same step on every kernel's plain version (the encoder's fused ops,
     the dropout and the losses) in bf16, `run(plain_patches(), False)`,
@@ -1584,7 +1646,9 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
     names the batch; `frames`, the encoder's input frames of each
     utterance, default to the batch's feat_lengths (an ME2E batch's count
     samples); without SpecAugment (`specaug_cfg` None) every valid frame
-    is in the "other" region."""
+    is in the "other" region. `control`, the float32 step of an earlier
+    call on the same weights, batch and generator, takes the place of
+    `run(plain_patches(), True)`. Returns the float32 step."""
     import torch
     from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops.specaug import draw_masks
@@ -1593,8 +1657,11 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
     k = run(None, False)
     if counts() != per_step:
         fail(f"{what} train step launch counts {counts()} != {per_step}")
-    p = run(plain_patches(), False)
-    r = p if float32_model else run(plain_patches(), True)
+    if float32_model:
+        p = r = control or run(plain_patches(), False)
+    else:
+        p = run(plain_patches(), False)
+        r = control or run(plain_patches(), True)
     if counts() != per_step:
         fail("a kernel launched while every kernel wrapper was patched to "
              "its plain version")
@@ -1701,11 +1768,24 @@ def steps_agree(what, run, batch, specaug_cfg, per_step, out_name,
             ek > STEP_CONTROL * ep for _, ek, ep in out_dist.values()):
         fail(f"the {what} kernel train step is farther from the float32 step "
              f"than {STEP_CONTROL}x the plain bf16 step")
+    return r
+
+
+def f32_config(cfg):
+    """crf-v1's config with the encoder at float32, the JAX module's
+    default dtype."""
+    import copy
+    cfg = copy.deepcopy(cfg)
+    cfg["encoder"]["kwargs"]["dtype"] = "float32"
+    return cfg
 
 
 def phase_train_vs_plain(cfg, den):
     """One crf-v1 train step with the kernels against the plain versions in
-    bf16 and in float32 (`steps_agree`)."""
+    bf16 and in float32 (`steps_agree`); then the same model at float32
+    ([f32]): its kernel step (every fused op on its f32 route) against
+    that float32 step, the control of the first, which is its plain
+    step."""
     import torch
     from cat_tpu_torch.ctc.train import build_model
 
@@ -1713,10 +1793,19 @@ def phase_train_vs_plain(cfg, den):
     perturb(model, torch.Generator().manual_seed(1))
     start = {k: v.clone() for k, v in model.state_dict().items()}
     batch = make_batch(FRAMES, seed=3)
-    steps_agree("crf-v1", lambda patches, f32: train_step_once(
+    control = steps_agree("crf-v1", lambda patches, f32: train_step_once(
         model, start, cfg, den, batch, patches, f32), batch, cfg["specaug"],
         PER_STEP, "logits")
     del model
+    torch.cuda.empty_cache()
+    cfg32 = f32_config(cfg)
+    model = build_model(cfg32, num_classes=72, device="cuda", seed=0)
+    model.load_state_dict(start)
+    steps_agree("[f32] crf-v1 float32", lambda patches, f32: train_step_once(
+        model, start, cfg32, den, batch, patches, f32), batch,
+        cfg["specaug"], F32_STEP, "logits", float32_model=True,
+        control=control)
+    del model, control
     torch.cuda.empty_cache()
 
 
@@ -1869,6 +1958,7 @@ def phase_training(cfg, den, profile):
 
 EVAL = {k: (1 if k in ("ctc_alpha", "den_fwd") else v)
         for k, v in SERVE.items()}  # one crf-v1 eval batch
+F32_EVAL = on_f32(EVAL)
 MANAGER_FOLD = 2  # crf-v1 trains at grad_accum_fold 16: cut to 2
 
 
@@ -3446,11 +3536,12 @@ def check_probe(probe, step_want, eval_want, what):
 def phase_pipeline(card):
     """[pipeline] `python -m cat_tpu_torch.pipeline.asr` in-process on
     synthesized data in a temporary directory under build/, removed at the
-    end: crf-v1's recipe at full width through its four stages, then the
-    asr-ctc toy recipe to the end of its training, aishell rnnt-cuside's
-    four stages on crf-v1's corpus ([cuside]), then [sharded] (crf-wds
-    and rnnt-wds from shards of crf-v1's corpus), then [wfst] on the
-    crf-wds expdir (the phase's seconds include both)."""
+    end: crf-v1's recipe at full width through its four stages, its
+    stages 3-4 at float32 ([f32]), then the asr-ctc toy recipe to the end
+    of its training, aishell rnnt-cuside's four stages on crf-v1's corpus
+    ([cuside]), then [sharded] (crf-wds and rnnt-wds from shards of
+    crf-v1's corpus), then [wfst] on the crf-wds expdir (the phase's
+    seconds include both)."""
     import shutil
     import tempfile
     t_phase = time.perf_counter()
@@ -3459,6 +3550,9 @@ def phase_pipeline(card):
                                                                   "build"))
     try:
         pipeline_crf_v1(os.path.join(root, "crf-v1"), card)
+        t = time.perf_counter()
+        pipeline_f32(root, card)
+        log(f"[f32] pipeline {time.perf_counter() - t:.1f} s ({card})")
         phase_lm(os.path.join(root, "lm"), os.path.join(root, "crf-v1"), card)
         pipeline_toy(os.path.join(root, "asr-ctc"), card)
         t = time.perf_counter()
@@ -4191,6 +4285,10 @@ LM_LOSS_RTOL = 1e-5   # card vs CPU masked CE loss, relative
 LM_TERM_TOL = 1e-4    # the LM terms of fusion and rescoring vs the CPU LM
 LM_ALPHA, LM_BETA = 0.3, 0.5   # fusion and rescoring weights
 LODR_WEIGHT = -0.3    # the token 2-gram's weight in LODR (JAX's default)
+# utterances of the LM-fused rnnt-v1 beams (the host beam takes 6-10 s an
+# utterance): the serving batch's shortest, cut from 2 to keep the script
+# within its time limit
+LM_FUSION_UTTS = 1
 RESCORE_LM_EPOCHS = 2  # the rescoring LM's epochs (lm-nn's config: 10)
 
 
@@ -4319,8 +4417,8 @@ def lm_full_width(root, model, cpu_lm, card):
 
 
 def lm_fusion(root, lm, cpu_lm, card):
-    """rnnt-v1's width-16 beam on the 2 shortest utterances of the serving
-    batch, with decode.lm "nn" (the transformer LM through
+    """rnnt-v1's width-16 beam on the LM_FUSION_UTTS shortest utterances of
+    the serving batch, with decode.lm "nn" (the transformer LM through
     `NeuralLMScorer` on the card) and "lodr" (that LM and a token 2-gram
     of weight LODR_WEIGHT): at alpha = 0 the unfused beam's result; at
     alpha > 0 the 1-best's LM term, as the beam took it, equal to one CPU
@@ -4340,7 +4438,8 @@ def lm_fusion(root, lm, cpu_lm, card):
     feats = torch.randn(N, T, 80, generator=gen, device="cuda")
     feats *= (torch.arange(T, device="cuda")[None, :, None]
               < lengths[:, None, None])
-    feats, lengths = feats[-2:, :max(FRAMES[-2:])], lengths[-2:]
+    feats = feats[-LM_FUSION_UTTS:, :max(FRAMES[-LM_FUSION_UTTS:])]
+    lengths = lengths[-LM_FUSION_UTTS:]
     beam = lambda **kw: RNNTBeamDecoder(model, beam_width=16, **kw).decode(
         feats, lengths)
     unfused = beam()
@@ -4387,13 +4486,16 @@ def lm_fusion(root, lm, cpu_lm, card):
                     recomposed - score) > LM_TERM_TOL * max(1.0, abs(score)):
                 fail(f"[lm] rnnt-v1 {kind} fusion, utterance {n}: the beam's "
                      f"LM term {took} vs the CPU LM's {want}")
-        lines.append(f"{kind}: {wall * 1e3 / 2:.0f} ms an utterance, "
-                     f"{forwards / 2:.0f} LM forwards an utterance, 1-best "
+        lines.append(f"{kind}: {wall * 1e3 / LM_FUSION_UTTS:.0f} ms an "
+                     f"utterance, {forwards / LM_FUSION_UTTS:.0f} LM forwards "
+                     f"an utterance, 1-best "
                      f"{[len(h[0][1]) for h in fused]} tokens, scores "
                      f"{[round(h[0][0], 3) for h in fused]}, LM term max "
                      f"diff {worst:.3g}")
-    log(f"[lm] rnnt-v1 beam16 fused with the transformer LM on 2 utterances "
-        f"({sum(FRAMES[-2:]) * 0.01:.1f} audio s; alpha {LM_ALPHA}, beta "
+    log(f"[lm] rnnt-v1 beam16 fused with the transformer LM on "
+        f"{LM_FUSION_UTTS} utterance(s) "
+        f"({sum(FRAMES[-LM_FUSION_UTTS:]) * 0.01:.1f} audio s; alpha "
+        f"{LM_ALPHA}, beta "
         f"{LM_BETA}; host wall, encoder included; {card}): "
         + "; ".join(lines) + "; at alpha = 0 both equal the unfused beam")
     del model
@@ -5652,6 +5754,629 @@ def phase_jsa(rec, card, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------- [f32]
+# crf-v1's model at float32, the JAX ConformerNet's default dtype: every
+# fused op on its f32 route, rows 14-17 (csrc/conv_module_f32.cu) among
+# them. Gates (relative norms): the kernels' outputs JSA_OUT_REL and their
+# sums over rows JSA_SUM_REL, as [jsa]; a LayerNorm's output and its
+# backward's dx on the rows of zero variance (the constant and zero rows
+# of `special_rows`) F32_FLAT_REL: there 1 / sqrt(eps) = 1000 multiplies a
+# one-step difference of the row's f32 mean between two summation orders
+# (the kernel's warp sums, torch's reduction) into xhat and h; the serving
+# logits of the 17-cell model against its plain forward F32_LOGIT_REL; the
+# other encoders' outputs and running statistics F32_MODEL_REL, their
+# gradients JSA_SUM_REL as one vector and JSA_TENSOR_REL a tensor
+F32_FLAT_REL = 1e-3
+F32_LOGIT_REL = 1e-4
+F32_MODEL_REL = 1e-4
+F32_WIDTHS = (512, 256)  # crf-v1's, and the d = 256 recipes' (aishell, jsa)
+F32_UTTS = 4             # the other encoders: the serving batch's first 4
+F32_DEV = 4              # [pipeline] f32: dev utterances decoded on the CPU
+
+
+def f32_rows(tl, D, gen):
+    """x, c, dO (N, T', D) f32 with `special_rows`, the mask of the
+    lengths `tl`, and the zero-variance rows of x."""
+    import torch
+    from cat_tpu_torch.models.layers import length_mask
+    N, T = len(tl), max(tl)
+    x, c, do = (special_rows(_rnd(gen, N, T, D)) for _ in range(3))
+    mask = length_mask(torch.tensor(tl, device="cuda"), T)
+    return x, c, do, mask, x.var(-1) == 0
+
+
+def gate_ln(name, got, want, flat, rels):
+    """An output row by row downstream of a LayerNorm of x's rows (its
+    forward's output, its backward's dx): JSA_OUT_REL on the rows of
+    non-zero variance, F32_FLAT_REL on the others."""
+    return max(gate_rel(name, got[~flat], want[~flat], JSA_OUT_REL, rels),
+               gate_rel(f"{name} zero-variance rows", got[flat], want[flat],
+                        F32_FLAT_REL, rels))
+
+
+def f32_conv_checks(gen, rec, rels, errs):
+    """Rows 14-17 at float32 against their plain versions at the training
+    batch (D = 512 and 256), rates 0 and 0.1, two calls bit for bit,
+    bn_out's dropout mask bit for bit against ops/dropout.py's; the D = 512
+    batch timed beside its bound (rate 0.1) into the records."""
+    import torch
+    from cat_tpu_torch.ops import conv_module as cm
+    from cat_tpu_torch.ops.dropout import dropout_scale
+
+    tl = [subsampled(f) for f in TRAIN_FRAMES]
+    N, T, Rv = len(tl), max(tl), sum(tl)
+    for D in F32_WIDTHS:
+        x, c, do, mask, flat = f32_rows(tl, D, gen)
+        glp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+               _rnd(gen, D, 2 * D, s=D ** -0.5), _rnd(gen, 2 * D, s=0.1))
+        bnp = (_rnd(gen, D, s=0.1), 1 + _rnd(gen, D, s=0.2).abs(),
+               1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+               _rnd(gen, D, D, s=D ** -0.5), _rnd(gen, D, s=0.1))
+        at = f"D={D}"
+        before = cm.glu_in_forward_f32.launches
+        out = cm.glu_in_forward(x, mask, *glp)
+        if cm.glu_in_forward_f32.launches != before + 1:
+            fail("glu_in_forward: a CUDA f32 tensor did not take the f32 "
+                 "kernel")
+        errs[f"glu_in_f32_fwd {at}"] = gate_ln(
+            f"glu_in_f32_fwd {at}", out, cm.glu_in_reference(x, mask, *glp),
+            flat, rels)
+        bitwise("glu_in_f32_fwd", out, cm.glu_in_forward_f32(x, mask, *glp))
+        got = cm.glu_in_backward_f32(x, mask, *glp, do)
+        want = cm.glu_in_backward_reference(x, mask, *glp, do)
+        errs[f"glu_in_f32_bwd {at}"] = max(
+            [gate_ln(f"glu_in_f32_bwd dx {at}", got[0], want[0], flat,
+                        rels)]
+            + [gate_rel(f"glu_in_f32_bwd {n} {at}", g, w, JSA_SUM_REL, rels)
+               for n, g, w in zip(("dgamma", "dbeta", "dw", "db"), got[1:],
+                                  want[1:])])
+        bitwise("glu_in_f32_bwd", got,
+                cm.glu_in_backward_f32(x, mask, *glp, do))
+        del got, want
+        for rate in (0.0, 0.1):
+            kw = dict(rate=rate, seed=SEED)
+            tag = f"{at} rate {rate}"
+            out = cm.bn_out_forward(c, x, mask, *bnp, **kw)
+            errs[f"bn_out_f32_fwd {tag}"] = gate_rel(
+                f"bn_out_f32_fwd {tag}", out,
+                cm.bn_out_reference(c, x, mask, *bnp, **kw), JSA_OUT_REL,
+                rels)
+            bitwise("bn_out_f32_fwd", out,
+                    cm.bn_out_forward_f32(c, x, mask, *bnp, **kw))
+            got = cm.bn_out_backward_f32(c, x, mask, *bnp, do, **kw)
+            want = cm.bn_out_backward_reference(c, x, mask, *bnp, do, **kw)
+            errs[f"bn_out_f32_bwd {tag}"] = max(
+                gate_rel(f"bn_out_f32_bwd {n} {tag}", g, w,
+                         JSA_OUT_REL if n == "dconv" else JSA_SUM_REL, rels)
+                for n, g, w in zip(("dconv", "dmean", "dvar", "dscale",
+                                    "dbias", "dw", "db"), got, want))
+            bitwise("bn_out_f32_bwd", got,
+                    cm.bn_out_backward_f32(c, x, mask, *bnp, do, **kw))
+            del got, want
+        if D != 512:
+            continue
+        # bn_out's mask (stream 0): x = 0, W = 0, b = 1 and every row
+        # valid, where out = keep
+        z = torch.zeros_like(x)
+        keep = cm.bn_out_forward_f32(
+            z, z, torch.ones_like(mask), *bnp[:4], torch.zeros(D, D,
+                                                               device="cuda"),
+            torch.ones(D, device="cuda"), rate=0.1, seed=SEED)
+        if not torch.equal(keep.view(N * T, D), dropout_scale(
+                SEED, 0, 1, N * T, D, 0.1, "cuda")[0]):
+            fail("bn_out_f32_fwd: its dropout mask differs from "
+                 "ops/dropout.py's")
+        del z, keep
+        kw = dict(rate=0.1, seed=SEED)
+        what = (f"N={N} T'={T} R={N * T} ({Rv} valid) D={D}, identical, "
+                f"constant and zero rows")
+        src, tpu = ("cat_tpu_torch/csrc/conv_module_f32.cu",
+                    "cat_tpu/ops/conv_module_pallas.py")
+        vec = lambda k: k * D * 4
+        for name, line, call, plain, flops, nbytes, tag in (
+                ("glu_in_f32_fwd", 53,
+                 lambda: cm.glu_in_forward_f32(x, mask, *glp),
+                 lambda: cm.glu_in_reference(x, mask, *glp),
+                 4 * Rv * D * D, (2 * Rv * D + Rv + 2 * D * D) * 4 + vec(4),
+                 "(no dropout)"),
+                ("glu_in_f32_bwd", 71,
+                 lambda: cm.glu_in_backward_f32(x, mask, *glp, do),
+                 lambda: cm.glu_in_backward_reference(x, mask, *glp, do),
+                 12 * Rv * D * D,
+                 (3 * Rv * D + Rv + 4 * D * D) * 4 + vec(8), "(no dropout)"),
+                ("bn_out_f32_fwd", 237,
+                 lambda: cm.bn_out_forward_f32(c, x, mask, *bnp, **kw),
+                 lambda: cm.bn_out_reference(c, x, mask, *bnp, **kw),
+                 2 * Rv * D * D, (3 * Rv * D + Rv + D * D) * 4 + vec(5),
+                 "rate 0.1"),
+                ("bn_out_f32_bwd", 261,
+                 lambda: cm.bn_out_backward_f32(c, x, mask, *bnp, do, **kw),
+                 lambda: cm.bn_out_backward_reference(c, x, mask, *bnp, do,
+                                                      **kw),
+                 4 * Rv * D * D, (3 * Rv * D + Rv + 2 * D * D) * 4 + vec(10),
+                 "rate 0.1")):
+            err = errs[f"{name} D=512" if "glu" in name
+                       else f"{name} D=512 rate 0.1"]
+            rec.add(name, src, f"{tpu}:{line}", err, timed(call, 10, 2),
+                    timed(plain, 3, 1), flops, nbytes, f"{what} {tag}",
+                    PEAK_F32_FLOPS)
+        del x, c, do
+        torch.cuda.empty_cache()
+
+
+def f32_full_width(gen, rels, errs, card):
+    """Rows 12-13 and 2-3 at float32 at crf-v1's width (D = 512, F = 2048,
+    H = 8, Dh = 64) on the training batch, under [jsa]'s gates (dx on the
+    zero-variance rows F32_FLAT_REL), two calls bit for bit; their times
+    beside their bounds at the f32 peak, printed."""
+    import torch
+    from cat_tpu_torch.ops import attention, ffn
+    tl = [subsampled(f) for f in TRAIN_FRAMES]
+    N, T, Rv = len(tl), max(tl), sum(tl)
+    D, Fh, H = 512, 2048, 8
+    Dh = D // H
+    x, _, do, mask, flat = f32_rows(tl, D, gen)
+    lt = torch.tensor(tl, device="cuda")
+    ffp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+           _rnd(gen, D, Fh, s=D ** -0.5), _rnd(gen, Fh, s=0.1),
+           _rnd(gen, Fh, D, s=Fh ** -0.5), _rnd(gen, D, s=0.1))
+    q, k, v = (special_rows(_rnd(gen, N, T, H, Dh)) for _ in range(3))
+    att = (q, k, v, _rnd(gen, 2 * T - 1, H, Dh, s=0.5),
+           _rnd(gen, H, Dh, s=0.1), _rnd(gen, H, Dh, s=0.1), lt)
+    dao = _rnd(gen, N, T, H, Dh) * mask[..., None, None]
+    kw = dict(rate=0.1, seed=SEED)
+    tag = "crf-v1 width rate 0.1"
+    out = ffn.ff_forward_f32(x, *ffp, **kw)
+    errs[f"ffn_f32_fwd {tag}"] = gate_ln(
+        f"ffn_f32_fwd {tag}", out, ffn.ff_reference(x, *ffp, **kw), flat,
+        rels)
+    bitwise("ffn_f32_fwd", out, ffn.ff_forward_f32(x, *ffp, **kw))
+    got = ffn.ff_backward_f32(x, *ffp, do, **kw)
+    want = ffn.ff_backward_reference(x, *ffp, do, **kw)
+    errs[f"ffn_f32_bwd {tag}"] = max(
+        [gate_ln(f"ffn_f32_bwd dx {tag}", got[0], want[0], flat, rels)]
+        + [gate_rel(f"ffn_f32_bwd {n} {tag}", g, w, JSA_SUM_REL, rels)
+           for n, g, w in zip(("dgamma", "dbeta", "dw1", "db1", "dw2",
+                               "db2"), got[1:], want[1:])])
+    bitwise("ffn_f32_bwd", got, ffn.ff_backward_f32(x, *ffp, do, **kw))
+    del got, want
+    out, lse = attention.relpos_attention_forward_f32(*att, **kw)
+    ref_out, ref_lse = attention.relpos_attention_reference_lse(*att, **kw)
+    vm = mask[:, None, :].expand_as(lse)
+    errs[f"relpos_attention_f32_fwd {tag}"] = max(
+        gate_rel(f"relpos_attention_f32_fwd out {tag}", out[mask],
+                 ref_out[mask], JSA_OUT_REL, rels),
+        gate_rel(f"relpos_attention_f32_fwd lse {tag}", lse[vm], ref_lse[vm],
+                 JSA_OUT_REL, rels))
+    bitwise("relpos_attention_f32_fwd", (out, lse),
+            attention.relpos_attention_forward_f32(*att, **kw))
+    got = attention.relpos_attention_backward_f32(*att, out, lse, dao, **kw)
+    want = attention.relpos_attention_backward_reference(*att, out, lse, dao,
+                                                         **kw)
+    errs[f"relpos_attention_f32_bwd {tag}"] = max(
+        gate_rel(f"relpos_attention_f32_bwd {n} {tag}", g, w,
+                 JSA_OUT_REL if n in ("dq", "dk", "dv") else JSA_SUM_REL,
+                 rels)
+        for n, g, w in zip(("dq", "dk", "dv", "dp", "du", "dv_bias"), got,
+                           want))
+    bitwise("relpos_attention_f32_bwd", got,
+            attention.relpos_attention_backward_f32(*att, out, lse, dao,
+                                                    **kw))
+    del got, want
+    sq = sum(L * L for L in tl)
+    lines = []
+    for name, call, flops in (
+            ("ffn_f32_fwd", lambda: ffn.ff_forward_f32(x, *ffp, **kw),
+             4 * Rv * D * Fh),
+            ("ffn_f32_bwd", lambda: ffn.ff_backward_f32(x, *ffp, do, **kw),
+             10 * Rv * D * Fh),
+            ("relpos_attention_f32_fwd",
+             lambda: attention.relpos_attention_forward_f32(*att, **kw),
+             6 * sq * Dh * H),
+            ("relpos_attention_f32_bwd",
+             lambda: attention.relpos_attention_backward_f32(
+                 *att, out, lse, dao, **kw), 16 * sq * Dh * H)):
+        ms = timed(call, 10, 2)
+        b = 1e3 * flops / PEAK_F32_FLOPS
+        lines.append(f"{name} {ms:.4f} ms (bound {b:.4f} ms by operations, "
+                     f"{b / ms:.1%})")
+    log(f"[f32] rows 12-13 and 2-3 at float32 at crf-v1's width (N={N} "
+        f"T'={T}, {Rv} valid rows, D={D}, F={Fh}, H={H}, rate 0.1; {card}): "
+        + "; ".join(lines))
+    del x, do, att, out, lse
+    torch.cuda.empty_cache()
+
+
+def f32_tf32_probe(gen, card):
+    """Do cuDNN's float32 convolutions take TF32 under PyTorch's default
+    switch? crf-v1's conv_b at float32 (2 of the training batch's longest
+    utterances), wsj crf-tdnn's 640 -> 640 TDNN conv (kernel 3) and
+    crf-v1's depthwise conv (D = 512, kernel 32), each with cuDNN's switch
+    on and off, against a float64 witness; then the package's float32
+    convs (`layers.conv_f32`) with the switch on and off, which must give
+    the same bits."""
+    import torch
+    import torch.nn.functional as F
+    from cat_tpu_torch.models.layers import conv_f32
+    T0 = (max(TRAIN_FRAMES) - 3) // 2 + 1
+    cases = (("crf-v1 conv_b (2 x 512 x %d x 39, 3x3 stride 2)" % T0,
+              _rnd(gen, 2, 512, T0, 39), _rnd(gen, 512, 512, 3, 3,
+                                              s=(9 * 512) ** -0.5),
+              dict(stride=2)),
+             ("crf-tdnn TDNN conv (8 x 640 x 988, kernel 3)",
+              _rnd(gen, 8, 640, 988), _rnd(gen, 640, 640, 3,
+                                           s=(3 * 640) ** -0.5),
+              dict(padding=1)),
+             ("crf-v1 depthwise conv (32 x 512 x 524, kernel 32)",
+              _rnd(gen, 32, 512, 524), _rnd(gen, 512, 1, 32, s=32 ** -0.5),
+              dict(groups=512)))
+    prev = torch.backends.cudnn.allow_tf32
+    lines, took = [], []
+    try:
+        for what, h, w, kw in cases:
+            b = _rnd(gen, w.shape[0], s=0.1)
+            conv = F.conv2d if h.dim() == 4 else F.conv1d
+            witness = conv(h.double(), w.double(), b.double(), **kw)
+            got, mine = {}, {}
+            for on in (True, False):
+                torch.backends.cudnn.allow_tf32 = on
+                got[on] = conv(h, w, b, **kw)
+                mine[on] = conv_f32(h, w, b, **kw)
+            torch.cuda.synchronize()
+            e = {on: rel_norm(got[on], witness) for on in got}
+            em = rel_norm(mine[True], witness)
+            if not torch.equal(mine[True], mine[False]):
+                fail(f"[f32] {what}: the package's float32 conv differs "
+                     f"with cuDNN's TF32 switch on and off")
+            if em > 10 * e[False]:
+                fail(f"[f32] {what}: the package's float32 conv is "
+                     f"{em:.3g} from the float64 witness, the switch-off "
+                     f"conv {e[False]:.3g}")
+            if e[True] > 10 * e[False]:
+                took.append(what)
+            lines.append(f"{what}: switch on {e[True]:.3g}, off "
+                         f"{e[False]:.3g}, the package's conv {em:.3g} either "
+                         f"way, bit for bit")
+            del witness, got, mine
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    log(f"[f32] TF32 probe ({card}; relative norms from a float64 witness; "
+        f"PyTorch's default switch {prev}): " + "; ".join(lines)
+        + f". cuDNN took TF32 with the switch on for: "
+        f"{', '.join(took) or 'none'}")
+
+
+def f32_serving(cfg32):
+    """The float32 crf-v1 model decodes the serving batch greedily through
+    `ctc.decode.decode_batch` (F32_SERVE launches), and its forward is held
+    against the plain forward within F32_LOGIT_REL; the forward's time."""
+    import torch
+    from cat_tpu_torch.ctc.decode import decode_batch
+    from cat_tpu_torch.ctc.train import build_model
+    model = build_model(cfg32, num_classes=72, device="cuda", seed=0)
+    perturb(model, torch.Generator().manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    N, T = len(FRAMES), max(FRAMES)
+    lengths = torch.tensor(FRAMES, device="cuda")
+    feats = torch.randn(N, T, 80, generator=gen, device="cuda")
+    feats *= (torch.arange(T, device="cuda")[None, :, None]
+              < lengths[:, None, None])
+    reset_counts()
+    greedy = decode_batch(model, feats, lengths, "greedy")
+    torch.cuda.synchronize()
+    if counts() != F32_SERVE:
+        fail(f"[f32] float32 greedy decode launches {counts()} != "
+             f"{F32_SERVE}")
+    with torch.inference_mode():
+        logits, olen = model(feats, lengths)
+        plain, plain_len = patched(plain_patches(),
+                                   lambda: model(feats, lengths))
+    valid = torch.arange(logits.shape[1], device="cuda")[None, :] \
+        < olen[:, None]
+    if not torch.equal(olen, plain_len) or logits.dtype != torch.float32:
+        fail("[f32] float32 forward: lengths or dtype differ")
+    e = gate_rel("[f32] float32 serving logits", logits[valid], plain[valid],
+                 F32_LOGIT_REL, {})
+
+    def forward():
+        with torch.inference_mode():
+            model(feats, lengths)
+
+    fwd_ms = timed(forward, iters=5, warmup=1)
+    audio_s = sum(FRAMES) * 0.01
+    log(f"[f32] float32 crf-v1 serving batch ({N} utterances, {audio_s:.1f} "
+        f"audio s): greedy decode_batch of {len(greedy)} hypotheses with "
+        f"{F32_SERVE} launches; logits "
+        f"{rel_norm(logits[valid], plain[valid]):.3g} from the plain forward "
+        f"(relative norm, gate {F32_LOGIT_REL}; max abs {e:.3g}); forward "
+        f"{fwd_ms:.2f} ms (CUDA events, 5 runs), "
+        f"{audio_s / (fwd_ms / 1e3):.1f} audio-s/s")
+    del model
+    torch.cuda.empty_cache()
+
+
+def f32_training(cfg32, den, card):
+    """2 warm-up and 5 timed float32 crf-v1 train steps on the training
+    batch (`time_train_steps`, F32_STEP launches each), and one more's
+    device busy share (torch.profiler, device activity only). Returns the
+    launches of one step."""
+    import torch
+    from cat_tpu_torch.ctc.train import (build_model, init_state,
+                                         make_train_step)
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+    model = build_model(cfg32, num_classes=72, device="cuda", seed=0)
+    sched, opt = build_scheduler(cfg32["scheduler"], model.parameters())
+    tr = cfg32["trainer"]
+    step = make_train_step(model, opt, tr["loss"], den, tr["lamb"],
+                           cfg32["specaug"], grad_clip=5.0)
+    batch = make_batch(TRAIN_FRAMES, seed=6)
+    gen = torch.Generator().manual_seed(7)
+    state, launches, events, walls, peak = time_train_steps(
+        "f32", "float32 crf-v1 ", step, init_state(model, opt), sched, batch,
+        gen, F32_STEP)
+    busy = phase_profile(lambda: step(state, batch, sched.lr, gen),
+                         "one float32 crf-v1 train step",
+                         "chiprun_out/profile_f32_train.txt", cpu=False)
+    log(f"[f32] float32 crf-v1 on the training batch ({card}): "
+        f"{steps_line(events, walls, sum(TRAIN_FRAMES) * 0.01, peak)}; busy "
+        f"share {busy if busy is None else round(busy, 3)}; launches per "
+        f"step {F32_STEP}")
+    del model, opt, step, state
+    torch.cuda.empty_cache()
+    return {k: v // 7 for k, v in launches.items()}
+
+
+def f32_vs_plain(what, model, call, ran):
+    """`model` (float32, on the card, in training mode) through
+    `call(model, gen)`, and the backward of a fixed random projection of
+    its output, with the kernels and with every kernel wrapper on its plain
+    version, from the same weights and generator: the output and the
+    running statistics within F32_MODEL_REL, the gradients within
+    JSA_SUM_REL as one vector and JSA_TENSOR_REL a tensor (the biases
+    whose exact gradient is 0, NOISE_GRADS, not gated); the kernels of
+    `ran`, and no other, launched."""
+    import torch
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    res = {}
+    for name, patches in (("kernels", {}), ("plain", plain_patches())):
+        model.load_state_dict(start)
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+
+        def run():
+            out = call(model, torch.Generator().manual_seed(9)).float()
+            proj = torch.randn(out.shape, device="cuda", generator=torch.
+                               Generator(device="cuda").manual_seed(10))
+            (out * proj).sum().backward()
+            return out.detach()
+
+        out = patched(patches, run)
+        torch.cuda.synchronize()
+        res[name] = (out, {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None},
+                     {n: b.clone() for n, b in model.named_buffers()},
+                     counts())
+    (ko, kg, kb, kc), (po, pg, pb, pc) = res["kernels"], res["plain"]
+    launched = {k for k, v in kc.items() if v}
+    if launched != set(ran) or any(pc.values()):
+        fail(f"[f32] {what}: launches {kc} (want exactly {sorted(ran)}), "
+             f"on the plain versions {pc}")
+    rels = {}
+    gate_rel(f"[f32] {what} output", ko, po, F32_MODEL_REL, rels)
+    for n in kb:
+        gate_rel(f"[f32] {what} {n}", kb[n], pb[n], F32_MODEL_REL, rels)
+    names = [n for n in pg if not n.endswith(NOISE_GRADS)]
+    if set(kg) != set(pg):
+        fail(f"[f32] {what}: gradients of different tensors")
+    for n in names:
+        gate_rel(f"[f32] {what} grad {n}", kg[n], pg[n], JSA_TENSOR_REL, rels)
+    flat = lambda g: torch.cat([g[n].flatten() for n in names])
+    e = gate_rel(f"[f32] {what} gradient", flat(kg), flat(pg), JSA_SUM_REL,
+                 rels)
+    worst = max((n for n in rels if " grad " in n), key=rels.get)
+    model.load_state_dict(start)
+    return (f"{what}: output {rels[f'[f32] {what} output']:.3g}, gradient "
+            f"{rels[f'[f32] {what} gradient']:.3g} (max abs {e:.3g}; worst "
+            f"tensor {worst.split(' grad ')[-1]} {rels[worst]:.3g}); "
+            f"launched {sorted(launched)}")
+
+
+def f32_encoders(card):
+    """The other float32 encoders against their plain versions
+    (`f32_vs_plain`): `EmbeddingEncoder(use_batchnorm=True)` at jsa-spg
+    P2G's width (4 cells, d = 256, 4 heads, kernel 15) on 16 token
+    sequences of 256 .. 136; ConformerNet at crf-v1's width (d = 512, 8
+    heads, kernel 32, dropout 0.1) and 2 cells with use_batchnorm=False,
+    with subsampling="vgg2l" and with time_reduction_layer=0, and a
+    batch-normalised one at d = 320 with 5 heads (Dh = 64; the conv module
+    and the FF module on JAX's unfused paths), on the serving batch's
+    first F32_UTTS utterances. None adds a kernel."""
+    import torch
+    from cat_tpu_torch.models import get_encoder
+    fwd = ("ffn_f32_fwd", "ffn_f32_bwd", "relpos_attention_f32_fwd",
+           "relpos_attention_f32_bwd")
+    conv = ("glu_in_f32_fwd", "glu_in_f32_bwd", "bn_out_f32_fwd",
+            "bn_out_f32_bwd")
+    lines = []
+    enc = get_encoder("EmbeddingEncoder")(
+        vocab_size=72, num_cells=4, hdim=256, num_heads=4, kernel_size=15,
+        num_classes=500, use_batchnorm=True,
+        generator=torch.Generator().manual_seed(11)).to("cuda")
+    perturb(enc, torch.Generator().manual_seed(12))
+    lt = torch.tensor([256 - 8 * i for i in range(16)], device="cuda")
+    toks = torch.randint(1, 72, (16, 256), device="cuda", generator=torch.
+                         Generator(device="cuda").manual_seed(13))
+    lines.append(f32_vs_plain(
+        "EmbeddingEncoder(use_batchnorm=True), d = 256", enc,
+        lambda m, gen: m(toks, lt, gen)[0], fwd + conv))
+    del enc
+    batch = make_batch(FRAMES[:F32_UTTS], seed=14)
+    x, xl = batch["feats"], batch["feat_lengths"]
+    base = dict(num_cells=2, hdim=512, num_heads=8, kernel_size=32,
+                num_classes=72, dropout_rate=0.1, dtype="float32")
+    for what, kw, ran in (
+            ("use_batchnorm=False", dict(use_batchnorm=False),
+             fwd + ("dropout",)),
+            ('subsampling="vgg2l"', dict(subsampling="vgg2l"),
+             fwd + conv + ("dropout",)),
+            ("time_reduction_layer=0", dict(time_reduction_layer=0),
+             fwd + conv + ("dropout",)),
+            ("d = 320, 5 heads", dict(hdim=320, num_heads=5),
+             fwd[2:] + ("dropout",))):
+        model = get_encoder("ConformerNet")(
+            **dict(base, **kw),
+            generator=torch.Generator().manual_seed(15)).to("cuda")
+        perturb(model, torch.Generator().manual_seed(16))
+        lines.append(f32_vs_plain(f"ConformerNet {what}", model,
+                                  lambda m, gen: m(x, xl, gen)[0], ran))
+        del model
+    torch.cuda.empty_cache()
+    log(f"[f32] other float32 encoders vs their plain versions ({card}; "
+        f"relative norms, gates {F32_MODEL_REL} on outputs and running "
+        f"statistics, {JSA_SUM_REL} on the gradient, {JSA_TENSOR_REL} a "
+        f"tensor): " + "; ".join(lines))
+
+
+def phase_f32(rec, cfg, den, card):
+    """[f32]: rows 14-17 at float32 and rows 2-3, 12-13 at crf-v1's width
+    against their plain versions; the TF32 probe; the float32 crf-v1
+    model's serving forward and timed train steps; the other float32
+    encoders. (Its train step against the plain float32 step runs in
+    `phase_train_vs_plain`, its recipe in [pipeline].) Returns the
+    launches of one float32 crf-v1 train step."""
+    import torch
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rels, errs = {}, {}
+    f32_conv_checks(gen, rec, rels, errs)
+    f32_full_width(gen, rels, errs, card)
+    log(f"[f32] f32 kernels vs their plain versions ({card}; relative "
+        f"norms, gates {JSA_OUT_REL} on outputs, {F32_FLAT_REL} on a "
+        f"LayerNorm's output and dx in rows of zero variance, {JSA_SUM_REL} "
+        f"on sums "
+        f"over rows; two calls bit for bit; bn_out's mask bit for bit "
+        f"against ops/dropout.py): "
+        + ", ".join(f"{k} {e:.3g}" for k, e in rels.items())
+        + "; max abs errors " + ", ".join(f"{k} {e:.3g}"
+                                          for k, e in errs.items()))
+    f32_tf32_probe(gen, card)
+    cfg32 = f32_config(cfg)
+    f32_serving(cfg32)
+    launches = f32_training(cfg32, den, card)
+    f32_encoders(card)
+    log(f"[f32] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+def pipeline_f32(root, card):
+    """[pipeline] f32: crf-v1's expdir of (A) at `dtype: "float32"`, its
+    tokenizer, packed data and den_dense.npz reused, through pipeline.asr
+    stages 3-4 (the cuts of (A)): F32_STEP a micro-step, F32_EVAL an eval
+    batch, F32_SERVE a decode batch, none skipped; then the decode weights
+    of stage 3's checkpoints on the first F32_DEV dev utterances: their
+    log-probs on the card within F32_LOGIT_REL of the CPU's, and the
+    card's device beam at stage 4's width judged by `judge_device_beam`
+    against the CPU's log-probs searched in float64 (the witness's
+    prefixes, or a near-tie of its lane selection)."""
+    import numpy as np
+    import torch
+    from cat_tpu_torch.ctc import decode_device
+    from cat_tpu_torch.pipeline import asr
+    from cat_tpu_torch.utils.data import SpeechDataset
+    src = os.path.join(root, "crf-v1", "exp")
+    expdir = os.path.join(root, "crf-v1-f32", "exp")
+    os.makedirs(expdir)
+    with open(os.path.join(src, "hyper-p.json")) as f:
+        hyper = json.load(f)
+    with open(os.path.join(src, "config.json")) as f:
+        config = f32_config(json.load(f))
+    for name, obj in (("hyper-p.json", hyper), ("config.json", config)):
+        with open(os.path.join(expdir, name), "w") as f:
+            json.dump(obj, f, indent=1)
+    for name in ("tokenizer.tknz", "den_dense.npz", "pkl"):
+        os.symlink(os.path.join(src, name), os.path.join(expdir, name))
+    watch, decodes, kept = Stopwatch(), [], {}
+
+    def before_forward(*_):
+        decodes.append(counts())
+
+    def after_forward(*_):
+        before = decodes.pop()
+        decodes.append({k: v - before[k] for k, v in counts().items()})
+
+    def keep_state(out, *_):
+        kept["state"] = out
+
+    probes, total = run_pipeline(expdir, watch, {asr: {
+        "ctc_log_probs": watch.wrap("forward", asr.ctc_log_probs,
+                                    before=before_forward,
+                                    after=after_forward),
+        "_load_decode_state": watch.wrap("decode state",
+                                         asr._load_decode_state,
+                                         after=keep_state)}},
+        ["--start_stage", "3"])
+    res = check_outputs(expdir, 32, "crf-v1 float32 pipeline")
+    if len(probes) != 1:
+        fail(f"crf-v1 float32 pipeline built {len(probes)} Managers")
+    pr = probes[0]
+    check_probe(pr, F32_STEP, F32_EVAL, "crf-v1 float32 pipeline")
+    n_steps, n_evals, n_dec = len(pr.train), len(pr.evals), len(decodes)
+    want = {k: n_steps * F32_STEP[k] + n_evals * F32_EVAL[k]
+            + n_dec * F32_SERVE[k] for k in KERNELS}
+    if n_steps == 0 or n_dec == 0 or total != want \
+            or any(d != F32_SERVE for d in decodes):
+        fail(f"crf-v1 float32 pipeline launches {total} != {want} "
+             f"({n_steps} micro-steps, {n_evals} eval batches, decode "
+             f"batches {decodes})")
+    # stage 4's decode weights: their log-probs on the card and on the
+    # CPU, and the card's device beam judged against the CPU's log-probs'
+    # search
+    ds = SpeechDataset(os.path.join(expdir, "pkl", "dev"))
+    items = [ds[i] for i in range(F32_DEV)]
+    flens = np.array([f.shape[0] for f, _ in items])
+    feats = np.zeros((F32_DEV, flens.max(), ds.feat_dim), np.float32)
+    for i, (f, _) in enumerate(items):
+        feats[i, :len(f)] = f
+    V = asr.load_tokenizers(expdir, hyper)["tokenizer"].vocab_size
+    lps = {}
+    for dev in ("cuda", "cpu"):
+        model = asr._asr_module(hyper).build_model(
+            asr._with_feat_dim(config, ds.feat_dim), num_classes=V,
+            device=dev)
+        model.load_state_dict(kept["state"])  # stage 4's decode weights
+        lps[dev] = asr.ctc_log_probs(model, feats, flens)
+        del model
+    (lp, olens), (lp_cpu, olens_cpu) = lps["cuda"], lps["cpu"]
+    valid = torch.arange(lp.shape[1])[None, :] < olens_cpu[:, None]
+    if not torch.equal(olens.cpu(), olens_cpu):
+        fail("crf-v1 float32 pipeline: output lengths differ on the card "
+             "and the CPU")
+    lp_rel = rel_norm(lp.cpu()[valid], lp_cpu[valid])
+    if not lp_rel <= F32_LOGIT_REL:
+        fail(f"crf-v1 float32 pipeline: the decode weights' log-probs on "
+             f"the card are {lp_rel:.3g} from the CPU's (gate "
+             f"{F32_LOGIT_REL})")
+    kw = dict(beam_width=hyper["inference"]["decode"]["beam_width"],
+              max_len=max(len(lab) for _, lab in items) + 16)
+    judged = judge_device_beam(
+        decode_device.ctc_beam_search_device(lp, olens, **kw), lp_cpu,
+        olens_cpu, kw)
+    s = watch.s
+    ms = [r["ms"] for r in pr.train]
+    log(f"[pipeline] crf-v1 at float32 ({card}): stages 3-4 of (A)'s expdir "
+        f"in {s['main']:.1f} s (train {s['stage_train']:.1f}, decode "
+        f"{s['stage_decode']:.1f}); {n_steps} micro-steps at fold "
+        f"{PIPE_FOLD} (ms {[round(x, 1) for x in ms]}, CUDA events), losses "
+        f"{[round(r['loss'], 2) for r in pr.train]}; {n_evals} eval batches; "
+        f"{n_dec} decode batches; launches {F32_STEP} a micro-step; WER "
+        f"{res['wer']:.2f} %, RTF {res['rtf']:.4f}; the decode weights on the "
+        f"first {F32_DEV} dev utterances: log-probs on the card {lp_rel:.3g} "
+        f"from the CPU's (relative norm, gate {F32_LOGIT_REL}), the card's "
+        f"beam against the CPU's log-probs searched in float64: {judged}")
+
+
 def phase_profile(fn, what, path, cpu=True):
     """Device time of fn() by kernel (torch.profiler), and the device's
     busy share over the span from its first kernel's start to its last
@@ -5719,8 +6444,6 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     profile = "--profile" in sys.argv[1:]
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -5751,6 +6474,7 @@ def main():
     launches = phase_training(cfg, den, profile)
     phase_manager(cfg, den)
     phase_encoders(den, card())
+    f32_launches = phase_f32(rec, cfg, den, card())
     rnnt_cfg = load_config("rnnt-v1")
     phase_rnnt_serving(rnnt_cfg)
     phase_rnnt_train_vs_plain(rnnt_cfg)
@@ -5761,11 +6485,13 @@ def main():
     jsa_launches = phase_jsa(rec, card())
     # each kernel's launches on the main path that runs it: the crf-v1
     # training phase, the rnnt-v1 one for the RNN-T lattice kernels, a
-    # jsa-spg step with the sampler for the f32 routes
+    # jsa-spg step with the sampler for the f32 routes of rows 2-3 and
+    # 12-13, a float32 crf-v1 step for those of rows 14-17
     records = [rec.by_name[k] for k in KERNELS]
     for r in records:
         r["launches"] = (rnnt_launches if r["name"].startswith("rnnt_")
                          else jsa_launches if r["name"] in JSA_F32
+                         else f32_launches if r["name"] in CONV_F32
                          else launches)[r["name"]]
     log(f"[env] whole run {time.perf_counter() - t_all:.1f} s")
 

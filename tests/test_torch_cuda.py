@@ -336,6 +336,70 @@ def test_bn_out_kernels_are_reproducible(gen, D, R):
         assert torch.equal(a, b_), name
 
 
+def _f32_rel(got, want, tol, name):
+    """Relative norm within `tol` (chip_smoke.py's [f32] gates)."""
+    assert torch.isfinite(got).all(), name
+    err = ((got.double() - want.double()).norm()
+           / want.double().norm().clamp_min(1e-30)).item()
+    assert err <= tol, f"{name}: relative norm {err:.3g} > {tol}"
+
+
+# rows 14-17 at float32 (csrc/conv_module_f32.cu): D a multiple of 32, 96
+# below the bf16 kernels' widths; R of 0, 1, below, at and past the 64-row
+# tiles and the column sums' 64-row chunks, and 4,097 (dW over 8 slices)
+F32_CONV_SHAPES = [(D, R) for D in (96, 128, 384, 512)
+                   for R in (0, 1, 37, 64, 65, 4097)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mask", ["ragged", "zero"])
+@pytest.mark.parametrize("D,R", F32_CONV_SHAPES)
+def test_conv_module_f32_kernels(gen, D, R, mask, rate):
+    """The f32 glu_in and bn_out kernels against their plain versions:
+    outputs within 1e-5 relative norm (a LayerNorm's output and dx on the
+    rows of zero variance 1e-3), sums over rows within 1e-4; two calls bit
+    for bit; each dispatcher sends a CUDA f32 tensor to its f32 kernel."""
+    x, do, m, g = _glu_inputs(gen, D, R, mask)
+    x, do = x.float(), do.float()
+    flat = x.var(-1, unbiased=False) == 0
+    before = [w.launches for w in (conv_module.glu_in_forward_f32,
+                                   conv_module.glu_in_backward_f32,
+                                   conv_module.bn_out_forward_f32,
+                                   conv_module.bn_out_backward_f32)]
+    out = conv_module.glu_in_forward(x, m, *g)
+    want = conv_module.glu_in_reference(x, m, *g)
+    _f32_rel(out[~flat], want[~flat], 1e-5, "glu_in out")
+    _f32_rel(out[flat], want[flat], 1e-3, "glu_in out, zero-variance rows")
+    got = conv_module.glu_in_backward(x, m, *g, do)
+    want = conv_module.glu_in_backward_reference(x, m, *g, do)
+    _f32_rel(got[0][~flat], want[0][~flat], 1e-5, "glu_in dx")
+    _f32_rel(got[0][flat], want[0][flat], 1e-3, "glu_in dx, zero-variance")
+    for name, a, b in zip("gamma beta w b".split(), got[1:], want[1:]):
+        _f32_rel(a, b, 1e-4, "glu_in " + name)
+    again = conv_module.glu_in_backward_f32(x, m, *g, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    c, x, do, m, b = _bn_inputs(gen, D, R, mask)
+    c, x, do = c.float(), x.float(), do.float()
+    kw = dict(rate=rate, seed=SEED)
+    out = conv_module.bn_out_forward(c, x, m, *b, **kw)
+    _f32_rel(out, conv_module.bn_out_reference(c, x, m, *b, **kw), 1e-5,
+             "bn_out out")
+    assert torch.equal(out[~m], x[~m])  # masked rows are x itself
+    got = conv_module.bn_out_backward(c, x, m, *b, do, **kw)
+    want = conv_module.bn_out_backward_reference(c, x, m, *b, do, **kw)
+    names = "conv mean var scale bias w b".split()
+    for name, a, b_ in zip(names, got, want):
+        assert a.shape == b_.shape, name
+        _f32_rel(a, b_, 1e-5 if name == "conv" else 1e-4, "bn_out " + name)
+    again = conv_module.bn_out_backward_f32(c, x, m, *b, do, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    after = [w.launches for w in (conv_module.glu_in_forward_f32,
+                                  conv_module.glu_in_backward_f32,
+                                  conv_module.bn_out_forward_f32,
+                                  conv_module.bn_out_backward_f32)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 2, 1, 2]
+
+
 # Dh = 64 takes the TMA + wgmma kernel (128-query tiles, 64-key stages):
 # T at and around both tile sizes, H = 8 as in every recipe, lengths T and
 # 8, 15 (mid-tile)
@@ -903,15 +967,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def test_conformer_forward_matches_plain_on_the_card(gen, monkeypatch):
+    """A bf16 and a float32 (the default dtype, every fused op on its f32
+    route) 2-cell conformer against their forwards on the plain versions:
+    bf16 within 0.1, float32 within 1e-4 relative norm."""
     kw = dict(num_cells=2, hdim=256, num_heads=4, kernel_size=15,
               dropout_rate=0.0)
     cfg = {"encoder": {"type": "ConformerNet",
                        "kwargs": dict(kw, dtype="bfloat16")}}
     model = build_model(cfg, num_classes=11, device="cuda", seed=3)
+    f32 = build_model({"encoder": {"type": "ConformerNet", "kwargs": kw}},
+                      num_classes=11, device="cuda", seed=3)
     x = _rnd(gen, 3, 130, 80)
     lengths = torch.tensor([130, 97, 40], device="cuda")
     with torch.inference_mode():
         got, got_len = model(x, lengths)
+        got32, _ = f32(x, lengths)
         for mod, name, fn in (
                 (ffn, "fused_ff_residual", ffn.ff_reference),
                 (conv_module, "fused_glu_in", conv_module.glu_in_reference),
@@ -920,13 +990,11 @@ def test_conformer_forward_matches_plain_on_the_card(gen, monkeypatch):
                  attention.relpos_attention_reference)):
             monkeypatch.setattr(mod, name, fn)
         want, want_len = model(x, lengths)
+        want32, _ = f32(x, lengths)
     assert torch.equal(got_len, want_len)
     valid = length_mask(got_len, got.shape[1])
     assert (got - want).abs()[valid].max().item() <= 0.1
-    f32 = build_model({"encoder": {"type": "ConformerNet", "kwargs": kw}},
-                      num_classes=11, device="cuda")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        f32(x, lengths)
+    _f32_rel(got32[valid], want32[valid], 1e-4, "float32 logits")
 
 
 def test_manager_checkpoint_round_trip_on_the_card(gen, tmp_path):
