@@ -1,8 +1,8 @@
 """Model zoo of the port: encoders, RNN-T predictors and LMs, and joiners
 registered by class name for config reflection, as `cat_tpu.models`
 does. Only the classes below are ported; the others raise, the JAX
-package's encoders and decoders naming the ROADMAP.md section that ports
-them."""
+package's encoders naming the ROADMAP.md section that ports them. Every
+decoder of the JAX package is ported."""
 from cat_tpu_torch.models import decoders, encoders, joiner
 
 _ENCODERS = {"ConformerNet": encoders.ConformerNet, "LSTM": encoders.LSTM,
@@ -18,10 +18,9 @@ UNPORTED_ENCODERS = {
 _DECODERS = {"LSTMPredictor": decoders.LSTMPredictor,
              "Embedding": decoders.Embedding,
              "CausalTransformer": decoders.CausalTransformer,
+             "TransformerDecoder": decoders.TransformerDecoder,
              "SyllableEnhancedLSTM": decoders.SyllableEnhancedLSTM,
              "ZeroDecoder": decoders.ZeroDecoder}
-# the P2G decoder, ported with P2G
-UNPORTED_DECODERS = {"TransformerDecoder": "§A.8"}
 _JOINERS = {"JointNet": joiner.JointNet, "HAT": joiner.HAT,
             "LogAdd": joiner.LogAdd}
 
@@ -40,7 +39,7 @@ def get_encoder(name):
 
 
 def get_decoder(name):
-    return _get(_DECODERS, "decoder", name, UNPORTED_DECODERS)
+    return _get(_DECODERS, "decoder", name)
 
 
 def get_joiner(name):

@@ -1,6 +1,7 @@
-"""RNN-T predictors and neural LMs in PyTorch (counterparts of
-`LSTMPredictor`, `Embedding`, `CausalTransformer`, `ZeroDecoder` and
-`SyllableEnhancedLSTM` in `cat_tpu/models/decoders.py`).
+"""RNN-T predictors, neural LMs and the P2G decoder in PyTorch
+(counterparts of `LSTMPredictor`, `Embedding`, `CausalTransformer`,
+`TransformerDecoder`, `ZeroDecoder` and `SyllableEnhancedLSTM` in
+`cat_tpu/models/decoders.py`).
 
 API as the JAX modules: `forward(tokens, lengths, gen=None)` -> (hidden
 or logits, lengths) for full sequences; `init_state(batch, device)` and
@@ -16,7 +17,9 @@ embedding's transpose. `CausalTransformer` follows flax's layers:
 LayerNorm epsilon 1e-6, tanh-approximated GELU, masked scores filled with
 the float32 minimum (a query whose keys are all masked attends uniformly)
 and dropout of the attention probabilities with one mask shared by the
-batch and the heads.
+batch and the heads; `TransformerDecoder` adds cross attention on an
+encoder's output with the same semantics (flax's
+`MultiHeadDotProductAttention`).
 """
 from __future__ import annotations
 
@@ -197,6 +200,29 @@ class Embedding(nn.Module):
         return self.forward(tokens)[0], state
 
 
+def attend(m, x, kv, mask, gen):
+    """flax's `MultiHeadDotProductAttention` on the dense layers q, k, v
+    and out of module `m` (its `num_heads` and `dropout_rate`): queries
+    from x (N, U, D), keys and values from kv (N, S, D'); q/sqrt(Dh)·k,
+    the scores where `mask` (broadcast to (N, H, U, S)) is false at the
+    float32 minimum, softmax, dropout of the probabilities (one (U, S) mask
+    for the batch and the heads), times v, the output projection."""
+    f32 = torch.float32
+    N, U, D = x.shape
+    S, H = kv.shape[1], m.num_heads
+    heads = lambda t, L: t.view(N, L, H, D // H).transpose(1, 2)
+    q = heads(m.q(x, f32), U) / math.sqrt(D // H)
+    s = q @ heads(m.k(kv, f32), S).transpose(-1, -2)     # (N, H, U, S)
+    if mask is not None:
+        s = s.masked_fill(~mask, torch.finfo(f32).min)
+    p = torch.softmax(s, -1)
+    rate, seed = drop_args(m, m.dropout_rate, gen)
+    if rate > 0.0:
+        p = p * dropout_scale(seed, 0, 1, U, S, rate, x.device)[0]
+    o = (p @ heads(m.v(kv, f32), S)).transpose(1, 2).reshape(N, U, D)
+    return m.out(o, f32)
+
+
 class _Block(nn.Module):
     """One pre-LN block of `CausalTransformer`: x + attn(ln1(x)), then
     x + dropout(ff2(gelu(ff1(ln2(x)))))."""
@@ -217,27 +243,16 @@ class _Block(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def attention(self, x, mask, gen):
-        """flax's SelfAttention: q/sqrt(Dh)·k, masked scores at the float32
-        minimum, softmax, dropout of the probabilities (one (U, U) mask for
-        the batch and the heads), times v, the output projection."""
-        f32 = torch.float32
-        N, U, D = x.shape
-        H = self.num_heads
-        split = lambda t: t.view(N, U, H, D // H).transpose(1, 2)
-        q = split(self.q(x, f32)) / math.sqrt(D // H)
-        s = q @ split(self.k(x, f32)).transpose(-1, -2)     # (N, H, U, U)
-        s = s.masked_fill(~mask, torch.finfo(f32).min)
-        p = torch.softmax(s, -1)
-        rate, seed = drop_args(self, self.dropout_rate, gen)
-        if rate > 0.0:
-            p = p * dropout_scale(seed, 0, 1, U, U, rate, x.device)[0]
-        o = (p @ split(self.v(x, f32))).transpose(1, 2).reshape(N, U, D)
-        return self.out(o, f32)
+        """flax's SelfAttention (`attend` with kv = x)."""
+        return attend(self, x, x, mask, gen)
 
-    def forward(self, h, mask, gen):
-        h = h + self.attention(self.ln1(h), mask, gen)
+    def feed_forward(self, h, gen):
         f = F.gelu(self.ff1(self.ln2(h), torch.float32), approximate="tanh")
         return h + self.dropout(self.ff2(f, torch.float32), gen)
+
+    def forward(self, h, mask, gen):
+        return self.feed_forward(h + self.attention(self.ln1(h), mask, gen),
+                                 gen)
 
 
 class CausalTransformer(nn.Module):
@@ -283,6 +298,88 @@ class CausalTransformer(nn.Module):
         if self.tied:
             h = h @ self.embed.weight.T
         elif self.head is not None:
+            h = self.head(h, torch.float32)
+        return h, lengths
+
+
+class _CrossAttention(nn.Module):
+    """The dense layers of one cross attention (`attend` on memory)."""
+
+    def __init__(self, hdim, num_heads, dropout_rate, generator):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
+        self.q, self.k, self.v, self.out = (_dense(hdim, hdim, generator)
+                                            for _ in range(4))
+
+    def forward(self, x, memory, mask, gen):
+        return attend(self, x, memory, mask, gen)
+
+
+class _DecoderBlock(_Block):
+    """`_Block` with cross attention between its self attention and its
+    feed-forward: x + cross(lnx(x), memory), when memory is given."""
+
+    def __init__(self, hdim, num_heads, ff_dim, dropout_rate, generator):
+        super().__init__(hdim, num_heads, ff_dim, dropout_rate, generator)
+        self.lnx = nn.LayerNorm(hdim, eps=LN_EPS)
+        self.cross = _CrossAttention(hdim, num_heads, dropout_rate, generator)
+
+    def forward(self, h, mask, gen, memory=None, cross_mask=None):
+        h = h + self.attention(self.ln1(h), mask, gen)
+        if memory is not None:
+            h = h + self.cross(self.lnx(h), memory, cross_mask, gen)
+        return self.feed_forward(h, gen)
+
+
+class TransformerDecoder(nn.Module):
+    """The P2G decoder (BERT style, optionally causal): a learned position
+    table, pre-LN blocks of self attention (length mask on queries and
+    keys, and the causal mask), cross attention on `memory` (the keys
+    masked by `memory_lengths`) when it is given, a GELU feed-forward with
+    dropout on its output, a final LayerNorm and a dense `head`. The cross
+    layers are built up front (JAX makes them at its first call with
+    memory, as P2G's init does)."""
+
+    def __init__(self, vocab_size, hdim=512, num_layers=6, num_heads=8,
+                 ff_dim=2048, max_len=2048, num_classes=0, dropout_rate=0.1,
+                 with_head=True, causal=False, generator=None):
+        super().__init__()
+        self.causal = causal
+        self.embed = nn.Embedding(vocab_size, hdim)
+        _normal_(self.embed.weight, generator, hdim ** -0.5)
+        self.pos_embed = nn.Parameter(torch.empty(max_len, hdim))
+        _normal_(self.pos_embed, generator, 0.02)
+        self.blocks = nn.ModuleList(
+            _DecoderBlock(hdim, num_heads, ff_dim, dropout_rate, generator)
+            for _ in range(num_layers))
+        self.ln_f = nn.LayerNorm(hdim, eps=LN_EPS)
+        self.head = (_dense(hdim, num_classes, generator)
+                     if with_head and num_classes > 0 else None)
+
+    def forward(self, tokens, lengths=None, memory=None, memory_lengths=None,
+                gen=None):
+        """tokens (N, U) -> (logits (N, U, num_classes), or the hidden
+        state without a head, f32; lengths)."""
+        N, U = tokens.shape
+        dev = tokens.device
+        h = self.embed(tokens.long()) + self.pos_embed[None, :U]
+        mask = None
+        if lengths is not None:
+            valid = torch.arange(U, device=dev)[None, :] \
+                < lengths.to(dev)[:, None]
+            mask = valid[:, None, None, :] & valid[:, None, :, None]
+        if self.causal:
+            tri = torch.ones(U, U, dtype=torch.bool, device=dev).tril()
+            mask = tri[None, None] if mask is None else mask & tri
+        cross_mask = None
+        if memory is not None and memory_lengths is not None:
+            cross_mask = (torch.arange(memory.shape[1], device=dev)[None, :]
+                          < memory_lengths.to(dev)[:, None])[:, None, None]
+        for block in self.blocks:
+            h = block(h, mask, gen, memory, cross_mask)
+        h = self.ln_f(h)
+        if self.head is not None:
             h = self.head(h, torch.float32)
         return h, lengths
 

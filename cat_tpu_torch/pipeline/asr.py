@@ -15,15 +15,17 @@ reads the two JSON files of a recipe under `egs/` unchanged:
 
 and runs on the card unless `--device cpu` is given. A "bin" of either
 package (`cat_tpu.ctc.train`, `cat_tpu.rnnt.train`, the CUSIDE
-`*.train_unified`, the multichannel `ctc.train_me2e*` and JSA-SPG's
-`ctc.train_jsa`) names the port's trainer (`pipeline/tasks.py`); the ME2E
-bins' task adapter runs stages 2-4 (raw multichannel waves packed, the
-beamforming front end trained with the encoder, CTC decoding offline or
-streaming), the JSA adapter too (grapheme labels and the supervised
-phonemes of `text_phone` packed, the S2P, P2G and G2P models trained
-with MIS sampling, cascade decoding); an LM
-bin (`*.lm.train`, `*.lm.train_trf`) is refused with a ValueError: its
-recipe runs through `pipeline/lm.py`.
+`*.train_unified`, the multichannel `ctc.train_me2e*`, JSA-SPG's
+`ctc.train_jsa` and LLM-P2G's `p2g.train`) names the port's trainer
+(`pipeline/tasks.py`); the ME2E bins' task adapter runs stages 2-4 (raw
+multichannel waves packed, the beamforming front end trained with the
+encoder, CTC decoding offline or streaming), the JSA adapter too
+(grapheme labels and the supervised phonemes of `text_phone` packed, the
+S2P, P2G and G2P models trained with MIS sampling, cascade decoding), and
+the P2G adapter (`src`, `text` and `src_nbest` packed as token pairs and
+candidate sets, the seq2seq model trained by CE or TKM, greedy or
+marginalised decoding); an LM bin (`*.lm.train`, `*.lm.train_trf`) is
+refused with a ValueError: its recipe runs through `pipeline/lm.py`.
 
   1 tokenizer: built from the first train set's transcripts, or loaded.
   2 pack: wav.scp + text -> fbank + CMVN on the device -> pkl/<split>
@@ -59,7 +61,7 @@ Not ported yet, each raising NotImplementedError with its ROADMAP.md
 section: the arc-table denominator for orders above 3, more than 128
 units or an FST file (§A.6); the encoders `VGGLSTM`, `BLSTMN`,
 `LSTMrowCONV`, `TDNN_LSTM` and `ConformerLSTM` (§A.6b);
-`config.parallel` (§A.7); more than one train set, the P2G bin and the
+`config.parallel` (§A.7); more than one train set and the
 `Wav2Vec2Encoder` encoder (§A.8). The JAX
 package's monitor plot after training waits for `utils/plot.py` (§A.8)
 and is left out; `config.perf` is read and
@@ -203,12 +205,13 @@ def _asr_module(hyper):
 def _check_encoder(config):
     """Raise for an encoder type the port has not registered: the config's
     encoder (a JoinAP encoder's head included) or a JSA recipe's s2p, p2g
-    and g2p."""
+    and g2p (a P2G recipe's `p2g` block holds its model's kwargs, no
+    type)."""
     from cat_tpu_torch import models
 
     for key in ("encoder", "s2p", "p2g", "g2p"):
         enc = config.get(key)
-        if not enc:
+        if not enc or "type" not in enc:
             continue
         models.get_encoder(enc["type"])
         if enc["type"].startswith("JoinAP"):
@@ -461,9 +464,9 @@ def _make_eval_metric(hyper, model, tok, dv_ds, opts):
     return eval_metric
 
 
-def _write_exp_readme(expdir, config, model, tok):
-    """readme.md of the experiment: parameters, vocabulary, loss,
-    encoder, device and the config."""
+def _write_exp_readme(expdir, config, model, tok, loss=None):
+    """readme.md of the experiment: parameters, vocabulary, loss (by
+    default the config's trainer.loss), encoder, device and the config."""
     n_params = sum(p.numel() for p in model.parameters())
     dev = next(model.parameters()).device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -472,7 +475,7 @@ def _write_exp_readme(expdir, config, model, tok):
         "",
         f"- parameters: {n_params / 1e6:.2f} M",
         f"- vocabulary: {tok.vocab_size}",
-        f"- loss: {config.get('trainer', {}).get('loss', 'ctc')}",
+        f"- loss: {loss or config.get('trainer', {}).get('loss', 'ctc')}",
         f"- encoder: {config.get('encoder', {}).get('type')}",
         f"- devices: {name} x1",
         "",

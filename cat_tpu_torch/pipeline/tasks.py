@@ -5,11 +5,12 @@ A recipe's `hyper-p.json` names its trainer by a "bin", a module of
 either package ("cat_tpu.ctc.train" or "cat_tpu_torch.ctc.train"). This
 module holds the one map from a bin to the port's trainer module, read by
 both pipelines (`pipeline/asr.py`, `pipeline/lm.py`, which takes the
-`lm.*` bins) and by both decode CLIs. The bins not ported yet raise
-NotImplementedError naming their ROADMAP.md section. The JAX package
-drives the ME2E, JSA and P2G bins through task adapters, which own stages
-2-4 of their recipes; the plain ASR bins have none (`get_task` returns
-None), as in JAX. The port has the ME2E and JSA adapters; P2G raises.
+`lm.*` bins) and by both decode CLIs. Every bin of the JAX package is
+ported (`NOT_PORTED` is empty; a bin listed there would raise
+NotImplementedError naming its ROADMAP.md section). The ME2E, JSA and
+P2G bins run through task adapters, which own stages 2-4 of their
+recipes; the plain ASR bins have none (`get_task` returns None), as in
+JAX.
 
 An ME2E adapter (`Me2eTask` and its chunk and kaldi variants) packs raw
 multichannel waves (L, C), time-major, a mono source replicated over
@@ -29,6 +30,17 @@ frame_budget (20,000) and num_buckets (4), with num_samples (4),
 sample_beam (8) and trainer.upsample (2); and decodes the inference split
 one utterance at a time by the S2P -> P2G cascade at decode.beam_width
 (8) and num_z (4), marginalised unless decode.marginalize is false.
+
+The P2G adapter (`P2gTask`) packs a data dir's `src` (phonemes, by
+tokenizer), `text` (graphemes, by tokenizer_grapheme) and optional
+`src_nbest` (uid, score, phonemes; the candidate sets) as pkl/<split>/
+seq2seq.npz; trains `P2GSeq2Seq` through the `Manager` on
+`Seq2SeqLoader`s at train.option frame_budget (2048) and num_buckets (4)
+in mode "ce" (label_smoothing) or "tkm"/"skm" (K = tkm.k, t_weight), the
+dev loss in "ce" unless dev has candidates; and decodes the inference
+split greedily to decode.max_len (64), or, with decode.marginalize and
+candidates, by one greedy hypothesis a candidate rescored by the
+marginalised likelihood at tkm.temperature (else decode.t_weight).
 """
 from __future__ import annotations
 
@@ -37,15 +49,16 @@ import json
 import os
 import time
 
+import numpy as np
+
 ME2E_BINS = ("ctc.train_me2e", "ctc.train_me2e_chunk", "ctc.train_me2e_kaldi",
              "ctc.train_me2e_kaldi_chunk")
 PORTED = ("ctc.train", "rnnt.train", "ctc.train_unified",
           "rnnt.train_unified", "lm.train", "lm.train_trf",
-          "ctc.train_jsa") + ME2E_BINS
+          "ctc.train_jsa", "p2g.train") + ME2E_BINS
 # bins of the JAX package that the port does not have yet, with the
 # ROADMAP.md section that ports them
-NOT_PORTED = {"p2g.train": "§A.8"}
-TASK_BINS = ME2E_BINS + ("ctc.train_jsa", "p2g.train")
+NOT_PORTED = {}
 
 
 def bin_key(name: str) -> str:
@@ -89,16 +102,15 @@ def train_module(name: str, want_family: str | None = None):
 
 def get_task(hyper):
     """The task adapter of the experiment's bin: an ME2E adapter for the
-    four ME2E bins, the JSA adapter for ctc.train_jsa, None for the plain
-    ASR bins, as in JAX; the P2G bin raises (ROADMAP.md §A.8)."""
-    b = hyper.get("train", {}).get("bin", "")
-    key = bin_key(b)
+    four ME2E bins, the JSA adapter for ctc.train_jsa, the P2G adapter for
+    p2g.train, None for the plain ASR bins, as in JAX."""
+    key = bin_key(hyper.get("train", {}).get("bin", ""))
     if key in ME2E_BINS:
         return Me2eTask(key)
     if key == "ctc.train_jsa":
         return JsaTask()
-    if key in TASK_BINS:
-        raise _not_ported(b)
+    if key == "p2g.train":
+        return P2gTask()
     return None
 
 
@@ -372,3 +384,152 @@ class JsaTask:
                                    wall, audio_s, mode, dec_cfg,
                                    extra={"device_s": dec.times["device"],
                                           "host_s": dec.times["host"]})
+
+
+class P2gTask:
+    """Stages 2-4 of an LLM-P2G recipe (counterpart of `P2gTask` of
+    `cat_tpu/pipeline/tasks.py`): phoneme sources and grapheme targets,
+    with the candidate sets of `src_nbest` where a data dir has one."""
+
+    key = "p2g.train"
+
+    def tokenizer_corpus_file(self, key):
+        # the primary tokenizer covers the phoneme sources
+        return "src" if key == "tokenizer" else "text"
+
+    def module(self):
+        return importlib.import_module("cat_tpu_torch." + self.key)
+
+    def pack(self, expdir, hyper, toks, device=None):
+        """pkl/<split>/seq2seq.npz of dev and the train set (a split packed
+        already is kept); `device` is unused: nothing is computed."""
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.data import pack_seq2seq
+
+        tok_s, tok_t = toks["tokenizer"], toks["tokenizer_grapheme"]
+        pkl_dir = os.path.join(expdir, "pkl")
+        for split, datadir in (("dev", hyper["data"]["dev"]),
+                               ("train", asr._train_sets(hyper)[0][0])):
+            out = os.path.join(pkl_dir, split)
+            if os.path.exists(os.path.join(out, "seq2seq.npz")):
+                continue
+            src = asr.read_scp(os.path.join(datadir, "src"))
+            text = asr.read_scp(os.path.join(datadir, "text"))
+            nbest = {}
+            nb_path = os.path.join(datadir, "src_nbest")
+            if os.path.exists(nb_path):
+                with open(nb_path) as f:
+                    for line in f:
+                        parts = line.split()
+                        if len(parts) < 2:
+                            continue
+                        nbest.setdefault(parts[0], []).append(
+                            (float(parts[1]),
+                             tok_s.encode(" ".join(parts[2:]))))
+            pack_seq2seq(out, ((uid, tok_s.encode(s), tok_t.encode(text[uid]),
+                                nbest.get(uid))
+                               for uid, s in src.items() if uid in text))
+        return pkl_dir
+
+    def build(self, config, toks, device):
+        return self.module().build_model(
+            config, toks["tokenizer"].vocab_size,
+            toks["tokenizer_grapheme"].vocab_size, device=device)
+
+    def train(self, expdir, hyper, config, toks, device="cpu"):
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.checkpoint import CheckpointManager
+        from cat_tpu_torch.utils.data import Seq2SeqDataset, Seq2SeqLoader
+        from cat_tpu_torch.utils.manager import Manager
+        from cat_tpu_torch.utils.scheduler import build_scheduler
+
+        asr.check_train(hyper, config)
+        p2g = self.module()
+        opts = hyper["train"].get("option", {})
+        mode = opts.get("mode", "ce")
+        pkl = os.path.join(expdir, "pkl")
+        tr = Seq2SeqDataset(os.path.join(pkl, "train"))
+        dv = Seq2SeqDataset(os.path.join(pkl, "dev"))
+        if mode in ("tkm", "skm") and not tr.has_nbest:
+            raise ValueError(
+                "TKM/SKM training needs candidate sets: provide a "
+                "`src_nbest` file in the train data dir (offline S2P "
+                "n-best, egs/llm-p2g data prep)")
+        kw = dict(frame_budget=opts.get("frame_budget", 2048),
+                  num_buckets=opts.get("num_buckets", 4),
+                  num_cands=hyper.get("tkm", {}).get("k"))
+        model = self.build(config, toks, device)
+        sched, opt = build_scheduler(config["scheduler"], model.parameters())
+        t_weight = opts.get("t_weight", 1.0)
+        train_step = p2g.make_train_step(
+            model, opt, mode=mode, t_weight=t_weight,
+            label_smoothing=opts.get("label_smoothing", 0.0))
+        eval_mode = mode if mode in ("tkm", "skm") and dv.has_nbest else "ce"
+        eval_step = p2g.make_eval_step(model, mode=eval_mode,
+                                       t_weight=t_weight)
+        mgr = Manager(train_step, eval_step, p2g.init_state(model, opt),
+                      sched, CheckpointManager(os.path.join(expdir, "check")),
+                      Seq2SeqLoader(tr, seed=opts.get("seed", 0), **kw),
+                      Seq2SeqLoader(dv, shuffle=False, **kw),
+                      max_epochs=opts.get("max_epochs", 100),
+                      check_freq=opts.get("check_freq", -1),
+                      batch_transform=p2g.batch_to_step)
+        asr._write_exp_readme(expdir, config, model,
+                              toks["tokenizer_grapheme"], loss=f"p2g {mode}")
+        if opts.get("resume"):
+            mgr.resume(opts["resume"])
+        mgr.run()
+        return mgr
+
+    def decode(self, expdir, hyper, config, toks, device="cpu"):
+        from cat_tpu_torch.pipeline import asr
+        from cat_tpu_torch.utils.data import Seq2SeqDataset, Seq2SeqLoader
+
+        import torch
+
+        asr.check_decode(hyper, config)
+        p2g = self.module()
+        tok_t = toks["tokenizer_grapheme"]
+        inf = hyper.get("inference", {})
+        dec_cfg = inf.get("decode", {})
+        split = inf.get("split", "dev")
+        ds = Seq2SeqDataset(os.path.join(expdir, "pkl", split))
+        loader = Seq2SeqLoader(
+            ds, frame_budget=dec_cfg.get("frame_budget", 2048),
+            num_buckets=dec_cfg.get("num_buckets", 4), shuffle=False,
+            num_cands=hyper.get("tkm", {}).get("k"))
+        model = self.build(config, toks, device)
+        model.load_state_dict(asr._load_decode_state(expdir, hyper, model))
+        model.eval()
+        max_len = int(dec_cfg.get("max_len", 64))
+        marginalize = bool(dec_cfg.get("marginalize", False)) \
+            and ds.has_nbest
+        t_weight = float(hyper.get("tkm", {}).get(
+            "temperature", dec_cfg.get("t_weight", 1.0)))
+        on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        text = lambda ids, n: tok_t.decode([int(t) for t in ids[:n]])
+        refs, hyps, all_nbest = {}, {}, {}
+        t0 = time.time()
+        for b in loader:
+            if marginalize:  # the best-scored hypothesis of each row
+                cand_hyps, cand_lens, scores = p2g.marginalized_decode(
+                    model, on(b.cands), on(b.cand_lens), on(b.cand_scores),
+                    max_len, t_weight)
+                rows, best = torch.arange(len(scores)), scores.argmax(1)
+                toks_out, lens = cand_hyps[rows, best], cand_lens[rows, best]
+            else:
+                toks_out, lens = p2g.greedy_generate(
+                    model, on(b.src), on(b.src_lens), max_len=max_len)
+            toks_out, lens = toks_out.cpu().numpy(), lens.cpu().numpy()
+            for n in range(len(b.weight)):
+                if b.weight[n] <= 0:
+                    continue
+                uid = b.uids[n]
+                hyps[uid] = text(toks_out[n], lens[n])
+                all_nbest[uid] = {0: (0.0, hyps[uid])}
+                refs[uid] = text(b.tgt[n], b.tgt_lens[n])
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        mode = "marginalize" if marginalize else "greedy"
+        return asr.finalize_decode(expdir, split, refs, hyps, all_nbest,
+                                   time.time() - t0, 0.0, mode, dec_cfg)

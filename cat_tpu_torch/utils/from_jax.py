@@ -3,7 +3,8 @@
 (S2P, P2G and G2P), `TransducerModel`'s, CUSIDE unified
 model's (`UnifiedEncoder`, `UnifiedTransducerModel`) or multichannel
 model's (`Me2eModel`, `ChunkMe2eModel`, and the front end's modules
-alone) variables, or an LM's (`LSTMPredictor` with its head,
+alone) variables, a P2G model's (`P2GSeq2Seq`: an `EmbeddingEncoder`
+under a `TransformerDecoder`), or an LM's (`LSTMPredictor` with its head,
 `Embedding`, `CausalTransformer`, `TRFNCE`) (nested dicts of numpy arrays, as in its checkpoints) to the
 port's state_dict (`model_state_dict` picks the converter by the port's
 model class).
@@ -222,22 +223,63 @@ def causal_transformer_state_dict(params, pre=""):
     `ff2_{i}`, then `ln_f` and the untied `head`."""
     sd = {pre + "embed.weight": _t(params["embed"]["embedding"]),
           pre + "pos_embed": _t(params["pos_embed"])}
-    D = sd[pre + "pos_embed"].shape[1]
-    idx = sorted(int(m.group(1)) for k in params
-                 if (m := re.fullmatch(r"attn_(\d+)", k)))
-    for i in idx:
-        b = f"{pre}blocks.{i}."
-        _ln(sd, b + "ln1.", params[f"ln1_{i}"])
-        _ln(sd, b + "ln2.", params[f"ln2_{i}"])
-        a = params[f"attn_{i}"]
-        for name, src in (("q", "query"), ("k", "key"), ("v", "value"),
-                          ("out", "out")):
-            _dense(sd, f"{b}{name}.", a[src], din=D)
-        _dense(sd, b + "ff1.", params[f"ff1_{i}"])
-        _dense(sd, b + "ff2.", params[f"ff2_{i}"])
+    for i in _layer_indices(params, "attn"):
+        _transformer_block(sd, f"{pre}blocks.{i}.", params, i, "attn")
     _ln(sd, pre + "ln_f.", params["ln_f"])
     if "head" in params:
         _dense(sd, pre + "head.", params["head"])
+    return sd
+
+
+def _layer_indices(params, attn):
+    return sorted(int(m.group(1)) for k in params
+                  if (m := re.fullmatch(attn + r"_(\d+)", k)))
+
+
+def _mha(sd, pre, a):
+    """flax's attention: the `query`, `key`, `value` kernels (D', H, Dh)
+    and the `out` kernel (H, Dh, D) as matrices, the biases flattened."""
+    for name, src in (("q", "query"), ("k", "key"), ("v", "value")):
+        _dense(sd, f"{pre}{name}.", a[src])
+    H, Dh, _ = np.asarray(a["out"]["kernel"]).shape
+    _dense(sd, pre + "out.", a["out"], din=H * Dh)
+
+
+def _transformer_block(sd, b, params, i, attn):
+    """Layer i of a JAX transformer: `ln1_{i}`, the attention `{attn}_{i}`,
+    `ln2_{i}`, `ff1_{i}`, `ff2_{i}`."""
+    _ln(sd, b + "ln1.", params[f"ln1_{i}"])
+    _mha(sd, b, params[f"{attn}_{i}"])
+    _ln(sd, b + "ln2.", params[f"ln2_{i}"])
+    _dense(sd, b + "ff1.", params[f"ff1_{i}"])
+    _dense(sd, b + "ff2.", params[f"ff2_{i}"])
+
+
+def transformer_decoder_state_dict(params, pre=""):
+    """The port's `TransformerDecoder` state_dict from a JAX one's params:
+    `embed`, `pos_embed`, each layer's `ln1_{i}`, `self_{i}`, the cross
+    attention `lnx_{i}` and `cross_{i}` (made by a call with memory),
+    `ln2_{i}`, `ff1_{i}`, `ff2_{i}`, then `ln_f` and `head`."""
+    sd = {pre + "embed.weight": _t(params["embed"]["embedding"]),
+          pre + "pos_embed": _t(params["pos_embed"])}
+    for i in _layer_indices(params, "self"):
+        b = f"{pre}blocks.{i}."
+        _transformer_block(sd, b, params, i, "self")
+        _ln(sd, b + "lnx.", params[f"lnx_{i}"])
+        _mha(sd, b + "cross.", params[f"cross_{i}"])
+    _ln(sd, pre + "ln_f.", params["ln_f"])
+    if "head" in params:
+        _dense(sd, pre + "head.", params["head"])
+    return sd
+
+
+def p2g_state_dict(params):
+    """The port's `P2GSeq2Seq` state_dict from a JAX one's params: the
+    `encoder` (an `EmbeddingEncoder` without batch normalisation) and the
+    `decoder`."""
+    sd = {"encoder." + k: v for k, v in
+          embedding_encoder_state_dict(params["encoder"]).items()}
+    sd.update(transformer_decoder_state_dict(params["decoder"], "decoder."))
     return sd
 
 
@@ -345,8 +387,8 @@ def encoder_state_dict(encoder, params, batch_stats):
 
 def model_state_dict(model, params, batch_stats):
     """The state_dict of the port's `model` (an encoder, a
-    `TransducerModel`, a unified model, an LM or a `TRFNCE`) from the JAX
-    model's variables."""
+    `TransducerModel`, a unified model, an LM, a `TRFNCE`, an ME2E, JSA
+    or P2G model) from the JAX model's variables."""
     name = type(model).__name__
     if name in ("LSTMPredictor", "Embedding", "CausalTransformer"):
         return lm_state_dict(model, params)
@@ -362,6 +404,8 @@ def model_state_dict(model, params, batch_stats):
         return _FRONT[name](params)
     if name == "JsaModel":
         return jsa_state_dict(model, params, batch_stats)
+    if name == "P2GSeq2Seq":
+        return p2g_state_dict(params)
     return encoder_state_dict(model, params, batch_stats)
 
 

@@ -301,7 +301,7 @@ Phases, any failure exits non-zero:
    against the plain bf16 and float32 steps (phase 4's gates, no
    SpecAugment, DNN-WPE's unused noise head not gated), ME2E_STEP
    launches and any plain version given a CUDA tensor failing the run; 1
-   warm-up and 3 timed steps at the recipe's frame budget (16 x 8 x
+   warm-up and ME2E_TIMED timed steps at the recipe's frame budget (16 x 8 x
    160,000 samples): ms, audio-s/s, peak, launches, and the device busy
    share of one (torch.profiler, device activity only); the guard: an inf
    sample gives skipped 1.0, zero gradients and Adam's step on them; then
@@ -349,6 +349,26 @@ Phases, any failure exits non-zero:
    yes/no tones with text_phone (max_epochs 60 -> JSA_TOY_EPOCHS) through
    stages 1-4, its cascade on the first 4 dev utterances held to the
    CPU's within JSA_TIE;
+11e. p2g: LLM-P2G (egs/llm-p2g/exp/{danp,tkm}: `P2GSeq2Seq`, a 6-cell d
+   = 512 float32 EmbeddingEncoder, whose cells take the f32 routes of
+   rows 12-13 and 2-3, under a 6-layer causal TransformerDecoder whose
+   feed-forward dropout is row 1) at full width on a stand-in corpus
+   (`p2g_corpus`: [jsa]'s lexicon, sentences of 5-15 words, P2G_K noisy
+   candidates an utterance, train_danp expanded by `danp_expand`),
+   packed by stages 1-2 of pipeline.asr: the four f32 kernels against
+   their plain versions at danp's first batch (`f32_gates`, [jsa]'s
+   gates, two calls bit for bit) and timed beside their bounds, the
+   dropout kernel at the decoder's shape; each recipe's loss and backward
+   with the kernels (`p2g_launches`) against the plain versions (the loss
+   JSA_OUT_REL, grad norm and gradient JSA_SUM_REL, a tensor
+   JSA_TENSOR_REL); greedy decoding of P2G_DECODE dev utterances at the
+   recipe's max_len and one marginalised batch, the CPU's model
+   teacher-forced on the card's hypotheses (log-probs within P2G_LP_REL,
+   each token the CPU's argmax unless within P2G_TIE); P2G_WARM +
+   P2G_TIMED train steps each (ms, tokens/s, peak, launches, busy
+   share); then egs/template/exp/p2g-danp through stages 1-4 in modes ce
+   and tkm (marginalised decoding; max_epochs 250 -> P2G_TOY_EPOCHS),
+   launches pinned per step and eval batch, dev WER at most P2G_TOY_WER;
 12. device: the card's name and power limit.
 With --profile, one serving forward and the three train steps (crf-v1,
 rnnt-v1, aishell rnnt-cuside) also run under torch.profiler; the device
@@ -4639,6 +4659,7 @@ def lm_rescoring(root, crf_v1, card):
 
 
 ME2E_CELLS = 12     # egs/aishell4/exp/me2e-mvdr: 12 cells, d = 256, 4 heads
+ME2E_TIMED = 2      # timed steps after one warm-up (cut from 3 for time)
 # aishell4's vocabulary stands in as AISHELL's characters (CUSIDE_V): the
 # recipe's Jieba lexicon files are not in the repository
 ME2E_V = CUSIDE_V
@@ -4808,8 +4829,8 @@ def me2e_guard(model, opt, step, state, batch):
 
 
 def me2e_train(model, cfg, card):
-    """One step vs plain, 1 warm-up + 3 timed steps at the recipe's frame
-    budget, the busy share of one, and the guard."""
+    """One step vs plain, 1 warm-up + ME2E_TIMED timed steps at the
+    recipe's frame budget, the busy share of one, and the guard."""
     import torch
     from cat_tpu_torch.ctc import train_me2e
     from cat_tpu_torch.utils.scheduler import build_scheduler
@@ -4846,7 +4867,7 @@ def me2e_train(model, cfg, card):
         for mod, fns in plain_guards().items():
             for name, fn in fns.items():
                 stack.enter_context(mock.patch.object(mod, name, fn))
-        for i in range(4):
+        for i in range(1 + ME2E_TIMED):
             sched.update_lr_step(state.step + 1)
             reset_counts()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -5085,7 +5106,8 @@ JSA_OUT_REL, JSA_SUM_REL, JSA_TENSOR_REL = 1e-5, 1e-4, 1e-3
 JSA_SHAPES = {"jsa-spg P2G step": dict(N=16, T=256, D=256, H=4, step=8),
               "template": dict(N=16, T=24, D=16, H=2, step=1)}
 JSA_BUDGET = 20480   # the recipe's frame budget
-JSA_TIMED = 3        # timed steps with the sampler, after one warm-up
+JSA_TIMED = 2        # timed steps with the sampler, after one warm-up (cut
+# from 3 for the script's time limit)
 JSA_SPLITS = {"train": 128, "dev": 4}  # the corpus's 192 and 32, cut
 JSA_WORDS = 1000     # the stand-in lexicon's words
 JSA_TOY_EPOCHS = 4   # egs/template/exp/asr-jsa: max_epochs 60 cut to 4
@@ -5133,129 +5155,146 @@ def bitwise(name, a, b):
             fail(f"{name}: two calls differ")
 
 
+def f32_gates(gen, where, N, T, D, H, lens, errs, rels):
+    """The four f32 kernels against their plain versions on random inputs
+    of N rows of T frames (lengths `lens`), width D, H heads, rates 0 and
+    0.1, two calls bit for bit; errors into errs and rels by kernel and
+    `where`. Returns the inputs and the rate-0.1 attention outputs,
+    (x, ffp, do, att, out, lse, dao), for timing."""
+    import torch
+    from cat_tpu_torch.models.layers import length_mask
+    from cat_tpu_torch.ops import attention, ffn
+
+    Fh, Dh = 4 * D, D // H
+    lt = torch.tensor(lens, device="cuda")
+    valid = length_mask(lt, T)
+    x = _rnd(gen, N, T, D)
+    do = _rnd(gen, N, T, D)
+    ffp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+           _rnd(gen, D, Fh, s=D ** -0.5), _rnd(gen, Fh, s=0.1),
+           _rnd(gen, Fh, D, s=Fh ** -0.5), _rnd(gen, D, s=0.1))
+    q, k, v = (_rnd(gen, N, T, H, Dh) for _ in range(3))
+    p = _rnd(gen, 2 * T - 1, H, Dh, s=0.5)
+    att = (q, k, v, p, _rnd(gen, H, Dh, s=0.1), _rnd(gen, H, Dh, s=0.1), lt)
+    dao = _rnd(gen, N, T, H, Dh)
+    for rate in (0.0, 0.1):
+        kw = dict(rate=rate, seed=SEED)
+        tag = f"{where} rate {rate}"
+        out = ffn.ff_forward_f32(x, *ffp, **kw)
+        errs[f"ffn_f32_fwd {tag}"] = gate_rel(
+            f"ffn_f32_fwd {tag}", out, ffn.ff_reference(x, *ffp, **kw),
+            JSA_OUT_REL, rels)
+        bitwise("ffn_f32_fwd", out, ffn.ff_forward_f32(x, *ffp, **kw))
+        got = ffn.ff_backward_f32(x, *ffp, do, **kw)
+        want = ffn.ff_backward_reference(x, *ffp, do, **kw)
+        errs[f"ffn_f32_bwd {tag}"] = max(
+            gate_rel(f"ffn_f32_bwd {n} {tag}", g, w,
+                     JSA_OUT_REL if n == "dx" else JSA_SUM_REL, rels)
+            for n, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1",
+                                "dw2", "db2"), got, want))
+        bitwise("ffn_f32_bwd", got, ffn.ff_backward_f32(x, *ffp, do, **kw))
+        before = attention.relpos_attention_forward_f32.launches
+        out, lse = attention.relpos_attention_forward(*att, **kw)
+        if attention.relpos_attention_forward_f32.launches != before + 1:
+            fail("relpos_attention: a CUDA f32 tensor did not take the "
+                 "f32 kernel")
+        ref_out, ref_lse = attention.relpos_attention_reference_lse(
+            *att, **kw)
+        vm = valid[:, None, :].expand_as(lse)
+        errs[f"relpos_attention_f32_fwd {tag}"] = max(
+            gate_rel(f"relpos_attention_f32_fwd out {tag}", out[valid],
+                     ref_out[valid], JSA_OUT_REL, rels),
+            gate_rel(f"relpos_attention_f32_fwd lse {tag}", lse[vm],
+                     ref_lse[vm], JSA_OUT_REL, rels))
+        if out[~valid].any() or lse[~vm].any():
+            fail("relpos_attention_f32_fwd: padded query rows are not "
+                 "zero")
+        bitwise("relpos_attention_f32_fwd", (out, lse),
+                attention.relpos_attention_forward_f32(*att, **kw))
+        got = attention.relpos_attention_backward_f32(
+            *att, out, lse, dao, **kw)
+        want = attention.relpos_attention_backward_reference(
+            *att, out, lse, dao, **kw)
+        errs[f"relpos_attention_f32_bwd {tag}"] = max(
+            gate_rel(f"relpos_attention_f32_bwd {n} {tag}", g, w,
+                     JSA_OUT_REL if n in ("dq", "dk", "dv")
+                     else JSA_SUM_REL, rels)
+            for n, g, w in zip(("dq", "dk", "dv", "dp", "du", "dv_bias"),
+                               got, want))
+        bitwise("relpos_attention_f32_bwd", got,
+                attention.relpos_attention_backward_f32(
+                    *att, out, lse, dao, **kw))
+    return x, ffp, do, att, out, lse, dao
+
+
+def f32_records(rec, where, lens, D, H, inputs, errs):
+    """The four f32 kernels timed at rate 0.1 on `inputs` (`f32_gates`'),
+    beside their plain versions and bounds, into rec. The bounds count
+    the valid rows and (query, key) pairs only, as the bf16 records do."""
+    from cat_tpu_torch.ops import attention, ffn
+    x, ffp, do, att, out, lse, dao = inputs
+    N, T = x.shape[:2]
+    Fh, Dh, R = 4 * D, D // H, N * T
+    kw = dict(rate=0.1, seed=SEED)
+    Rv = sum(lens)
+    sq = sum(L * L for L in lens)
+    what = f"{where}, R={R} ({Rv} valid), D={D}, F={Fh}, rate 0.1"
+    rec.add("ffn_f32_fwd", "cat_tpu_torch/csrc/ffn_f32.cu",
+            "cat_tpu/ops/ffn_pallas.py:76",
+            errs[f"ffn_f32_fwd {where} rate 0.1"],
+            timed(lambda: ffn.ff_forward_f32(x, *ffp, **kw), 10, 2),
+            timed(lambda: ffn.ff_reference(x, *ffp, **kw), 3, 1),
+            4 * Rv * D * Fh, (2 * Rv * D + 2 * D * Fh + 3 * D + Fh) * 4,
+            what, PEAK_F32_FLOPS)
+    rec.add("ffn_f32_bwd", "cat_tpu_torch/csrc/ffn_f32.cu",
+            "cat_tpu/ops/ffn_pallas.py:104",
+            errs[f"ffn_f32_bwd {where} rate 0.1"],
+            timed(lambda: ffn.ff_backward_f32(x, *ffp, do, **kw), 10, 2),
+            timed(lambda: ffn.ff_backward_reference(x, *ffp, do, **kw), 3,
+                  1),
+            10 * Rv * D * Fh,
+            (3 * Rv * D + 4 * D * Fh + 5 * D + 2 * Fh) * 4, what,
+            PEAK_F32_FLOPS)
+    what = f"{where}, N={N} T={T} H={H} Dh={Dh}, rate 0.1"
+    rec.add("relpos_attention_f32_fwd",
+            "cat_tpu_torch/csrc/relpos_attention_f32.cu",
+            "cat_tpu/ops/attention_pallas.py:563",
+            errs[f"relpos_attention_f32_fwd {where} rate 0.1"],
+            timed(lambda: attention.relpos_attention_forward_f32(*att, **kw),
+                  10, 2),
+            timed(lambda: attention.relpos_attention_reference_lse(
+                *att, **kw), 3, 1),
+            6 * sq * Dh * H, (4 * Rv * D + (2 * T - 1) * D + Rv * H) * 4,
+            what, PEAK_F32_FLOPS)
+    rec.add("relpos_attention_f32_bwd",
+            "cat_tpu_torch/csrc/relpos_attention_f32.cu",
+            "cat_tpu/ops/attention_pallas.py:624",
+            errs[f"relpos_attention_f32_bwd {where} rate 0.1"],
+            timed(lambda: attention.relpos_attention_backward_f32(
+                *att, out, lse, dao, **kw), 10, 2),
+            timed(lambda: attention.relpos_attention_backward_reference(
+                *att, out, lse, dao, **kw), 3, 1),
+            16 * sq * Dh * H,
+            (7 * Rv * D + 2 * (2 * T - 1) * D + 2 * Rv * H) * 4, what,
+            PEAK_F32_FLOPS)
+
+
 def jsa_kernel_checks(gen, rec, card):
     """The four f32 kernels against their plain versions at JSA_SHAPES,
     rates 0 and 0.1, two calls bit for bit; the dropout masks the kernels
     draw, bit for bit against ops/dropout.py's; the P2G shape timed beside
     its bound (rate 0.1) into the records."""
     import torch
-    from cat_tpu_torch.models.layers import length_mask
     from cat_tpu_torch.ops import attention, ffn
     from cat_tpu_torch.ops.dropout import dropout_scale
 
     errs, rels = {}, {}
     for where, s in JSA_SHAPES.items():
         N, T, D, H = s["N"], s["T"], s["D"], s["H"]
-        Fh, Dh, R = 4 * D, D // H, N * T
         lens = [max(T - s["step"] * i, 1) for i in range(N)]
-        lt = torch.tensor(lens, device="cuda")
-        valid = length_mask(lt, T)
-        x = _rnd(gen, N, T, D)
-        do = _rnd(gen, N, T, D)
-        ffp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
-               _rnd(gen, D, Fh, s=D ** -0.5), _rnd(gen, Fh, s=0.1),
-               _rnd(gen, Fh, D, s=Fh ** -0.5), _rnd(gen, D, s=0.1))
-        q, k, v = (_rnd(gen, N, T, H, Dh) for _ in range(3))
-        p = _rnd(gen, 2 * T - 1, H, Dh, s=0.5)
-        att = (q, k, v, p, _rnd(gen, H, Dh, s=0.1), _rnd(gen, H, Dh, s=0.1),
-               lt)
-        dao = _rnd(gen, N, T, H, Dh)
-        for rate in (0.0, 0.1):
-            kw = dict(rate=rate, seed=SEED)
-            tag = f"{where} rate {rate}"
-            out = ffn.ff_forward_f32(x, *ffp, **kw)
-            errs[f"ffn_f32_fwd {tag}"] = gate_rel(
-                f"ffn_f32_fwd {tag}", out, ffn.ff_reference(x, *ffp, **kw),
-                JSA_OUT_REL, rels)
-            bitwise("ffn_f32_fwd", out, ffn.ff_forward_f32(x, *ffp, **kw))
-            got = ffn.ff_backward_f32(x, *ffp, do, **kw)
-            want = ffn.ff_backward_reference(x, *ffp, do, **kw)
-            errs[f"ffn_f32_bwd {tag}"] = max(
-                gate_rel(f"ffn_f32_bwd {n} {tag}", g, w,
-                         JSA_OUT_REL if n == "dx" else JSA_SUM_REL, rels)
-                for n, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1",
-                                    "dw2", "db2"), got, want))
-            bitwise("ffn_f32_bwd", got, ffn.ff_backward_f32(x, *ffp, do,
-                                                            **kw))
-            before = attention.relpos_attention_forward_f32.launches
-            out, lse = attention.relpos_attention_forward(*att, **kw)
-            if attention.relpos_attention_forward_f32.launches != before + 1:
-                fail("relpos_attention: a CUDA f32 tensor did not take the "
-                     "f32 kernel")
-            ref_out, ref_lse = attention.relpos_attention_reference_lse(
-                *att, **kw)
-            vm = valid[:, None, :].expand_as(lse)
-            errs[f"relpos_attention_f32_fwd {tag}"] = max(
-                gate_rel(f"relpos_attention_f32_fwd out {tag}", out[valid],
-                         ref_out[valid], JSA_OUT_REL, rels),
-                gate_rel(f"relpos_attention_f32_fwd lse {tag}", lse[vm],
-                         ref_lse[vm], JSA_OUT_REL, rels))
-            if out[~valid].any() or lse[~vm].any():
-                fail("relpos_attention_f32_fwd: padded query rows are not "
-                     "zero")
-            bitwise("relpos_attention_f32_fwd", (out, lse),
-                    attention.relpos_attention_forward_f32(*att, **kw))
-            got = attention.relpos_attention_backward_f32(
-                *att, out, lse, dao, **kw)
-            want = attention.relpos_attention_backward_reference(
-                *att, out, lse, dao, **kw)
-            errs[f"relpos_attention_f32_bwd {tag}"] = max(
-                gate_rel(f"relpos_attention_f32_bwd {n} {tag}", g, w,
-                         JSA_OUT_REL if n in ("dq", "dk", "dv")
-                         else JSA_SUM_REL, rels)
-                for n, g, w in zip(("dq", "dk", "dv", "dp", "du", "dv_bias"),
-                                   got, want))
-            bitwise("relpos_attention_f32_bwd", got,
-                    attention.relpos_attention_backward_f32(
-                        *att, out, lse, dao, **kw))
+        inputs = f32_gates(gen, where, N, T, D, H, lens, errs, rels)
         if where != "template":
-            kw = dict(rate=0.1, seed=SEED)
-            # bounds count the valid rows and (query, key) pairs only, as
-            # the bf16 records do
-            Rv = sum(lens)
-            sq = sum(L * L for L in lens)
-            what = f"{where}, R={R} ({Rv} valid), D={D}, F={Fh}, rate 0.1"
-            rec.add("ffn_f32_fwd", "cat_tpu_torch/csrc/ffn_f32.cu",
-                    "cat_tpu/ops/ffn_pallas.py:76",
-                    errs[f"ffn_f32_fwd {where} rate 0.1"],
-                    timed(lambda: ffn.ff_forward_f32(x, *ffp, **kw), 10, 2),
-                    timed(lambda: ffn.ff_reference(x, *ffp, **kw), 3, 1),
-                    4 * Rv * D * Fh,
-                    (2 * Rv * D + 2 * D * Fh + 3 * D + Fh) * 4,
-                    what, PEAK_F32_FLOPS)
-            rec.add("ffn_f32_bwd", "cat_tpu_torch/csrc/ffn_f32.cu",
-                    "cat_tpu/ops/ffn_pallas.py:104",
-                    errs[f"ffn_f32_bwd {where} rate 0.1"],
-                    timed(lambda: ffn.ff_backward_f32(x, *ffp, do, **kw), 10,
-                          2),
-                    timed(lambda: ffn.ff_backward_reference(x, *ffp, do,
-                                                            **kw), 3, 1),
-                    10 * Rv * D * Fh,
-                    (3 * Rv * D + 4 * D * Fh + 5 * D + 2 * Fh) * 4, what,
-                    PEAK_F32_FLOPS)
-            what = f"{where}, N={N} T={T} H={H} Dh={Dh}, rate 0.1"
-            rec.add("relpos_attention_f32_fwd",
-                    "cat_tpu_torch/csrc/relpos_attention_f32.cu",
-                    "cat_tpu/ops/attention_pallas.py:563",
-                    errs[f"relpos_attention_f32_fwd {where} rate 0.1"],
-                    timed(lambda: attention.relpos_attention_forward_f32(
-                        *att, **kw), 10, 2),
-                    timed(lambda: attention.relpos_attention_reference_lse(
-                        *att, **kw), 3, 1),
-                    6 * sq * Dh * H,
-                    (4 * Rv * D + (2 * T - 1) * D + Rv * H) * 4, what,
-                    PEAK_F32_FLOPS)
-            rec.add("relpos_attention_f32_bwd",
-                    "cat_tpu_torch/csrc/relpos_attention_f32.cu",
-                    "cat_tpu/ops/attention_pallas.py:624",
-                    errs[f"relpos_attention_f32_bwd {where} rate 0.1"],
-                    timed(lambda: attention.relpos_attention_backward_f32(
-                        *att, out, lse, dao, **kw), 10, 2),
-                    timed(lambda: attention.relpos_attention_backward_reference(
-                        *att, out, lse, dao, **kw), 3, 1),
-                    16 * sq * Dh * H,
-                    (7 * Rv * D + 2 * (2 * T - 1) * D + 2 * Rv * H) * 4, what,
-                    PEAK_F32_FLOPS)
+            f32_records(rec, where, lens, D, H, inputs, errs)
     # the masks: the FF output's (stream 1) from x = 0, W2 = 0, b2 = 1,
     # where out = alpha·keep; the attention probabilities' (stream 0) from
     # zero scores and v[s] = e_s over T = Dh = 64 keys, where out·T = keep
@@ -5306,16 +5345,9 @@ def jsa_kernel_checks(gen, rec, card):
                                           for k, e in errs.items()))
 
 
-def jsa_corpus(root):
-    """jsa-spg's stand-in: `write_phone_corpus` over a lexicon of JSA_WORDS
-    distinct words of 2-6 of the 70 phones, each word written as its
-    phones' three-letter codes (the graphemes: a BPE of 500 units over the
-    train text then gives about 1.1 phones a unit, so that G2P's CTC, over
-    twice the units, is feasible, and P2G reads about 2 x 4 phones a
-    word); each split cut to its first JSA_SPLITS utterances; the train
-    transcripts as the BPE corpus (train_text)."""
-    import numpy as np
-    rng = np.random.default_rng(25)
+def jsa_lexicon(rng):
+    """(spell, words): JSA_WORDS distinct words of 2-6 of the 70 phones
+    drawn from `rng`, each written as its phones' three-letter codes."""
     letters = list("abcdefghijklmnopqrstuvwxyz")
     codes = []
     while len(codes) < 70:
@@ -5331,9 +5363,22 @@ def jsa_corpus(root):
             spell.append(list(sp))
     if len({p for sp in spell for p in sp}) != 70:
         fail("the JSA stand-in lexicon leaves a phone out")
+    return spell, ["".join(codes[p] for p in sp) for sp in spell]
+
+
+def jsa_corpus(root):
+    """jsa-spg's stand-in: `write_phone_corpus` over a lexicon of JSA_WORDS
+    distinct words of 2-6 of the 70 phones, each word written as its
+    phones' three-letter codes (the graphemes: a BPE of 500 units over the
+    train text then gives about 1.1 phones a unit, so that G2P's CTC, over
+    twice the units, is feasible, and P2G reads about 2 x 4 phones a
+    word); each split cut to its first JSA_SPLITS utterances; the train
+    transcripts as the BPE corpus (train_text)."""
+    import numpy as np
+    rng = np.random.default_rng(25)
+    spell, words = jsa_lexicon(rng)
     data = os.path.join(root, "data")
-    lexicon = write_phone_corpus(data, rng, spell, [
-        "".join(codes[p] for p in sp) for sp in spell])
+    lexicon = write_phone_corpus(data, rng, spell, words)
     for split, n in JSA_SPLITS.items():
         for name in ("wav.scp", "text"):
             path = os.path.join(data, split, name)
@@ -5752,6 +5797,533 @@ def phase_jsa(rec, card, device="cuda"):
         f"check_freq 1000 -> the epoch's end; asr-jsa max_epochs 60 -> "
         f"{JSA_TOY_EPOCHS})")
     return launches
+
+
+# ---------------------------------------------------------------- [p2g]
+# LLM-P2G (egs/llm-p2g/exp/{danp,tkm}: P2GSeq2Seq, a 6-cell d = 512
+# float32 EmbeddingEncoder under a 6-layer causal TransformerDecoder with
+# cross attention, 8 heads, ff 2048, dropout 0.1). The encoder's cells take
+# the f32 routes of rows 12-13 and 2-3 (D = 512, Dh = 64), the decoder's
+# feed-forward dropout row 1; its attention and dense products are plain
+# matmuls, as JAX computes them outside any Pallas kernel. Gates as [jsa]'s
+# P2G: the kernels JSA_OUT_REL / JSA_SUM_REL, a step's loss JSA_OUT_REL,
+# its grad norm and gradient JSA_SUM_REL, a tensor's JSA_TENSOR_REL (the
+# attention key biases, whose exact gradient is 0, left out).
+P2G_DANP, P2G_TKM = "llm-p2g/exp/danp", "llm-p2g/exp/tkm"
+P2G_TOY = "template/exp/p2g-danp"
+P2G_K = 8           # candidates an utterance: the tkm recipe's tkm.k
+P2G_SPLITS = {"train": 256, "dev": 32}  # stand-in utterances a split
+P2G_WARM, P2G_TIMED = 2, 5
+P2G_DECODE = 8      # dev utterances decoded greedily and checked on the CPU
+P2G_MARG = 1        # utterances of the marginalised batch (its CPU check's
+# cost grows with them: 8 candidates x 8 hypotheses of max_len tokens)
+P2G_TIE = 1e-3      # logits (nats) this close tie: card vs CPU argmax
+P2G_LP_REL = 1e-4   # card vs CPU log-probs of the card's hypotheses
+P2G_TOY_EPOCHS = 20  # egs/template/exp/p2g-danp: max_epochs 250 cut to 20
+P2G_TOY_WER = 5.0   # the template's dev WER at most, as the CPU test's gate
+P2G_NOISE = NOISE_GRADS + (".k.bias",)
+
+
+def p2g_launches(kw, train=True):
+    """Launches of one P2G step (or eval forward) of the model of `kw`:
+    the encoder's f32 FF (two a cell, fused at D a multiple of 128) and
+    attention kernels, the decoder's FF dropout forward and backward (at
+    a rate above 0)."""
+    enc, dec = kw.get("enc_layers", 4), kw.get("dec_layers", 4)
+    ff = 2 * enc if kw.get("hdim", 256) % 128 == 0 else 0
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(ffn_f32_fwd=ff, relpos_attention_f32_fwd=enc)
+    if train:
+        out.update(ffn_f32_bwd=ff, relpos_attention_f32_bwd=enc,
+                   dropout=2 * dec if kw.get("dropout_rate", 0.1) > 0 else 0)
+    return out
+
+
+def p2g_corpus(root):
+    """llm-p2g's stand-in: [jsa]'s lexicon (the same draws: JSA_WORDS
+    words of 2-6 of the 70 phones, each written in three-letter phone
+    codes), sentences of 5-15 words; `src` the words' phones, `text` the
+    words, `src_nbest` P2G_K candidates an utterance as
+    egs/template/local/make_data_p2g.py makes them (the truth at score 0,
+    then one phone substituted at score -k); train_danp the train split
+    expanded over its candidates by `danp_expand` (DANP's data); train_text
+    the train transcripts (the BPE's corpus)."""
+    import numpy as np
+    from cat_tpu_torch.p2g.train import danp_expand
+    spell, words = jsa_lexicon(np.random.default_rng(25))
+    rng = np.random.default_rng(27)
+    phones = [f"p{i:02d}" for i in range(70)]
+    data = os.path.join(root, "data")
+
+    def write(split, src, text, nbest=None):
+        d = os.path.join(data, split)
+        os.makedirs(d)
+        files = [("src", [f"{u} {' '.join(p)}" for u, p in src]),
+                 ("text", [f"{u} {t}" for u, t in text])]
+        if nbest:
+            files.append(("src_nbest", [f"{u} {s} {' '.join(p)}"
+                                        for u, nb in nbest for s, p in nb]))
+        for name, lines in files:
+            with open(os.path.join(d, name), "w") as f:
+                f.write("\n".join(lines) + "\n")
+
+    for split, n in P2G_SPLITS.items():
+        src, text, nbest = [], [], []
+        for i in range(n):
+            ws = rng.integers(0, JSA_WORDS, int(rng.integers(5, 16)))
+            uid = f"{split}{i:04d}"
+            ph = [phones[p] for w in ws for p in spell[w]]
+            nb = [(0.0, ph)]
+            for k in range(P2G_K - 1):
+                c = list(ph)
+                c[int(rng.integers(len(c)))] = phones[int(rng.integers(70))]
+                nb.append((-(k + 1.0), c))
+            src.append((uid, ph))
+            text.append((uid, " ".join(words[w] for w in ws)))
+            nbest.append((uid, nb))
+        write(split, src, text, nbest)
+        if split == "train":
+            expanded = danp_expand([(u, t.split()) for u, t in text],
+                                   dict(nbest))
+            ids = [f"{u}-{k % P2G_K}" for k, (u, _, _) in enumerate(expanded)]
+            write("train_danp", list(zip(ids, (p for _, p, _ in expanded))),
+                  list(zip(ids, (" ".join(w) for _, _, w in expanded))))
+            with open(os.path.join(data, "train_text"), "w") as f:
+                f.write("\n".join(t for _, t in text) + "\n")
+    return data
+
+
+def p2g_perturb(model, gen):
+    """Random biases (0.1 normal) and LayerNorm scales (1 + 0.1 normal), so
+    that every term runs (kernels stay 1/fan_in normal)."""
+    import torch
+    norms = {id(m.weight) for m in model.modules()
+             if isinstance(m, torch.nn.LayerNorm)}
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if t.dim() == 1 or name.endswith(("u_bias", "v_bias")):
+                noise = torch.randn(t.shape, generator=gen) * 0.1
+                t.copy_(((1.0 if id(t) in norms else 0.0) + noise).to(
+                    t.device))
+
+
+def p2g_device_batch(b, device="cuda"):
+    """`batch_to_step`'s dict of a `Seq2SeqBatch` as tensors on `device`
+    (integers as int64), as the Manager puts it."""
+    import numpy as np
+    import torch
+    from cat_tpu_torch.p2g.train import batch_to_step
+    out = {}
+    for k, v in batch_to_step(b).items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = (t if t.is_floating_point() else t.long()).to(device)
+    return out
+
+
+def p2g_kernel_checks(gen, b, D, H, dec_rows, card):
+    """The four f32 kernels against their plain versions at the encoder's
+    shape of the batch `b` (`f32_gates`: rates 0 and 0.1, two calls bit for
+    bit), timed beside their bounds; the standalone dropout at the
+    decoder's feed-forward output (dec_rows = (N, U), f32, rate 0.1) bit
+    for bit both ways, timed beside `F.dropout`. Logged, not recorded:
+    the kernels line keeps [jsa]'s records."""
+    import torch
+    import torch.nn.functional as F
+    from cat_tpu_torch.ops import dropout
+    N, T = b.src.shape
+    lens = [int(x) for x in b.src_lens]
+    errs, rels = {}, {}
+    where = "llm-p2g danp batch"
+    inputs = f32_gates(gen, where, N, T, D, H, lens, errs, rels)
+    rec = Records()
+    f32_records(rec, where, lens, D, H, inputs, errs)
+    x = _rnd(gen, *dec_rows, D)
+    if not torch.equal(dropout.dropout_apply(x, 0.1, SEED),
+                       dropout.dropout_reference(x, 0.1, SEED)):
+        fail("dropout at the P2G decoder's shape: the kernel's output is not "
+             "the plain version's, bit for bit")
+    xg = x.clone().requires_grad_()
+    gy = _rnd(gen, *dec_rows, D)
+    dropout.dropout(xg, 0.1, SEED).backward(gy)
+    if not torch.equal(xg.grad, dropout.dropout_reference(gy, 0.1, SEED)):
+        fail("dropout backward at the P2G decoder's shape: not the plain "
+             "version's mask, bit for bit")
+    rec.add("dropout", "cat_tpu_torch/csrc/dropout.cu",
+            "cat_tpu/ops/dropout_pallas.py:44", 0.0,
+            timed(lambda: dropout.dropout_apply(x, 0.1, SEED), 20, 3),
+            timed(lambda: dropout.dropout_reference(x, 0.1, SEED), 3, 1),
+            0, 2 * x.numel() * 4,
+            f"the P2G decoder's FF output {tuple(x.shape)} f32, rate 0.1, "
+            f"bit-exact forward and backward",
+            library_ms=timed(lambda: F.dropout(x, 0.1, True), 20, 3))
+    log(f"[p2g] f32 kernels vs their plain versions at the danp batch's "
+        f"encoder shape (N = {N}, T = {T}, lengths {min(lens)}..{max(lens)}, "
+        f"D = {D}, H = {H}; {card}; relative norms, gates {JSA_OUT_REL} on "
+        f"outputs, {JSA_SUM_REL} on sums over rows; two calls bit for bit): "
+        + ", ".join(f"{k} {e:.3g}" for k, e in rels.items()))
+
+
+def p2g_step_once(model, start, db, kw, patches=None):
+    """One P2G loss (mode and options `kw`) and backward on the device
+    batch db from the weights `start`, dropout seeds from a fixed
+    generator: (loss, grad norm, every gradient)."""
+    import torch
+    from cat_tpu_torch.ctc.train import global_grad_norm
+    from cat_tpu_torch.p2g import train as p2g
+    model.load_state_dict(start)
+    with ExitStack() as stack:
+        for mod, fns in (patches or {}).items():
+            for name, fn in fns.items():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+        model.train()
+        for q in model.parameters():
+            q.grad = None
+        per_seq = p2g.make_per_seq_fn(model, **kw)(
+            db, torch.Generator().manual_seed(5), True)
+        w = db["weight"]
+        loss = (per_seq * w).sum() / w.sum().clamp_min(1.0)
+        loss.backward()
+        torch.cuda.synchronize()
+    return (loss.item(), global_grad_norm(list(model.parameters())).item(),
+            {n: q.grad.detach().clone() for n, q in model.named_parameters()})
+
+
+def p2g_step_vs_plain(what, model, db, kw, want, card):
+    """One P2G loss and backward with the kernels (`want` launches)
+    against the same on the plain versions, from one generator: the loss
+    within JSA_OUT_REL, the grad norm and the gradient as one vector
+    within JSA_SUM_REL, each tensor within JSA_TENSOR_REL."""
+    import torch
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    k_loss, k_norm, k_grads = p2g_step_once(model, start, db, kw)
+    seen = counts()
+    if seen != want:
+        fail(f"{what} step launch counts {seen} != {want}")
+    p_loss, p_norm, p_grads = p2g_step_once(model, start, db, kw,
+                                            plain_patches())
+    if counts() != want:
+        fail("a kernel launched while every kernel wrapper was patched to "
+             "its plain version")
+    model.load_state_dict(start)
+    names = [n for n in k_grads if not n.endswith(P2G_NOISE)]
+    rel = {n: rel_norm(k_grads[n], p_grads[n]) for n in names}
+    worst = max(rel, key=rel.get)
+    flat = lambda g: torch.cat([g[n].flatten() for n in names])
+    whole = rel_norm(flat(k_grads), flat(p_grads))
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    norm_rel = abs(k_norm - p_norm) / abs(p_norm)
+    log(f"[p2g] {what} step ({card}), kernels / plain: loss {k_loss:.7g} / "
+        f"{p_loss:.7g} (rel {loss_rel:.3g}, tol {JSA_OUT_REL}), grad norm "
+        f"{k_norm:.6g} / {p_norm:.6g} (rel {norm_rel:.3g}, tol "
+        f"{JSA_SUM_REL}), gradient rel {whole:.3g} (tol {JSA_SUM_REL}), a "
+        f"tensor's at most {rel[worst]:.3g} ({worst}; tol {JSA_TENSOR_REL}); "
+        f"launches { {n: c for n, c in seen.items() if c} }")
+    if loss_rel > JSA_OUT_REL or norm_rel > JSA_SUM_REL \
+            or whole > JSA_SUM_REL or rel[worst] > JSA_TENSOR_REL:
+        fail(f"the {what} kernel step does not agree with the plain one")
+
+
+def p2g_timed_steps(what, model, opt, kw, loader, budget, want, card):
+    """P2G_WARM warm-up and P2G_TIMED timed train steps (CUDA events) on
+    the loader's first batches: ms, target and source tokens a second, peak
+    memory, `want` launches each; the device's split and busy share over
+    one more step (torch.profiler). Returns the mean ms."""
+    import torch
+    from cat_tpu_torch.p2g import train as p2g
+    step = p2g.make_train_step(model, opt, **kw)
+    state = p2g.init_state(model, opt)
+    gen = torch.Generator().manual_seed(7)
+    batches = loader.epoch(1)
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(P2G_WARM + P2G_TIMED):
+        b = next(batches)
+        db = p2g_device_batch(b)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev[0].record()
+        state, m = step(state, db, 1e-4, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        per = {k: v - before[k] for k, v in counts().items()}
+        if per != want or not math.isfinite(float(m["loss"])):
+            fail(f"{what} train step {i + 1}: launches {per} != {want}, loss "
+                 f"{float(m['loss'])}")
+        if i >= P2G_WARM:
+            w = b.weight > 0
+            src = (b.cand_lens[w].sum() if "cands" in db
+                   else b.src_lens[w].sum())
+            rows.append((ev[0].elapsed_time(ev[1]), 1e3 * wall,
+                         int((b.tgt_lens[w] + 1).sum()), int(src),
+                         tuple(db["src"].shape), float(m["loss"])))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    busy = phase_profile(lambda: step(state, db, 1e-4, gen),
+                         f"one {what} train step",
+                         f"chiprun_out/profile_p2g_{kw['mode']}.txt",
+                         cpu=False)
+    ms = [r[0] for r in rows]
+    t = sum(ms) / 1e3
+    log(f"[p2g] {what} train steps ({card}; frame budget {budget}, batches "
+        f"{[r[4] for r in rows]}"
+        + (f" x {loader.K} candidates" if "cands" in db else "")
+        + f"): ms a step (CUDA events) {[round(x, 2) for x in ms]}, mean "
+        f"{sum(ms) / len(ms):.2f}; host wall {[round(r[1], 1) for r in rows]} "
+        f"ms; {sum(r[2] for r in rows) / t:.0f} target and "
+        f"{sum(r[3] for r in rows) / t:.0f} source tokens/s; losses "
+        f"{[round(r[5], 3) for r in rows]}; peak memory {peak:.2f} GiB; busy "
+        f"share {busy if busy is None else round(busy, 3)}; launches a step "
+        f"{ {n: c for n, c in want.items() if c} }")
+    return sum(ms) / len(ms)
+
+
+def p2g_decode_vs_cpu(model, config, Vs, Vt, dev_loader, max_len, t_weight,
+                      card):
+    """Greedy decoding of the first P2G_DECODE dev utterances on the card
+    at max_len, then the same weights on the CPU teacher-forced on the
+    card's hypotheses: each hypothesis's log-prob (to its first eos)
+    within P2G_LP_REL, and at every step the card's token the CPU's
+    argmax unless the CPU's logits of the two lie within P2G_TIE (a
+    near-tie, exempt; more than half of the rows exempt fails). Then one
+    marginalised batch of P2G_MARG utterances (a greedy hypothesis a
+    candidate, rescored): the card's scores within P2G_LP_REL of the CPU's
+    on the same hypotheses, its choice the CPU's unless their scores
+    tie within P2G_TIE."""
+    import torch
+    from cat_tpu_torch.p2g import train as p2g
+    b = next(iter(dev_loader))
+    db = p2g_device_batch(b)
+    n = min(P2G_DECODE, int((b.weight > 0).sum()))
+    src, slens = db["src"][:n], db["src_lens"][:n]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, lens = p2g.greedy_generate(model, src, slens, max_len=max_len)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t
+    cpu = p2g.build_model(config, Vs, Vt, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+
+    def forced(m, src, slens, toks):
+        with torch.inference_mode():
+            tin = torch.cat([torch.zeros_like(toks[:, :1]), toks[:, :-1]], 1)
+            return m.decode(tin, None, m.encode(src, slens), slens)
+
+    L = torch.clamp_max(lens + 1, max_len)  # to the first eos, included
+    lp_card = p2g.seq_logp(forced(model, src, slens, toks), toks, L).cpu()
+    lg = forced(cpu, src.cpu(), slens.cpu(), toks.cpu())
+    lp_cpu = p2g.seq_logp(lg, toks.cpu(), L.cpu())
+    lp_rel = ((lp_card - lp_cpu).abs()
+              / lp_cpu.abs().clamp_min(1e-30)).max().item()
+    gap = lg.max(-1).values - lg.gather(-1, toks.cpu()[..., None])[..., 0]
+    live = torch.arange(max_len)[None, :] < L.cpu()[:, None]
+    gap = torch.where(live, gap, 0.0)
+    exempt = int((gap > 0).any(1).sum())
+    log(f"[p2g] greedy decoding of {n} dev utterances at max_len {max_len} "
+        f"({card}): {greedy_s:.2f} s, lengths {lens.tolist()}; the CPU "
+        f"teacher-forced on the card's hypotheses: log-probs rel "
+        f"{lp_rel:.3g} (tol {P2G_LP_REL}), {n - exempt} rows the CPU's "
+        f"argmax at every step, {exempt} with a near-tie (largest gap "
+        f"{gap.max().item():.3g}, tie {P2G_TIE})")
+    if not (lp_rel <= P2G_LP_REL and gap.max().item() < P2G_TIE
+            and 2 * exempt <= n):
+        fail("P2G greedy decoding on the card departs from the CPU's")
+    m = min(P2G_MARG, n)
+    cands, clens, cs = (db[k][:m] for k in ("cands", "cand_lens",
+                                             "cand_scores"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hyp, hlens, s_card = p2g.marginalized_decode(model, cands, clens, cs,
+                                                 max_len, t_weight)
+    s_card = s_card.cpu()
+    torch.cuda.synchronize()
+    marg_s = time.perf_counter() - t
+    s_cpu = p2g.marginalized_rescore(cpu, cands.cpu(), clens.cpu(), cs.cpu(),
+                                     hyp.cpu(), hlens.cpu(),
+                                     t_weight=t_weight)
+    s_rel = ((s_card - s_cpu).abs()
+             / s_cpu.abs().clamp_min(1e-30)).max().item()
+    pick_card, pick_cpu = s_card.argmax(1), s_cpu.argmax(1)
+    rows = torch.arange(m)
+    tie = (s_cpu[rows, pick_cpu] - s_cpu[rows, pick_card]).max().item()
+    log(f"[p2g] marginalised decoding of {m} dev utterances x {hyp.shape[1]} "
+        f"candidates ({card}): {marg_s:.2f} s; scores rel to the CPU's "
+        f"{s_rel:.3g} (tol {P2G_LP_REL}); chosen hypotheses "
+        f"{pick_card.tolist()} (CPU {pick_cpu.tolist()}, score gap {tie:.3g},"
+        f" tie {P2G_TIE})")
+    if not (s_rel <= P2G_LP_REL and tie < P2G_TIE):
+        fail("P2G marginalised decoding on the card departs from the CPU's")
+
+
+def p2g_full_width(root, data, card):
+    """llm-p2g danp and tkm at full width on the stand-in: stages 1-2 of
+    pipeline.asr (tokenizers, pack), the kernel checks at danp's first
+    batch, each recipe's step against its plain step and its timed steps,
+    then danp's decoding against the CPU."""
+    import shutil
+    import torch
+    from cat_tpu_torch.p2g import train as p2g
+    from cat_tpu_torch.pipeline import asr
+    from cat_tpu_torch.utils.data import Seq2SeqDataset, Seq2SeqLoader
+    from cat_tpu_torch.utils.scheduler import build_scheduler
+    train_text = os.path.join(data, "train_text")
+    ms = {}
+    danp_model = None
+    for name in (P2G_DANP, P2G_TKM):
+        mode_name = name.rsplit("/", 1)[1]
+
+        def edit(hyper, config):
+            hyper["tokenizer_grapheme"]["option-init"]["corpus"] = train_text
+            if mode_name == "danp":
+                hyper["data"]["train"] = os.path.join(data, "train_danp")
+
+        expdir = os.path.join(root, mode_name)
+        hyper, config = recipe(name, expdir, data, edit)
+        if mode_name == "tkm":  # the tokenizers danp's stage 1 built
+            for f in ("tokenizer_phone.tknz", "tokenizer_graph.tknz"):
+                shutil.copy(os.path.join(root, "danp", f), expdir)
+        t = time.perf_counter()
+        asr.main([expdir, "--stop_stage", "2", "--device", "cuda"])
+        stages = time.perf_counter() - t
+        toks = asr.load_tokenizers(expdir, hyper)
+        Vs, Vt = (toks[k].vocab_size for k in ("tokenizer",
+                                               "tokenizer_grapheme"))
+        opts = hyper["train"]["option"]
+        kcfg = config["p2g"]["kwargs"]
+        lkw = dict(frame_budget=opts.get("frame_budget", 2048),
+                   num_buckets=opts.get("num_buckets", 4),
+                   num_cands=hyper.get("tkm", {}).get("k"))
+        loader = Seq2SeqLoader(Seq2SeqDataset(os.path.join(expdir, "pkl",
+                                                           "train")),
+                               seed=0, **lkw)
+        model = p2g.build_model(config, Vs, Vt, device="cuda")
+        p2g_perturb(model, torch.Generator().manual_seed(29))
+        b = next(loader.epoch(1))
+        db = p2g_device_batch(b)
+        U = db["tgt_in"].shape[1]
+        log(f"[p2g] llm-p2g {mode_name} at full width ({card}): {kcfg}, "
+            f"{sum(q.numel() for q in model.parameters()) / 1e6:.2f} M "
+            f"parameters; {Vs} phone units, {Vt} grapheme units (BPE of the "
+            f"train text, the recipe's 500"
+            f"{'' if Vt == 500 else ': all the corpus supports'}); stages "
+            f"1-2 {stages:.1f} s; first batch src {tuple(db['src'].shape)}, "
+            f"targets {tuple(db['tgt_in'].shape)}"
+            + (f", candidates {tuple(db['cands'].shape)}" if "cands" in db
+               else ""))
+        if mode_name == "danp":
+            t = time.perf_counter()
+            p2g_kernel_checks(torch.Generator(device="cuda").manual_seed(27),
+                              b, kcfg["hdim"], kcfg["num_heads"],
+                              (db["src"].shape[0], U), card)
+            log(f"[p2g] kernel checks {time.perf_counter() - t:.1f} s")
+            kw = dict(mode="ce", label_smoothing=opts["label_smoothing"])
+        else:
+            kw = dict(mode="tkm", t_weight=opts["t_weight"])
+        want = p2g_launches(kcfg)
+        t = time.perf_counter()
+        p2g_step_vs_plain(f"llm-p2g {mode_name}", model, db, kw, want, card)
+        parts = {"step vs plain": time.perf_counter() - t}
+        if mode_name == "danp":  # the random model: long hypotheses
+            t = time.perf_counter()
+            dec = hyper["inference"]["decode"]
+            dev = Seq2SeqLoader(Seq2SeqDataset(os.path.join(
+                expdir, "pkl", "dev")), shuffle=False,
+                **dict(lkw, num_cands=P2G_K))
+            p2g_decode_vs_cpu(model, config, Vs, Vt, dev,
+                              int(dec.get("max_len", 64)),
+                              float(dec.get("t_weight", 1.0)), card)
+            parts["decoding"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _, opt = build_scheduler(config["scheduler"], model.parameters())
+        ms[mode_name] = p2g_timed_steps(f"llm-p2g {mode_name}", model, opt,
+                                        kw, loader, lkw["frame_budget"], want,
+                                        card)
+        parts["timed steps"] = time.perf_counter() - t
+        log(f"[p2g] llm-p2g {mode_name} parts ({card}): "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+        del model, opt
+        torch.cuda.empty_cache()
+    return ms
+
+
+def p2g_toy(root, card):
+    """egs/template/exp/p2g-danp through pipeline.asr stages 1-4 on
+    egs/template/local/make_data_p2g.py's data, in mode "ce" and in mode
+    "tkm" with decode.marginalize: launches pinned per step and eval batch
+    (the 1-cell d = 32 encoder: the f32 attention; its FF is JAX's unfused
+    layers), the files, a dev WER of at most P2G_TOY_WER."""
+    from cat_tpu_torch.pipeline import tasks
+    data = os.path.join(root, "data")
+    subprocess.run([sys.executable, os.path.join(
+        REPO, "egs", "template", "local", "make_data_p2g.py"), data],
+        check=True, capture_output=True)
+    for mode in ("ce", "tkm"):
+        def edit(hyper, config):
+            hyper["train"]["option"].update(mode=mode,
+                                            max_epochs=P2G_TOY_EPOCHS)
+            if mode == "tkm":
+                hyper["inference"]["decode"]["marginalize"] = True
+
+        expdir = os.path.join(root, mode)
+        hyper, config = recipe(P2G_TOY, expdir, data, edit)
+        watch = Stopwatch()
+        probes, total = run_pipeline(expdir, watch, {tasks.P2gTask: {
+            "train": watch.wrap("stage 3", tasks.P2gTask.train),
+            "decode": watch.wrap("stage 4", tasks.P2gTask.decode)}},
+            ["--device", "cuda"])
+        kcfg = config["p2g"]["kwargs"]
+        check_probe(probes[0], p2g_launches(kcfg),
+                    p2g_launches(kcfg, train=False), f"p2g-danp {mode}")
+        for name in ("tokenizer_phone.tknz", "tokenizer_graph.tknz",
+                     "pkl/train/seq2seq.npz", "pkl/dev/seq2seq.npz",
+                     "check/checkpoint.list", "check/metrics.jsonl",
+                     "readme.md", "decode_dev.txt", "nbest_dev.pkl",
+                     "wer_dev.json"):
+            if not os.path.exists(os.path.join(expdir, name)):
+                fail(f"p2g-danp {mode}: no {name}")
+        with open(os.path.join(expdir, "wer_dev.json")) as f:
+            res = json.load(f)
+        want_mode = "marginalize" if mode == "tkm" else "greedy"
+        ms = sorted(r["ms"] for r in probes[0].train)
+        log(f"[p2g] template p2g-danp, mode {mode} ({card}; max_epochs 250 -> "
+            f"{P2G_TOY_EPOCHS}): stages in "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in watch.s.items())
+            + f"; {len(probes[0].train)} steps (median "
+            f"{ms[len(ms) // 2]:.2f} ms, CUDA events), "
+            f"{len(probes[0].evals)} eval batches; WER {res['wer']:.2f}% "
+            f"({res['errors']} errors of {res['num_words']} words; gate "
+            f"{P2G_TOY_WER}), decode mode {res['mode']}; launches of the run "
+            f"{ {n: c for n, c in total.items() if c} }")
+        if res["wer"] > P2G_TOY_WER or res["mode"] != want_mode:
+            fail(f"p2g-danp {mode}: wer_dev.json {res}")
+
+
+def phase_p2g(card):
+    """[p2g] LLM-P2G on the card: the llm-p2g recipes at full width on a
+    stand-in (kernel checks, steps against their plain versions, timed
+    steps, decoding against the CPU) and template p2g-danp through
+    pipeline.asr stages 1-4 in modes ce and tkm. Returns the mean ms of a
+    danp and a tkm step."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="p2g-", dir=os.path.join(REPO, "build"))
+    try:
+        data = p2g_corpus(os.path.join(root, "llm"))
+        ms = p2g_full_width(os.path.join(root, "llm"), data, card)
+        p2g_toy(os.path.join(root, "toy"), card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[p2g] phase {time.perf_counter() - t_phase:.1f} s ({card}; cuts: "
+        f"llm-p2g on a stand-in of {P2G_SPLITS['train']} train (danp: x "
+        f"{P2G_K} expanded) and {P2G_SPLITS['dev']} dev utterances, the data "
+        f"and BPE corpus paths, no training beyond {P2G_WARM + P2G_TIMED + 1} "
+        f"steps; template p2g-danp max_epochs 250 -> {P2G_TOY_EPOCHS})")
+    return ms
 
 
 # ---------------------------------------------------------------- [f32]
@@ -6483,6 +7055,7 @@ def main():
     phase_pipeline(card())
     phase_me2e(card())
     jsa_launches = phase_jsa(rec, card())
+    phase_p2g(card())
     # each kernel's launches on the main path that runs it: the crf-v1
     # training phase, the rnnt-v1 one for the RNN-T lattice kernels, a
     # jsa-spg step with the sampler for the f32 routes of rows 2-3 and

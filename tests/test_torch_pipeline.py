@@ -489,8 +489,9 @@ def _hyper(**kw):
 
 
 # the JSA-SPG cases (an EmbeddingEncoder encoder, the ctc.train_jsa bin)
-# pass since the JSA slice (tests/test_torch_jsa.py); their places hold
-# the Wav2Vec2Encoder and the P2G bin under the port's package name
+# pass since the JSA slice (tests/test_torch_jsa.py), the P2G bin under
+# either package's name since the P2G slice (P2G below); their places
+# hold the Wav2Vec2Encoder and §A.6b's BLSTMN and TDNN_LSTM encoders
 UNPORTED = [
     (_hyper(den_lm={"path": "den.fst"}), {"trainer": {"loss": "crf"}},
      "§A.6"),
@@ -501,8 +502,8 @@ UNPORTED = [
     (_hyper(), {"encoder": {"type": "Wav2Vec2Encoder"}}, "§A.8"),
     (_hyper(), {"parallel": {"model": 2}}, "§A.7"),
     (_hyper(data={"train": ["a", "b"], "dev": "d"}), {}, "§A.8"),
-    (_hyper(train__bin="cat_tpu_torch.p2g.train"), {}, "§A.8"),
-    (_hyper(train__bin="cat_tpu.p2g.train"), {}, "§A.8"),
+    (_hyper(), {"encoder": {"type": "BLSTMN"}}, "§A.6"),
+    (_hyper(), {"encoder": {"type": "TDNN_LSTM"}}, "§A.6"),
 ]
 
 
@@ -534,6 +535,25 @@ def test_me2e_bins_pass_the_checks(hyper):
     task = tasks.get_task(hyper)
     assert task.module() is tasks.train_module(hyper["train"]["bin"])
     assert task.chunk == hyper["train"]["bin"].endswith("_chunk")
+
+
+# the §A.8 P2G cases of UNPORTED before the P2G slice: the bin, under
+# either package's name, passes now and has the P2G adapter
+P2G = [_hyper(train__bin=f"{pkg}.p2g.train")
+       for pkg in ("cat_tpu", "cat_tpu_torch")]
+
+
+@pytest.mark.parametrize("hyper", P2G)
+def test_p2g_bins_pass_the_checks(hyper):
+    config = {"p2g": {"kwargs": {"hdim": 32}}}
+    asr.check_train(hyper, config)
+    asr.check_decode(hyper, config)
+    task = tasks.get_task(hyper)
+    assert isinstance(task, tasks.P2gTask)
+    assert task.module() is tasks.train_module(hyper["train"]["bin"])
+    assert task.tokenizer_corpus_file("tokenizer") == "src"
+    assert task.tokenizer_corpus_file("tokenizer_grapheme") == "text"
+    assert not tasks.NOT_PORTED
 
 
 @pytest.mark.parametrize("name", ["aishell4/exp/me2e-mvdr",
