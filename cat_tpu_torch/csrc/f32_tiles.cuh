@@ -1,11 +1,15 @@
 // Building blocks of the port's float32 kernels (ffn_f32.cu,
 // relpos_attention_f32.cu, conv_module_f32.cu), which serve the float32
 // models (a ConformerNet at its default dtype, the token encoders of
-// JSA-SPG): a tiled matrix product on the CUDA cores with a fused
-// epilogue, LayerNorm row passes, and a column sum in two passes. Every
-// product is a full float32 FMA (no tensor cores, so no TF32 and no bf16
-// rounding) and every output is summed by one thread in one fixed order,
-// without atomics, so two calls on the same inputs give the same bits.
+// JSA-SPG and LLM-P2G): a tiled matrix product on the CUDA cores with a
+// fused epilogue, LayerNorm row passes, and a column sum in two passes.
+// The product here is a full float32 FMA (no TF32, no bf16 rounding); it
+// serves the FF forward, the attention and conv module kernels and the FF
+// backward at widths TMA cannot take, while the FF backward's products
+// otherwise run in 3xTF32 on the tensor cores (hopper_tf32.cuh), whose
+// LayerNorm and column-sum passes are these. Every output is summed by
+// one thread in one fixed order, without atomics, so two calls on the
+// same inputs give the same bits.
 #pragma once
 
 #include "common_math.cuh"

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cat_tpu_torch.models.layers import LN_EPS, Dense, Dropout, drop_args
-from cat_tpu_torch.ops.dropout import dropout_scale
+from cat_tpu_torch.ops.dropout import dropout_mask
 
 
 def _normal_(w, generator, std):
@@ -206,7 +206,8 @@ def attend(m, x, kv, mask, gen):
     from x (N, U, D), keys and values from kv (N, S, D'); q/sqrt(Dh)·k,
     the scores where `mask` (broadcast to (N, H, U, S)) is false at the
     float32 minimum, softmax, dropout of the probabilities (one (U, S) mask
-    for the batch and the heads), times v, the output projection."""
+    for the batch and the heads, `dropout_mask`: one launch on the card),
+    times v, the output projection."""
     f32 = torch.float32
     N, U, D = x.shape
     S, H = kv.shape[1], m.num_heads
@@ -218,7 +219,7 @@ def attend(m, x, kv, mask, gen):
     p = torch.softmax(s, -1)
     rate, seed = drop_args(m, m.dropout_rate, gen)
     if rate > 0.0:
-        p = p * dropout_scale(seed, 0, 1, U, S, rate, x.device)[0]
+        p = p * dropout_mask(seed, 0, U, S, rate, x.device)[0]
     o = (p @ heads(m.v(kv, f32), S)).transpose(1, 2).reshape(N, U, D)
     return m.out(o, f32)
 

@@ -23,7 +23,16 @@ call `dropout_apply` with the same seed, so the backward applies the
 forward's mask to the cotangent and no mask is stored. `dropout_apply`
 launches `cat_tpu_torch/csrc/dropout.cu` on a CUDA tensor and takes
 `dropout_reference` on a CPU tensor; kernel and plain version agree bit
-for bit.
+for bit. Its host work is kept to the least a call needs (the library's
+entry looked up once, the raw stream, the threshold kept by rate), since
+at the decoders' shapes the call costs more on the host than the kernel
+on the card.
+
+`dropout_mask` is the same library's mask entry: the f32 factors of
+`dropout_scale(seed, stream, 1, rows, cols, rate)` in one launch, for the
+transformer decoders' attention dropout (`models/decoders.py` `attend`);
+a CPU device takes `dropout_scale`. `dropout_scale` itself stays plain:
+it is the independent mask the fused kernels' plain versions apply.
 """
 from __future__ import annotations
 
@@ -41,21 +50,22 @@ def threshold(rate: float) -> int:
     return min(int(rate * 4294967296.0), 4294967295)
 
 
-def as_int32(v: int) -> int:
-    """An unsigned 32-bit word as the signed int a C `int` receives."""
-    return v - (1 << 32) if v >= 1 << 31 else v
+_THR = {}
 
 
 def kernel_args(rate: float, seed):
-    """The dropout arguments of a CUDA kernel: ([seed0, seed1, thr] as the
-    signed ints a C `int` receives, inv = 1 / (1 - rate)); rate 0 gives
-    thr 0, which the kernels read as no dropout."""
+    """The dropout arguments of a CUDA kernel: ([seed0, seed1, thr] as
+    uint32 values, which a C `int` receives as the same bits: ctypes
+    checks no range; inv = 1 / (1 - rate)); rate 0 gives thr 0, which the
+    kernels read as no dropout. The threshold and inv are kept by rate."""
     if rate <= 0.0:
         return [0, 0, 0], 1.0
     if seed is None:
         raise ValueError("dropout rate > 0 needs a seed")
-    return ([as_int32(int(w) & 0xFFFFFFFF) for w in seed]
-            + [as_int32(threshold(rate))], 1.0 / (1.0 - rate))
+    t = _THR.get(rate)
+    if t is None:
+        t = _THR[rate] = (threshold(rate), 1.0 / (1.0 - rate))
+    return [int(seed[0]) & _MASK32, int(seed[1]) & _MASK32, t[0]], t[1]
 
 
 def draw_seed(gen: torch.Generator) -> tuple:
@@ -119,6 +129,24 @@ def dropout_reference(x, rate: float, seed, stream: int = 0):
     return (x.float() * f.view(x.shape)).to(x.dtype)
 
 
+def _raw_stream(device) -> int:
+    """The current CUDA stream of `device` as the integer a C entry takes,
+    without the Python stream object of `torch.cuda.current_stream`
+    (about 3 us a call on the card's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_lib = {}
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+def _entry(name: str):
+    fn = _lib.get(name)
+    if fn is None:
+        fn = _lib[name] = getattr(_build.load("dropout", _ENTRIES), name)
+    return fn
+
+
 def dropout_apply(x, rate: float, seed, stream: int = 0):
     """x times its keep factor (`dropout_reference`). Rate 0 returns x and
     launches nothing. A CPU tensor takes `dropout_reference`; a CUDA
@@ -126,31 +154,52 @@ def dropout_apply(x, rate: float, seed, stream: int = 0):
     raises."""
     if rate <= 0.0:
         return x
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return dropout_reference(x, rate, seed, stream)
-    if x.dtype not in (torch.bfloat16, torch.float32) \
-            or not x.is_contiguous() or x.dim() == 0:
+    dt = x.dtype
+    if (dt is not _F32 and dt is not _BF16) or not x.is_contiguous() \
+            or x.dim() == 0:
         raise ValueError(f"dropout: the kernel takes contiguous bfloat16 or "
                          f"float32 CUDA tensors, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
     C = x.shape[-1]
-    R = x.numel() // max(C, 1)
-    if C % 4 == 0 and x.data_ptr() % (4 * x.element_size()):
-        raise ValueError("dropout: with rows of a multiple of 4 values the "
-                         "kernel takes tensors aligned to 4 values")
     drop, inv = kernel_args(rate, seed)
     out = torch.empty_like(x)
-    err = _build.load("dropout", _ENTRIES).dropout_fwd(
-        x.data_ptr(), out.data_ptr(), R, C, int(x.dtype == torch.float32),
-        int(stream), *drop, inv,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = _entry("dropout_fwd")(
+        x.data_ptr(), out.data_ptr(), x.numel() // max(C, 1), C,
+        dt is _F32, stream, *drop, inv, _raw_stream(dev))
     _build.check(err, "dropout")
     dropout_apply.launches += 1
     return out
 
 
 dropout_apply.launches = 0
-_ENTRIES = {"dropout_fwd": (2, 7, 1)}
+
+
+def dropout_mask(seed, stream: int, rows: int, cols: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """(1, rows, cols) f32 keep factors of (seed, stream), equal bit for
+    bit to `dropout_scale(seed, stream, 1, rows, cols, rate, device)`. A
+    CPU device (or None) takes `dropout_scale`; a CUDA device launches the
+    mask entry of `csrc/dropout.cu` once; rate 0 launches nothing."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu" or rate <= 0.0:
+        return dropout_scale(seed, stream, 1, rows, cols, rate, device)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_mask: the kernel writes CUDA tensors, "
+                         f"not {device}")
+    drop, inv = kernel_args(rate, seed)
+    out = torch.empty(1, rows, cols, dtype=torch.float32, device=device)
+    err = _entry("dropout_mask")(out.data_ptr(), rows, cols, int(stream),
+                                 *drop, inv, _raw_stream(out.device))
+    _build.check(err, "dropout_mask")
+    dropout_mask.launches += 1
+    return out
+
+
+dropout_mask.launches = 0
+_ENTRIES = {"dropout_fwd": (2, 7, 1), "dropout_mask": (1, 6, 1)}
 
 
 class _Dropout(torch.autograd.Function):

@@ -35,14 +35,21 @@ epilogue, the weight gradients split over rows), and a pass that sums
 every partial in a fixed order (about 0.58 GB of scratch traffic, 0.17 ms
 at 3.35 TB/s).
 
-Float32 (the token encoders of JSA-SPG) takes its own route, the TPU
-kernels' arithmetic at f32: `ff_forward_f32` and `ff_backward_f32` launch
-`csrc/ffn_f32.cu`, full float32 products on the CUDA cores (no TF32) in
-the same stages, any D and F, with the same Philox masks; each counts its
-launches. `ff_forward` and `ff_backward` dispatch by device and dtype: a
-CPU tensor takes the plain version (which follows x.dtype), a CUDA bf16
-tensor the bf16 kernels, a CUDA f32 tensor the f32 ones; anything else
-raises.
+Float32 (the float32 models: JSA-SPG's and LLM-P2G's token encoders, a
+ConformerNet at float32) takes its own route, the TPU kernels' arithmetic
+at f32 with the same Philox masks: `ff_forward_f32` and `ff_backward_f32`
+launch `csrc/ffn_f32.cu`. The forward runs full float32 FMAs on the
+CUDA cores, any D and F. The backward has two routes by shape
+(`f32_bwd_route`, counted in `ff_backward_f32.routes`): D and F
+multiples of 4 (every width the port runs) take its five products on
+TMA-fed wgmma in 3xTF32 (`csrc/hopper_tf32.cuh`: each operand split into
+TF32 hi and lo parts, `tf32_split` here, and lo·hi + hi·lo + hi·hi summed
+in f32, so float32 accuracy at tensor-core rates); other widths the
+CUDA-core tiles. Single-pass TF32 is on neither route. Each wrapper
+counts its launches. `ff_forward` and `ff_backward` dispatch by device
+and dtype: a CPU tensor takes the plain version (which follows x.dtype),
+a CUDA bf16 tensor the bf16 kernels, a CUDA f32 tensor the f32 ones;
+anything else raises.
 """
 from __future__ import annotations
 
@@ -58,7 +65,8 @@ _DIMS = (128, 256, 384, 512)
 _FWD = {"ffn_fwd": (10, 6, 2)}
 _BWD = {"ffn_bwd": (19, 7, 2), "ffn_bwd_workspace": (0, 3, 0)}
 _F32 = {"ffn_f32_fwd": (10, 6, 2), "ffn_f32_bwd": (15, 7, 2),
-        "ffn_f32_bwd_workspace": (0, 4, 0)}
+        "ffn_f32_bwd_workspace": (0, 4, 0), "ffn_f32_bwd_tc": (15, 7, 2),
+        "ffn_f32_bwd_tc_workspace": (0, 3, 0)}
 
 
 def _masks(seed, rate, R, D, Fh, device):
@@ -249,9 +257,33 @@ def _f32_operands(x, gamma, beta, w1, b1, w2, b2):
 
 
 def wgrad_splits(R: int) -> int:
-    """Slices of the R rows whose weight-gradient partials the f32
-    backward sums in order: one per 512 rows, 1 to 16."""
+    """Slices of the R rows whose weight-gradient partials the CUDA-core
+    route of the f32 backward sums in order: one per 512 rows, 1 to 16."""
     return max(1, min(16, R // 512))
+
+
+def f32_bwd_route(D: int, F: int) -> str:
+    """The f32 backward's route for widths D, F: "tensor_cores" (3xTF32
+    wgmma from TMA tiles, whose 16-byte row strides need multiples of 4)
+    or "cuda_cores" (`f32_tiles.cuh`, any width)."""
+    return "tensor_cores" if D % 4 == 0 and F % 4 == 0 else "cuda_cores"
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of an f32 tensor by the rule of `csrc/hopper_tf32.cuh`
+    `split`: hi = rna(x), lo = rna(x - hi), rna rounding to nearest, ties
+    away from zero, at TF32's 10 mantissa bits on the bit pattern ((bits +
+    0x1000) & 0xFFFFE000). Both are TF32 values (their low 13 bits zero);
+    hi + lo is x within 2^-22 relative (2^-137 absolute where lo is
+    subnormal)."""
+    def rna(v):
+        b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        b = (b + 0x1000) & 0xFFFFE000
+        b = torch.where(b >= 1 << 31, b - (1 << 32), b).to(torch.int32)
+        return b.view(torch.float32)
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
 
 
 def ff_forward_f32(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
@@ -276,10 +308,12 @@ def ff_forward_f32(x, gamma, beta, w1, b1, w2, b2, alpha=0.5, rate=0.0,
 def ff_backward_f32(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5,
                     rate=0.0, seed=None):
     """The float32 backward, (dx, dgamma, dbeta, dw1, db1, dw2, db2) in
-    f32: a CUDA f32 tensor launches `csrc/ffn_f32.cu`, which recomputes
-    the forward from x and sums the weight gradients over
-    `wgrad_splits(R)` slices of the rows in order; anything else raises.
-    `ff_backward` sends a CPU tensor to the plain version."""
+    f32: a CUDA f32 tensor launches `csrc/ffn_f32.cu` on the route of
+    `f32_bwd_route` (3xTF32 wgmma, whose C entry picks the row slices of
+    the weight gradients, or CUDA-core tiles over `wgrad_splits(R)`
+    slices), which recomputes the forward from x and sums every slice in
+    order; anything else raises. `ff_backward` sends a CPU tensor to the
+    plain version."""
     xr, g, b, w1f, b1f, w2f, _ = _f32_operands(x, gamma, beta, w1, b1, w2,
                                                b2)
     drop, inv = kernel_args(rate, seed)
@@ -290,20 +324,32 @@ def ff_backward_f32(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5,
     outs = [new(R, D), new(D), new(D), new(D, Fh), new(Fh), new(Fh, D),
             new(D)]
     lib = _build.load("ffn_f32", _F32)
-    splits = wgrad_splits(R)
-    ws = new(max(lib.ffn_f32_bwd_workspace(R, D, Fh, splits, None), 1) * 64)
-    err = lib.ffn_f32_bwd(
-        *(t.data_ptr() for t in (xr, g, b, w1f, b1f, w2f, do, *outs, ws)),
-        R, D, Fh, *drop, splits, float(alpha), inv,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    route = f32_bwd_route(D, Fh)
+    if route == "tensor_cores":
+        units = lib.ffn_f32_bwd_tc_workspace(R, D, Fh, None)
+        ws = new(max(units, 1) * 64)
+        err = lib.ffn_f32_bwd_tc(
+            *(t.data_ptr() for t in (xr, g, b, w1f, b1f, w2f, do, *outs, ws)),
+            R, D, Fh, *drop, units, float(alpha), inv,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        splits = wgrad_splits(R)
+        ws = new(max(lib.ffn_f32_bwd_workspace(R, D, Fh, splits, None), 1)
+                 * 64)
+        err = lib.ffn_f32_bwd(
+            *(t.data_ptr() for t in (xr, g, b, w1f, b1f, w2f, do, *outs, ws)),
+            R, D, Fh, *drop, splits, float(alpha), inv,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ffn_f32_bwd")
     ff_backward_f32.launches += 1
+    ff_backward_f32.routes[route] += 1
     dx, *grads = outs
     return (dx.view(x.shape), *grads)
 
 
 ff_forward_f32.launches = 0
 ff_backward_f32.launches = 0
+ff_backward_f32.routes = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 class _FusedFF(torch.autograd.Function):

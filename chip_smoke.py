@@ -27,7 +27,8 @@ Phases, any failure exits non-zero:
    path's kernels at the training batch (N = 32, T' = 299..493, U =
    74..123, V = 72, the 3-gram denominator of `make_den`): the
    standalone dropout bit for bit
-   (and `torch.nn.functional.dropout` timed beside it), CTC alphas and
+   (and `torch.nn.functional.dropout` timed beside it, device time and
+   the host's cost of a call apart), CTC alphas and
    betas (the lanes route of `ctc_plan` at the training batch, the frames
    route on a lattice of S = 2049, N = 2, T' = 40; two calls of each bit
    for bit) on live states within 1e-3 + 2e-6·|plain| and the rest floored
@@ -119,7 +120,11 @@ Phases, any failure exits non-zero:
    calls bit for bit, bn_out's mask bit for bit against ops/dropout.py's;
    the four timed beside their bounds at the f32 peak into the records;
    rows 12-13 and 2-3 at float32 at crf-v1's width (D = 512, F = 2048, H =
-   8) under the same gates, timed beside their bounds; the TF32 probe:
+   8) under the same gates (row 13 f32 at rates 0 and 0.1 on its 3xTF32
+   route), timed beside their bounds (row 13 f32's: three TF32 products
+   at 495 TFLOP/s, its device time by launch), and row 13 f32 against a
+   float64 witness (`ffn_f32_witness`: within 4x the plain float32
+   version's distance and a tenth of single-pass TF32's); the TF32 probe:
    crf-v1's conv_b, crf-tdnn's TDNN conv and crf-v1's depthwise conv
    with cuDNN's switch on and off against a float64 witness, and the
    package's float32 convs (`layers.conv_f32`) bit for bit either way;
@@ -226,8 +231,10 @@ Phases, any failure exits non-zero:
    and masked CE loss on the first `LmLoader` batch of a seeded token
    corpus against the same weights on the CPU (logits within 1e-4
    relative norm, loss within 1e-5 relative), 3 train steps at the
-   loader's defaults (token budget 8000, max_len 512; 14 dropout launches
-   a step and nothing else; ms, tokens/s, peak); rnnt-v1's width-16 beam
+   loader's defaults (token budget 8000, max_len 512; 14 dropout and 6
+   dropout_mask launches a step and nothing else, no `dropout_scale` on
+   the card, the attention masks bit for bit against `dropout_scale` at
+   the batches' shapes; ms, tokens/s, peak); rnnt-v1's width-16 beam
    on the shortest serving utterance with decode.lm "nn" and "lodr"
    (that LM, and with a token 2-gram of weight -0.3): at alpha = 0 the
    unfused beam's result, at alpha 0.3, beta 0.5 the 1-best's LM term
@@ -322,8 +329,9 @@ Phases, any failure exits non-zero:
    8), rates 0 and 0.1: relative norms within JSA_OUT_REL on outputs and
    JSA_SUM_REL on sums over rows, two calls bit for bit, the FF output's
    and the attention probabilities' dropout masks bit for bit against
-   ops/dropout.py's; the P2G shape timed beside its bound at the f32 peak
-   (67 TFLOP/s) into the records. Then jsa-spg at full width on a stand-in
+   ops/dropout.py's; the P2G shape timed beside its bound into the
+   records (at the f32 peak, 67 TFLOP/s; row 13 f32 at three TF32
+   products, 495 TFLOP/s). Then jsa-spg at full width on a stand-in
    corpus (`jsa_corpus`: `make_phone_corpus`'s synthesis over a lexicon
    of JSA_WORDS words of the 70 phones, each written in three-letter
    phone codes; the lexicon tokenizer for the phones, a BPE of 500 units
@@ -357,8 +365,11 @@ Phases, any failure exits non-zero:
    candidates an utterance, train_danp expanded by `danp_expand`),
    packed by stages 1-2 of pipeline.asr: the four f32 kernels against
    their plain versions at danp's first batch (`f32_gates`, [jsa]'s
-   gates, two calls bit for bit) and timed beside their bounds, the
-   dropout kernel at the decoder's shape; each recipe's loss and backward
+   gates, two calls bit for bit) and timed beside their bounds, row 13
+   f32 against its float64 witness, the dropout kernel at the decoder's
+   shape (beside `F.dropout`, device time and host cost apart), the
+   decoder's attention masks (`dropout_mask`) bit for bit against
+   `dropout_scale` and recorded; each recipe's loss and backward
    with the kernels (`p2g_launches`) against the plain versions (the loss
    JSA_OUT_REL, grad norm and gradient JSA_SUM_REL, a tensor
    JSA_TENSOR_REL); greedy decoding of P2G_DECODE dev utterances at the
@@ -366,7 +377,8 @@ Phases, any failure exits non-zero:
    teacher-forced on the card's hypotheses (log-probs within P2G_LP_REL,
    each token the CPU's argmax unless within P2G_TIE); P2G_WARM +
    P2G_TIMED train steps each (ms, tokens/s, peak, launches, busy
-   share); then egs/template/exp/p2g-danp through stages 1-4 in modes ce
+   share; no `dropout_scale` on the card); then
+   egs/template/exp/p2g-danp through stages 1-4 in modes ce
    and tkm (marginalised decoding; max_epochs 250 -> P2G_TOY_EPOCHS),
    launches pinned per step and eval batch, dev WER at most P2G_TOY_WER;
 12. device: the card's name and power limit.
@@ -396,6 +408,7 @@ from unittest import mock
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 FRAMES = [2400, 1600, 1400, 1200, 1000, 800, 600, 400]  # ragged batch
 TRAIN_FRAMES = [1200 + 25 * k for k in range(32)]       # training batch
@@ -419,11 +432,11 @@ KERNELS = ("ffn_fwd", "glu_in_fwd", "bn_out_fwd", "relpos_attention_fwd",
            "rnnt_alpha", "rnnt_beta", "ffn_f32_fwd", "ffn_f32_bwd",
            "relpos_attention_f32_fwd", "relpos_attention_f32_bwd",
            "glu_in_f32_fwd", "glu_in_f32_bwd", "bn_out_f32_fwd",
-           "bn_out_f32_bwd")
+           "bn_out_f32_bwd", "dropout_mask")
 # the f32 routes of rows 12-13 and 2-3, run by JSA-SPG's token encoders
 JSA_F32 = KERNELS[15:19]
 # the f32 routes of rows 14-17, run by a ConformerNet at its default float32
-CONV_F32 = KERNELS[19:]
+CONV_F32 = KERNELS[19:23]
 # each bf16 encoder kernel's f32 route
 F32_OF = dict(zip(KERNELS[:8], ("ffn_f32_fwd", "glu_in_f32_fwd",
                                 "bn_out_f32_fwd", "relpos_attention_f32_fwd",
@@ -656,7 +669,8 @@ def wrappers():
             "glu_in_f32_fwd": conv_module.glu_in_forward_f32,
             "glu_in_f32_bwd": conv_module.glu_in_backward_f32,
             "bn_out_f32_fwd": conv_module.bn_out_forward_f32,
-            "bn_out_f32_bwd": conv_module.bn_out_backward_f32}
+            "bn_out_f32_bwd": conv_module.bn_out_backward_f32,
+            "dropout_mask": dropout.dropout_mask}
 
 
 def reset_counts():
@@ -668,11 +682,20 @@ def counts():
     return {k: w.launches for k, w in wrappers().items()}
 
 
+def plain_mask(seed, stream, rows, cols, rate, device=None):
+    """`dropout_mask`'s plain version: `dropout_scale`'s factors."""
+    from cat_tpu_torch.ops.dropout import dropout_scale
+    return dropout_scale(seed, stream, 1, rows, cols, rate, device)
+
+
 def plain_patches():
     """Every kernel wrapper, forward and backward, on its plain version."""
+    from cat_tpu_torch.models import decoders
     from cat_tpu_torch.ops import (attention, conv_module, crf_dense, ctc,
                                    dropout, ffn, rnnt)
-    return {dropout: {"dropout_apply": dropout.dropout_reference},
+    return {dropout: {"dropout_apply": dropout.dropout_reference,
+                      "dropout_mask": plain_mask},
+            decoders: {"dropout_mask": plain_mask},
             rnnt: {"forward_alphas": rnnt.forward_alphas_reference,
                    "backward_betas": rnnt.backward_betas_reference},
             ctc: {"forward_alphas": ctc.forward_alphas_reference,
@@ -906,6 +929,185 @@ def profile_split(name, call, what, calls):
         if missing or strays:
             fail(f"{name} ({what}): stages without device time {missing}, "
                  f"other kernels of its own {sorted(strays)}")
+
+
+def device_split(call, calls=5):
+    """{kernel: mean device ms a launch} of `call`'s kernels over `calls`
+    calls (torch.profiler), names without their namespace and arguments:
+    for kernels launched once a call, the device time of a call, whether
+    or not the profiler kept every call's events; a second capture if the
+    first recorded no device time, then empty."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        total, seen = {}, {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            n = e.name.replace("(anonymous namespace)::", "")
+            n = n.replace("void ", "").split("(")[0][:48]
+            total[n] = total.get(n, 0.0) + (e.time_range.end
+                                            - e.time_range.start) / 1e3
+            seen[n] = seen.get(n, 0) + 1
+        if total:
+            return {n: total[n] / seen[n] for n in total}
+    return {}
+
+
+def host_us(call, calls=200):
+    """The host's cost of one call, microseconds: `calls` back-to-back
+    calls that wait for nothing, on the host clock, after a warm-up."""
+    import torch
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        call()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def timed_pair(a, b, rounds=5, iters=200):
+    """Medians of `rounds` interleaved rounds of `timed(a, iters)` and
+    `timed(b, iters)`: two host-paced calls compared on one host, whose
+    pace drifts between rounds."""
+    ta, tb = [], []
+    for _ in range(rounds):
+        ta.append(timed(a, iters, 10))
+        tb.append(timed(b, iters, 10))
+    return sorted(ta)[rounds // 2], sorted(tb)[rounds // 2]
+
+
+def dropout_costs(x, what):
+    """Row 1 (`dropout_apply`) and `F.dropout` on x at rate 0.1, each as
+    CUDA events over 200 back-to-back calls (the larger of the host's and
+    the card's pace; the median of 5 rounds, the two interleaved), device
+    time a call (torch.profiler) and the host's cost of a call; logged.
+    Returns (kernel ms, F.dropout ms) by events."""
+    import torch.nn.functional as F
+    from cat_tpu_torch.ops import dropout
+    calls = {"dropout_apply": lambda: dropout.dropout_apply(x, 0.1, SEED),
+             "F.dropout": lambda: F.dropout(x, 0.1, True)}
+    ev, parts = dict(zip(calls, timed_pair(*calls.values()))), []
+    for name, call in calls.items():
+        dev = sum(device_split(call, 20).values())
+        parts.append(f"{name} {ev[name]:.4f} ms (device "
+                     + (f"{dev:.4f} ms" if dev else "not measured")
+                     + f", host {host_us(call):.1f} us a call)")
+    log(f"[kernel] dropout at {what} ({tuple(x.shape)} {x.dtype}, rate 0.1; "
+        f"events over 200 back-to-back calls, the median of 5 interleaved "
+        f"rounds): " + "; ".join(parts))
+    return ev["dropout_apply"], ev["F.dropout"]
+
+
+def mask_checks(shapes, what):
+    """`dropout_mask` on the card against `dropout_scale`, bit for bit, at
+    each (rows, cols) of `shapes`, streams 0 and 1, rate 0.1; one launch a
+    call on its own count."""
+    import torch
+    from cat_tpu_torch.ops import dropout
+    for rows, cols in shapes:
+        for stream in (0, 1):
+            before = dropout.dropout_mask.launches
+            got = dropout.dropout_mask(SEED, stream, rows, cols, 0.1, "cuda")
+            if dropout.dropout_mask.launches != before + 1 \
+                    or not torch.equal(got, dropout.dropout_scale(
+                        SEED, stream, 1, rows, cols, 0.1, "cuda")):
+                fail(f"dropout_mask {rows} x {cols} stream {stream} ({what}): "
+                     f"not dropout_scale's factors bit for bit in one launch")
+    log(f"[kernel] dropout_mask at {what} {list(shapes)}: dropout_scale's "
+        f"factors bit for bit, one launch a mask")
+
+
+def no_plain_masks(what):
+    """A context in which `dropout_scale` on a CUDA device fails: inside
+    it every dropout mask of the main path comes from a kernel."""
+    from cat_tpu_torch.ops import attention, conv_module, dropout, ffn
+    real = dropout.dropout_scale
+
+    def guard(seed, stream, planes, rows, cols, rate, device=None):
+        if device is not None and "cuda" in str(device):
+            fail(f"{what}: dropout_scale drew a ({planes}, {rows}, {cols}) "
+                 f"mask on the card")
+        return real(seed, stream, planes, rows, cols, rate, device)
+
+    stack = ExitStack()
+    for mod in (dropout, attention, conv_module, ffn):
+        stack.enter_context(mock.patch.object(mod, "dropout_scale", guard))
+    return stack
+
+
+def ff_backward_f64(x, gamma, beta, w1, b1, w2, b2, dout, alpha=0.5,
+                    rate=0.0, seed=None):
+    """The FF backward in float64, a witness: autograd of the forward's
+    formula on the inputs in float64, the dropout factors
+    `ff_backward_reference`'s (f32 values of 1 / (1 - rate) or 0).
+    Returns (dx, dgamma, dbeta, dw1, db1, dw2, db2) in float64."""
+    import torch
+    import torch.nn.functional as F
+    from cat_tpu_torch.ops import ffn
+    D, Fh = x.shape[-1], w1.shape[-1]
+    xr = x.detach().reshape(-1, D).double().requires_grad_()
+    ps = [t.detach().double().requires_grad_()
+          for t in (gamma, beta, w1, b1, w2, b2)]
+    g, b, W1, B1, W2, B2 = ps
+    k1, k2 = ffn._masks(seed, rate, xr.shape[0], D, Fh, x.device)
+    k1 = k1.double() if torch.is_tensor(k1) else k1
+    k2 = k2.double() if torch.is_tensor(k2) else k2
+    h = F.layer_norm(xr, (D,), g, b, ffn.LN_EPS)
+    out = xr + alpha * (((F.silu(h @ W1 + B1) * k1) @ W2 + B2) * k2)
+    return torch.autograd.grad(out, [xr, *ps],
+                               dout.detach().reshape(-1, D).double())
+
+
+def ffn_f32_witness(gen, where, N, T, D, card):
+    """Row 13 f32 against a float64 witness (`ff_backward_f64`) on random
+    inputs of N x T rows, width D, F = 4D,
+    rate 0.1: on every output the kernel's relative norm from the witness
+    is at most 4x the plain float32 version's (cuBLAS, TF32 off) and, on
+    every output a product feeds (all but db2), at most a tenth of a
+    single-pass TF32 computation's (the plain version with
+    `torch.backends.cuda.matmul.allow_tf32` on: a probe only)."""
+    import torch
+    from cat_tpu_torch.ops import ffn
+    Fh = 4 * D
+    x, do = _rnd(gen, N, T, D), _rnd(gen, N, T, D)
+    ffp = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+           _rnd(gen, D, Fh, s=D ** -0.5), _rnd(gen, Fh, s=0.1),
+           _rnd(gen, Fh, D, s=Fh ** -0.5), _rnd(gen, D, s=0.1))
+    kw = dict(rate=0.1, seed=SEED)
+    got = ffn.ff_backward_f32(x, *ffp, do, **kw)
+    plain = ffn.ff_backward_reference(x, *ffp, do, **kw)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ffn.ff_backward_reference(x, *ffp, do, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    witness = ff_backward_f64(x, *ffp, do, **kw)
+    lines = []
+    for n, g, p, t, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2",
+                              "db2"), got, plain, tf32, witness):
+        g, p, t = (v.reshape(w.shape) for v in (g, p, t))
+        ek, ep, et = rel_norm(g, w), rel_norm(p, w), rel_norm(t, w)
+        lines.append(f"{n} {ek:.3g} / {ep:.3g} / {et:.3g}")
+        if not (ek <= 4 * ep and (n == "db2" or 10 * ek <= et)):
+            fail(f"ffn_f32_bwd {n} at {where}: {ek:.3g} from the float64 "
+                 f"witness, the plain float32 version {ep:.3g} (4x allowed), "
+                 f"single-pass TF32 {et:.3g} (a tenth allowed)")
+    log(f"[f32] row 13 f32 against a float64 witness at {where} (N={N} "
+        f"T={T}, D={D}, F={Fh}, rate 0.1; {card}; relative norms kernel / "
+        f"plain float32 / single-pass TF32; db2 takes no product): "
+        + ", ".join(lines))
 
 
 def ffn_fwd_products(x, ffp, what):
@@ -1230,6 +1432,7 @@ def phase_loss_kernels(gen, rec, den, floors):
             0, 2 * x.numel() * 2,
             f"({N}, {T}, {D}) bf16, rate 0.1, bit-exact forward and backward",
             library_ms=timed(lambda: F.dropout(x, 0.1, True), 20, 3))
+    dropout_costs(x, "the crf-v1 training batch")
 
     # CTC: the lattice of the training batch's labels (the lanes route of
     # `ctc_plan`), then a lattice of S = 2049 (the frames route)
@@ -4400,27 +4603,33 @@ def lm_full_width(root, model, cpu_lm, card):
     state = lm_train.init_state(model, opt)
     step = lm_train.make_train_step(model, opt)
     gen = torch.Generator().manual_seed(5)
+    mask_checks(sorted({(bt["tokens"].shape[1],) * 2 for bt in batches[1:]}),
+                "[lm]'s train batches")
     torch.cuda.reset_peak_memory_stats()
     ms, toks, losses = [], [], []
-    for i, batch in enumerate(batches[1:]):
-        tb = on(batch, "cuda")
-        sched.update_lr_step(i + 1)
-        reset_counts()
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        state, m = step(state, tb, sched.lr, gen)
-        e1.record()
-        torch.cuda.synchronize()
-        # dropout, forward and backward, after the embedding and each FF
-        want_c = {k: 2 * (1 + len(model.blocks)) * (k == "dropout")
-                  for k in KERNELS}
-        if counts() != want_c or m["skipped"] or not math.isfinite(
-                float(m["loss"])):
-            fail(f"[lm] train step {i + 1}: launches {counts()} != {want_c},"
-                 f" loss {float(m['loss'])}, skipped {m['skipped']}")
-        ms.append(e0.elapsed_time(e1))
-        toks.append(int(tb["lengths"].sum()))
-        losses.append(round(float(m["loss"]), 3))
+    with no_plain_masks("[lm] train step"):
+        for i, batch in enumerate(batches[1:]):
+            tb = on(batch, "cuda")
+            sched.update_lr_step(i + 1)
+            reset_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            state, m = step(state, tb, sched.lr, gen)
+            e1.record()
+            torch.cuda.synchronize()
+            # dropout, forward and backward, after the embedding and each
+            # FF; one attention-dropout mask a layer
+            want_c = {k: 2 * (1 + len(model.blocks)) * (k == "dropout")
+                      + len(model.blocks) * (k == "dropout_mask")
+                      for k in KERNELS}
+            if counts() != want_c or m["skipped"] or not math.isfinite(
+                    float(m["loss"])):
+                fail(f"[lm] train step {i + 1}: launches {counts()} != "
+                     f"{want_c}, loss {float(m['loss'])}, skipped "
+                     f"{m['skipped']}")
+            ms.append(e0.elapsed_time(e1))
+            toks.append(int(tb["lengths"].sum()))
+            losses.append(round(float(m["loss"]), 3))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     shapes = [tuple(bt["tokens"].shape) for bt in batches]
     log(f"[lm] CausalTransformer (hdim 512, 6 layers, 8 heads, ff 2048, "
@@ -4433,7 +4642,8 @@ def lm_full_width(root, model, cpu_lm, card):
         f"{[round(x, 2) for x in ms]} (CUDA events), "
         f"{[round(t / x * 1e3) for t, x in zip(toks, ms)]} tokens/s, "
         f"losses {losses}, peak {peak:.2f} GiB, launches a step "
-        f"{2 * (1 + len(model.blocks))} dropout and nothing else")
+        f"{2 * (1 + len(model.blocks))} dropout and {len(model.blocks)} "
+        f"dropout_mask and nothing else")
 
 
 def lm_fusion(root, lm, cpu_lm, card):
@@ -5185,7 +5395,10 @@ def f32_gates(gen, where, N, T, D, H, lens, errs, rels):
             f"ffn_f32_fwd {tag}", out, ffn.ff_reference(x, *ffp, **kw),
             JSA_OUT_REL, rels)
         bitwise("ffn_f32_fwd", out, ffn.ff_forward_f32(x, *ffp, **kw))
+        before = ffn.ff_backward_f32.routes["tensor_cores"]
         got = ffn.ff_backward_f32(x, *ffp, do, **kw)
+        if ffn.ff_backward_f32.routes["tensor_cores"] != before + 1:
+            fail(f"ffn_f32_bwd at D = {D}: not the 3xTF32 route")
         want = ffn.ff_backward_reference(x, *ffp, do, **kw)
         errs[f"ffn_f32_bwd {tag}"] = max(
             gate_rel(f"ffn_f32_bwd {n} {tag}", g, w,
@@ -5230,7 +5443,10 @@ def f32_gates(gen, where, N, T, D, H, lens, errs, rels):
 def f32_records(rec, where, lens, D, H, inputs, errs):
     """The four f32 kernels timed at rate 0.1 on `inputs` (`f32_gates`'),
     beside their plain versions and bounds, into rec. The bounds count
-    the valid rows and (query, key) pairs only, as the bf16 records do."""
+    the valid rows and (query, key) pairs only, as the bf16 records do;
+    row 13 f32's is the least time at the precision its gates demand,
+    three TF32 products (3 x 10·Rv·D·F at 495 TFLOP/s), its CUDA-core
+    bound (10·Rv·D·F at 67) beside it in the line."""
     from cat_tpu_torch.ops import attention, ffn
     x, ffp, do, att, out, lse, dao = inputs
     N, T = x.shape[:2]
@@ -5252,9 +5468,11 @@ def f32_records(rec, where, lens, D, H, inputs, errs):
             timed(lambda: ffn.ff_backward_f32(x, *ffp, do, **kw), 10, 2),
             timed(lambda: ffn.ff_backward_reference(x, *ffp, do, **kw), 3,
                   1),
-            10 * Rv * D * Fh,
-            (3 * Rv * D + 4 * D * Fh + 5 * D + 2 * Fh) * 4, what,
-            PEAK_F32_FLOPS)
+            3 * 10 * Rv * D * Fh,
+            (3 * Rv * D + 4 * D * Fh + 5 * D + 2 * Fh) * 4,
+            f"{what}, route {ffn.f32_bwd_route(D, Fh)}; CUDA-core bound "
+            f"{1e3 * 10 * Rv * D * Fh / PEAK_F32_FLOPS:.4f} ms",
+            PEAK_TF32_FLOPS)
     what = f"{where}, N={N} T={T} H={H} Dh={Dh}, rate 0.1"
     rec.add("relpos_attention_f32_fwd",
             "cat_tpu_torch/csrc/relpos_attention_f32.cu",
@@ -5827,15 +6045,17 @@ P2G_NOISE = NOISE_GRADS + (".k.bias",)
 def p2g_launches(kw, train=True):
     """Launches of one P2G step (or eval forward) of the model of `kw`:
     the encoder's f32 FF (two a cell, fused at D a multiple of 128) and
-    attention kernels, the decoder's FF dropout forward and backward (at
-    a rate above 0)."""
+    attention kernels, the decoder's FF dropout forward and backward and
+    its attention-dropout masks, a self and a cross mask a layer (at a
+    rate above 0)."""
     enc, dec = kw.get("enc_layers", 4), kw.get("dec_layers", 4)
     ff = 2 * enc if kw.get("hdim", 256) % 128 == 0 else 0
     out = dict.fromkeys(KERNELS, 0)
     out.update(ffn_f32_fwd=ff, relpos_attention_f32_fwd=enc)
     if train:
+        drop = kw.get("dropout_rate", 0.1) > 0
         out.update(ffn_f32_bwd=ff, relpos_attention_f32_bwd=enc,
-                   dropout=2 * dec if kw.get("dropout_rate", 0.1) > 0 else 0)
+                   dropout=2 * dec * drop, dropout_mask=2 * dec * drop)
     return out
 
 
@@ -5920,15 +6140,17 @@ def p2g_device_batch(b, device="cuda"):
     return out
 
 
-def p2g_kernel_checks(gen, b, D, H, dec_rows, card):
+def p2g_kernel_checks(gen, b, D, H, dec_rows, card, main_rec):
     """The four f32 kernels against their plain versions at the encoder's
     shape of the batch `b` (`f32_gates`: rates 0 and 0.1, two calls bit for
-    bit), timed beside their bounds; the standalone dropout at the
-    decoder's feed-forward output (dec_rows = (N, U), f32, rate 0.1) bit
-    for bit both ways, timed beside `F.dropout`. Logged, not recorded:
-    the kernels line keeps [jsa]'s records."""
+    bit), timed beside their bounds, and row 13 f32 against its float64
+    witness; the standalone dropout at the decoder's feed-forward output
+    (dec_rows = (N, U), f32, rate 0.1) bit for bit both ways, timed beside
+    `F.dropout` (device time and host cost apart). Logged, not recorded:
+    the kernels line keeps [jsa]'s records. The decoder's attention masks
+    (`dropout_mask`, (U, U) and (U, T)) bit for bit against
+    `dropout_scale`, recorded into `main_rec` at the cross shape."""
     import torch
-    import torch.nn.functional as F
     from cat_tpu_torch.ops import dropout
     N, T = b.src.shape
     lens = [int(x) for x in b.src_lens]
@@ -5937,6 +6159,22 @@ def p2g_kernel_checks(gen, b, D, H, dec_rows, card):
     inputs = f32_gates(gen, where, N, T, D, H, lens, errs, rels)
     rec = Records()
     f32_records(rec, where, lens, D, H, inputs, errs)
+    del inputs
+    ffn_f32_witness(gen, "the llm-p2g danp batch", N, T, D, card)
+    U = dec_rows[1]
+    mask_checks(((U, U), (U, T)), "the danp batch's self and cross "
+                "attention")
+    rows, cols = U, T
+    main_rec.add(
+        "dropout_mask", "cat_tpu_torch/csrc/dropout.cu",
+        "cat_tpu/ops/dropout_pallas.py:44", 0.0,
+        timed(lambda: dropout.dropout_mask(SEED, 0, rows, cols, 0.1,
+                                           "cuda"), 20, 3),
+        timed(lambda: dropout.dropout_scale(SEED, 0, 1, rows, cols, 0.1,
+                                            "cuda"), 5, 1),
+        0, rows * cols * 4,
+        f"the danp decoder's cross-attention mask ({rows}, {cols}) f32, rate "
+        f"0.1, bit for bit against dropout_scale (row 1's mask entry)")
     x = _rnd(gen, *dec_rows, D)
     if not torch.equal(dropout.dropout_apply(x, 0.1, SEED),
                        dropout.dropout_reference(x, 0.1, SEED)):
@@ -5948,14 +6186,14 @@ def p2g_kernel_checks(gen, b, D, H, dec_rows, card):
     if not torch.equal(xg.grad, dropout.dropout_reference(gy, 0.1, SEED)):
         fail("dropout backward at the P2G decoder's shape: not the plain "
              "version's mask, bit for bit")
+    k_ms, lib_ms = dropout_costs(x, "the P2G decoder's FF output")
     rec.add("dropout", "cat_tpu_torch/csrc/dropout.cu",
-            "cat_tpu/ops/dropout_pallas.py:44", 0.0,
-            timed(lambda: dropout.dropout_apply(x, 0.1, SEED), 20, 3),
+            "cat_tpu/ops/dropout_pallas.py:44", 0.0, k_ms,
             timed(lambda: dropout.dropout_reference(x, 0.1, SEED), 3, 1),
             0, 2 * x.numel() * 4,
             f"the P2G decoder's FF output {tuple(x.shape)} f32, rate 0.1, "
-            f"bit-exact forward and backward",
-            library_ms=timed(lambda: F.dropout(x, 0.1, True), 20, 3))
+            f"bit-exact forward and backward; host-paced (`dropout_costs`)",
+            library_ms=lib_ms)
     log(f"[p2g] f32 kernels vs their plain versions at the danp batch's "
         f"encoder shape (N = {N}, T = {T}, lengths {min(lens)}..{max(lens)}, "
         f"D = {D}, H = {H}; {card}; relative norms, gates {JSA_OUT_REL} on "
@@ -6037,29 +6275,30 @@ def p2g_timed_steps(what, model, opt, kw, loader, budget, want, card):
     batches = loader.epoch(1)
     rows = []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(P2G_WARM + P2G_TIMED):
-        b = next(batches)
-        db = p2g_device_batch(b)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        before = counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ev[0].record()
-        state, m = step(state, db, 1e-4, gen)
-        ev[1].record()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        per = {k: v - before[k] for k, v in counts().items()}
-        if per != want or not math.isfinite(float(m["loss"])):
-            fail(f"{what} train step {i + 1}: launches {per} != {want}, loss "
-                 f"{float(m['loss'])}")
-        if i >= P2G_WARM:
-            w = b.weight > 0
-            src = (b.cand_lens[w].sum() if "cands" in db
-                   else b.src_lens[w].sum())
-            rows.append((ev[0].elapsed_time(ev[1]), 1e3 * wall,
-                         int((b.tgt_lens[w] + 1).sum()), int(src),
-                         tuple(db["src"].shape), float(m["loss"])))
+    with no_plain_masks(f"{what} train step"):
+        for i in range(P2G_WARM + P2G_TIMED):
+            b = next(batches)
+            db = p2g_device_batch(b)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ev[0].record()
+            state, m = step(state, db, 1e-4, gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            per = {k: v - before[k] for k, v in counts().items()}
+            if per != want or not math.isfinite(float(m["loss"])):
+                fail(f"{what} train step {i + 1}: launches {per} != {want}, "
+                     f"loss {float(m['loss'])}")
+            if i >= P2G_WARM:
+                w = b.weight > 0
+                src = (b.cand_lens[w].sum() if "cands" in db
+                       else b.src_lens[w].sum())
+                rows.append((ev[0].elapsed_time(ev[1]), 1e3 * wall,
+                             int((b.tgt_lens[w] + 1).sum()), int(src),
+                             tuple(db["src"].shape), float(m["loss"])))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     busy = phase_profile(lambda: step(state, db, 1e-4, gen),
                          f"one {what} train step",
@@ -6158,11 +6397,12 @@ def p2g_decode_vs_cpu(model, config, Vs, Vt, dev_loader, max_len, t_weight,
         fail("P2G marginalised decoding on the card departs from the CPU's")
 
 
-def p2g_full_width(root, data, card):
+def p2g_full_width(root, data, card, rec):
     """llm-p2g danp and tkm at full width on the stand-in: stages 1-2 of
     pipeline.asr (tokenizers, pack), the kernel checks at danp's first
     batch, each recipe's step against its plain step and its timed steps,
-    then danp's decoding against the CPU."""
+    then danp's decoding against the CPU. Returns the launches of a danp
+    step."""
     import shutil
     import torch
     from cat_tpu_torch.p2g import train as p2g
@@ -6170,7 +6410,6 @@ def p2g_full_width(root, data, card):
     from cat_tpu_torch.utils.data import Seq2SeqDataset, Seq2SeqLoader
     from cat_tpu_torch.utils.scheduler import build_scheduler
     train_text = os.path.join(data, "train_text")
-    ms = {}
     danp_model = None
     for name in (P2G_DANP, P2G_TKM):
         mode_name = name.rsplit("/", 1)[1]
@@ -6217,12 +6456,14 @@ def p2g_full_width(root, data, card):
             t = time.perf_counter()
             p2g_kernel_checks(torch.Generator(device="cuda").manual_seed(27),
                               b, kcfg["hdim"], kcfg["num_heads"],
-                              (db["src"].shape[0], U), card)
+                              (db["src"].shape[0], U), card, rec)
             log(f"[p2g] kernel checks {time.perf_counter() - t:.1f} s")
             kw = dict(mode="ce", label_smoothing=opts["label_smoothing"])
         else:
             kw = dict(mode="tkm", t_weight=opts["t_weight"])
         want = p2g_launches(kcfg)
+        if mode_name == "danp":
+            danp_launches = want
         t = time.perf_counter()
         p2g_step_vs_plain(f"llm-p2g {mode_name}", model, db, kw, want, card)
         parts = {"step vs plain": time.perf_counter() - t}
@@ -6238,15 +6479,14 @@ def p2g_full_width(root, data, card):
             parts["decoding"] = time.perf_counter() - t
         t = time.perf_counter()
         _, opt = build_scheduler(config["scheduler"], model.parameters())
-        ms[mode_name] = p2g_timed_steps(f"llm-p2g {mode_name}", model, opt,
-                                        kw, loader, lkw["frame_budget"], want,
-                                        card)
+        p2g_timed_steps(f"llm-p2g {mode_name}", model, opt, kw, loader,
+                        lkw["frame_budget"], want, card)
         parts["timed steps"] = time.perf_counter() - t
         log(f"[p2g] llm-p2g {mode_name} parts ({card}): "
             + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
         del model, opt
         torch.cuda.empty_cache()
-    return ms
+    return danp_launches
 
 
 def p2g_toy(root, card):
@@ -6301,12 +6541,12 @@ def p2g_toy(root, card):
             fail(f"p2g-danp {mode}: wer_dev.json {res}")
 
 
-def phase_p2g(card):
+def phase_p2g(rec, card):
     """[p2g] LLM-P2G on the card: the llm-p2g recipes at full width on a
     stand-in (kernel checks, steps against their plain versions, timed
     steps, decoding against the CPU) and template p2g-danp through
-    pipeline.asr stages 1-4 in modes ce and tkm. Returns the mean ms of a
-    danp and a tkm step."""
+    pipeline.asr stages 1-4 in modes ce and tkm. Returns the launches of
+    a danp step."""
     import shutil
     import tempfile
     t_phase = time.perf_counter()
@@ -6314,7 +6554,7 @@ def phase_p2g(card):
     root = tempfile.mkdtemp(prefix="p2g-", dir=os.path.join(REPO, "build"))
     try:
         data = p2g_corpus(os.path.join(root, "llm"))
-        ms = p2g_full_width(os.path.join(root, "llm"), data, card)
+        launches = p2g_full_width(os.path.join(root, "llm"), data, card, rec)
         p2g_toy(os.path.join(root, "toy"), card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -6323,7 +6563,7 @@ def phase_p2g(card):
         f"{P2G_K} expanded) and {P2G_SPLITS['dev']} dev utterances, the data "
         f"and BPE corpus paths, no training beyond {P2G_WARM + P2G_TIMED + 1} "
         f"steps; template p2g-danp max_epochs 250 -> {P2G_TOY_EPOCHS})")
-    return ms
+    return launches
 
 
 # ---------------------------------------------------------------- [f32]
@@ -6503,15 +6743,20 @@ def f32_full_width(gen, rels, errs, card):
         f"ffn_f32_fwd {tag}", out, ffn.ff_reference(x, *ffp, **kw), flat,
         rels)
     bitwise("ffn_f32_fwd", out, ffn.ff_forward_f32(x, *ffp, **kw))
-    got = ffn.ff_backward_f32(x, *ffp, do, **kw)
-    want = ffn.ff_backward_reference(x, *ffp, do, **kw)
-    errs[f"ffn_f32_bwd {tag}"] = max(
-        [gate_ln(f"ffn_f32_bwd dx {tag}", got[0], want[0], flat, rels)]
-        + [gate_rel(f"ffn_f32_bwd {n} {tag}", g, w, JSA_SUM_REL, rels)
-           for n, g, w in zip(("dgamma", "dbeta", "dw1", "db1", "dw2",
-                               "db2"), got[1:], want[1:])])
-    bitwise("ffn_f32_bwd", got, ffn.ff_backward_f32(x, *ffp, do, **kw))
-    del got, want
+    for rate in (0.0, 0.1):  # row 13 f32 on its 3xTF32 route
+        rkw, rtag = dict(rate=rate, seed=SEED), f"crf-v1 width rate {rate}"
+        before = ffn.ff_backward_f32.routes["tensor_cores"]
+        got = ffn.ff_backward_f32(x, *ffp, do, **rkw)
+        if ffn.ff_backward_f32.routes["tensor_cores"] != before + 1:
+            fail("ffn_f32_bwd at crf-v1's width: not the 3xTF32 route")
+        want = ffn.ff_backward_reference(x, *ffp, do, **rkw)
+        errs[f"ffn_f32_bwd {rtag}"] = max(
+            [gate_ln(f"ffn_f32_bwd dx {rtag}", got[0], want[0], flat, rels)]
+            + [gate_rel(f"ffn_f32_bwd {n} {rtag}", g, w, JSA_SUM_REL, rels)
+               for n, g, w in zip(("dgamma", "dbeta", "dw1", "db1", "dw2",
+                                   "db2"), got[1:], want[1:])])
+        bitwise("ffn_f32_bwd", got, ffn.ff_backward_f32(x, *ffp, do, **rkw))
+        del got, want
     out, lse = attention.relpos_attention_forward_f32(*att, **kw)
     ref_out, ref_lse = attention.relpos_attention_reference_lse(*att, **kw)
     vm = mask[:, None, :].expand_as(lse)
@@ -6537,25 +6782,33 @@ def f32_full_width(gen, rels, errs, card):
     del got, want
     sq = sum(L * L for L in tl)
     lines = []
-    for name, call, flops in (
+    for name, call, flops, peak in (
             ("ffn_f32_fwd", lambda: ffn.ff_forward_f32(x, *ffp, **kw),
-             4 * Rv * D * Fh),
+             4 * Rv * D * Fh, PEAK_F32_FLOPS),
             ("ffn_f32_bwd", lambda: ffn.ff_backward_f32(x, *ffp, do, **kw),
-             10 * Rv * D * Fh),
+             3 * 10 * Rv * D * Fh, PEAK_TF32_FLOPS),
             ("relpos_attention_f32_fwd",
              lambda: attention.relpos_attention_forward_f32(*att, **kw),
-             6 * sq * Dh * H),
+             6 * sq * Dh * H, PEAK_F32_FLOPS),
             ("relpos_attention_f32_bwd",
              lambda: attention.relpos_attention_backward_f32(
-                 *att, out, lse, dao, **kw), 16 * sq * Dh * H)):
+                 *att, out, lse, dao, **kw), 16 * sq * Dh * H,
+             PEAK_F32_FLOPS)):
         ms = timed(call, 10, 2)
-        b = 1e3 * flops / PEAK_F32_FLOPS
+        b = 1e3 * flops / peak
         lines.append(f"{name} {ms:.4f} ms (bound {b:.4f} ms by operations, "
                      f"{b / ms:.1%})")
+    split = device_split(lambda: ffn.ff_backward_f32(x, *ffp, do, **kw))
     log(f"[f32] rows 12-13 and 2-3 at float32 at crf-v1's width (N={N} "
-        f"T'={T}, {Rv} valid rows, D={D}, F={Fh}, H={H}, rate 0.1; {card}): "
-        + "; ".join(lines))
+        f"T'={T}, {Rv} valid rows, D={D}, F={Fh}, H={H}, rate 0.1; {card}; "
+        f"row 13 f32's bound three TF32 products at 495 TFLOP/s, its "
+        f"CUDA-core bound {1e3 * 10 * Rv * D * Fh / PEAK_F32_FLOPS:.4f} ms): "
+        + "; ".join(lines) + "; row 13 f32 by launch (device ms a launch, "
+        f"torch.profiler): " + (", ".join(f"{k} {v:.4f}" for k, v in
+                                          split.items()) or "not measured"))
     del x, do, att, out, lse
+    torch.cuda.empty_cache()
+    ffn_f32_witness(gen, "crf-v1's width", N, T, D, card)
     torch.cuda.empty_cache()
 
 
@@ -7055,16 +7308,18 @@ def main():
     phase_pipeline(card())
     phase_me2e(card())
     jsa_launches = phase_jsa(rec, card())
-    phase_p2g(card())
+    p2g_step = phase_p2g(rec, card())
     # each kernel's launches on the main path that runs it: the crf-v1
     # training phase, the rnnt-v1 one for the RNN-T lattice kernels, a
     # jsa-spg step with the sampler for the f32 routes of rows 2-3 and
-    # 12-13, a float32 crf-v1 step for those of rows 14-17
+    # 12-13, a float32 crf-v1 step for those of rows 14-17, an llm-p2g
+    # danp step for the decoders' attention masks
     records = [rec.by_name[k] for k in KERNELS]
     for r in records:
         r["launches"] = (rnnt_launches if r["name"].startswith("rnnt_")
                          else jsa_launches if r["name"] in JSA_F32
                          else f32_launches if r["name"] in CONV_F32
+                         else p2g_step if r["name"] == "dropout_mask"
                          else launches)[r["name"]]
     log(f"[env] whole run {time.perf_counter() - t_all:.1f} s")
 

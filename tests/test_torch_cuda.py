@@ -684,6 +684,62 @@ def test_fused_ops_keep_the_graph_on_the_card(gen):
         assert t.grad is not None and torch.isfinite(t.grad).all()
 
 
+# row 13 f32 (csrc/ffn_f32.cu): D, F multiples of 4 take the 3xTF32 route
+# (ragged R past the 128-row tiles and the 32-row stages; R of 0 and 1;
+# D below a 32-wide stage), others the CUDA-core tiles
+F32_FF_SHAPES = [(16, 64, 37), (16, 64, 0), (256, 1024, 1), (256, 1024, 500),
+                 (320, 1280, 300), (512, 2048, 129), (36, 100, 70),
+                 (18, 72, 40)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D,F,R", F32_FF_SHAPES)
+def test_ff_backward_f32_routes(gen, D, F, R, rate):
+    """Row 13 f32 against its plain version (outputs 1e-5, sums over rows
+    1e-4 relative norm), two calls bit for bit, on the route of
+    `f32_bwd_route`."""
+    x, do = _rnd(gen, R, D), _rnd(gen, R, D)
+    p = (1 + _rnd(gen, D, s=0.1), _rnd(gen, D, s=0.1),
+         _rnd(gen, D, F, s=D ** -0.5), _rnd(gen, F, s=0.1),
+         _rnd(gen, F, D, s=F ** -0.5), _rnd(gen, D, s=0.1))
+    kw = dict(rate=rate, seed=SEED)
+    route = ffn.f32_bwd_route(D, F)
+    before = ffn.ff_backward_f32.routes[route]
+    got = ffn.ff_backward(x, *p, do, **kw)
+    assert ffn.ff_backward_f32.routes[route] == before + 1
+    want = ffn.ff_backward_reference(x, *p, do, **kw)
+    for name, a, b in zip("dx gamma beta w1 b1 w2 b2".split(), got, want):
+        if R == 0:
+            assert not a.any(), name
+        else:
+            _f32_rel(a, b, 1e-5 if name == "dx" else 1e-4, name)
+    again = ffn.ff_backward(x, *p, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("rows,cols", [(46, 46), (46, 48), (512, 512),
+                                       (3, 5), (1, 1), (17, 36)])
+def test_dropout_mask_is_dropout_scale(gen, rows, cols):
+    for stream in (0, 1):
+        before = dropout.dropout_mask.launches
+        got = dropout.dropout_mask(SEED, stream, rows, cols, 0.1, "cuda")
+        assert dropout.dropout_mask.launches == before + 1
+        assert torch.equal(got, dropout.dropout_scale(SEED, stream, 1, rows,
+                                                      cols, 0.1, "cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_kernel_off_the_16_byte_route(gen, dtype):
+    """Tensors that are not 16-byte aligned, and rows of a multiple of 4
+    values but of an odd number of Philox groups, give the same bits."""
+    x = _rnd(gen, 4 * 64 + 1, dtype=dtype)[1:].view(4, 64)
+    assert torch.equal(dropout.dropout_apply(x, 0.1, SEED),
+                       dropout.dropout_reference(x, 0.1, SEED))
+    y = _rnd(gen, 3, 5, 4, dtype=dtype)
+    assert torch.equal(dropout.dropout_apply(y, 0.3, SEED),
+                       dropout.dropout_reference(y, 0.3, SEED))
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("C", [512, 510])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -172,13 +172,13 @@ def test_causal_transformer_without_lengths_and_fully_masked_rows():
 
 def test_attention_dropout_keeps_one_minus_rate(monkeypatch):
     masks = []
-    scale = pd.dropout_scale
+    scale = pd.dropout_mask
 
     def spy(*args, **kw):
         masks.append(scale(*args, **kw))
         return masks[-1]
 
-    monkeypatch.setattr(pd, "dropout_scale", spy)
+    monkeypatch.setattr(pd, "dropout_mask", spy)
     U, rate = 64, 0.3
     model = pd.CausalTransformer(vocab_size=V, hdim=8, num_layers=2,
                                  num_heads=2, ff_dim=8, max_len=U,

@@ -401,20 +401,20 @@ def test_dropout_masks_at_rate_0_1(monkeypatch):
     model = pp2g.build_model({"p2g": {"kwargs": dict(KW, dropout_rate=0.1)}},
                              V_P, V_G, device="cpu")
     calls, scales = [], []
-    apply, scale = dropout_op.dropout_apply, pd.dropout_scale
+    apply, scale = dropout_op.dropout_apply, pd.dropout_mask
 
     def record_apply(x, rate, seed, stream=0):
         out = apply(x, rate, seed, stream)
         calls.append((rate, tuple(seed), out == 0, x != 0))
         return out
 
-    def record_scale(seed, stream, planes, rows, cols, rate, device=None):
-        out = scale(seed, stream, planes, rows, cols, rate, device)
+    def record_scale(seed, stream, rows, cols, rate, device=None):
+        out = scale(seed, stream, rows, cols, rate, device)
         scales.append(out)
         return out
 
     monkeypatch.setattr(dropout_op, "dropout_apply", record_apply)
-    monkeypatch.setattr(pd, "dropout_scale", record_scale)
+    monkeypatch.setattr(pd, "dropout_mask", record_scale)
     d = seq_batch(2, N=4, S=40, U=30)
     tb = {k: t(v) for k, v in d.items()}
     model.train()
